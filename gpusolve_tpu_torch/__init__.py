@@ -1,0 +1,42 @@
+"""gpusolve_tpu_torch — the PyTorch / CUDA port of gpusolve_tpu for one
+NVIDIA H100.
+
+A 3-D geometric-multigrid solver for the Poisson equation on a structured
+grid with a config-driven 7-point stencil.  The JAX package ``gpusolve_tpu``
+beside it is the reference this package is held against; this package
+imports neither it nor jax.
+
+This slice runs the LINEAR single-device solve (V, W and F cycles) on
+hand-written CUDA kernels (``ops/csrc/multigrid.cu``), with a plain PyTorch
+version of every op (``ops/ref.py``) that runs on the CPU and serves as the
+kernels' oracle.  Entry points run on CUDA unless the caller asks for the
+CPU (``device="cpu"``, or ``--platform cpu`` on the CLI).
+
+    import gpusolve_tpu_torch as gt
+    params = gt.parse_config("examples/linear_127.conf")
+    state = gt.build_grid(params)            # on CUDA
+    state, history = gt.solve(state, params, check_every=10)
+"""
+
+from gpusolve_tpu_torch.config import (
+    GridParams,
+    Mode,
+    Stencil,
+    parse_config,
+    parse_config_text,
+)
+from gpusolve_tpu_torch.grid import GridLevel, GridState, build_grid
+from gpusolve_tpu_torch.solver.vcycle import solve, vcycle
+
+__all__ = [
+    "GridLevel",
+    "GridParams",
+    "GridState",
+    "Mode",
+    "Stencil",
+    "build_grid",
+    "parse_config",
+    "parse_config_text",
+    "solve",
+    "vcycle",
+]

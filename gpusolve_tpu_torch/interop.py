@@ -1,0 +1,112 @@
+"""Carry level fields between the JAX package and the port.
+
+The JAX package allocates each level as ``(8, 8, 128)``-rounded arrays
+(its ``grid.alloc_shape``) whose cells outside the padded region
+``(n+2)³`` are zero; the port allocates exactly ``(n+2)³``.  These helpers
+take the JAX fields as numpy arrays (``np.asarray`` of the JAX arrays; this
+module imports no JAX), crop them, and back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gpusolve_tpu_torch.config import GridParams, Mode
+from gpusolve_tpu_torch.grid import (
+    GridLevel,
+    GridState,
+    resolve_device,
+    torch_dtype,
+)
+
+Dims = Tuple[int, int, int]
+
+
+def jax_alloc_shape(dims: Dims) -> Tuple[int, int, int]:
+    """The JAX package's allocation of a level with interior ``dims``: x
+    and y of the padded extent rounded up to 8, z up to 128."""
+    nx, ny, nz = dims
+
+    def up(n, m):
+        return -(-n // m) * m
+
+    return (up(nx + 2, 8), up(ny + 2, 8), up(nz + 2, 128))
+
+
+def crop(arr: np.ndarray, dims: Dims) -> np.ndarray:
+    """The padded region ``(n+2)³`` of a JAX-allocated field; raises if any
+    cell outside it is nonzero."""
+    px, py, pz = (d + 2 for d in dims)
+    if any(a < p for a, p in zip(arr.shape, (px, py, pz))):
+        raise ValueError(
+            f"array of shape {arr.shape} is smaller than the padded extent "
+            f"{(px, py, pz)}"
+        )
+    outside = arr.copy()
+    outside[:px, :py, :pz] = 0
+    if np.any(outside != 0):
+        raise ValueError(
+            "nonzero values outside the padded region: not a JAX-allocated "
+            "level field"
+        )
+    return arr[:px, :py, :pz]
+
+
+def _fields(params: GridParams) -> Tuple[str, ...]:
+    extra = {Mode.NONLINEAR: ("rest_v",), Mode.NEWTON: ("newton_v",)}
+    return ("v", "f", "r") + extra.get(params.mode, ())
+
+
+def state_from_numpy(
+    params: GridParams,
+    levels: Sequence[Mapping[str, np.ndarray]],
+    device=None,
+) -> GridState:
+    """A port ``GridState`` from per-level JAX fields.  Each mapping holds
+    the level's fields by name (``v``, ``f`` and, by mode, ``rest_v`` or
+    ``newton_v``); a missing ``r`` starts at zero."""
+    device = resolve_device(device)
+    dtype = torch_dtype(params.dtype)
+    dims = params.level_dims()
+    if len(levels) != len(dims):
+        raise ValueError(
+            f"{len(levels)} levels given, the configuration has {len(dims)}"
+        )
+    out = []
+    for d, fields in zip(dims, levels):
+        kw = {}
+        for name in _fields(params):
+            arr = fields.get(name)
+            if arr is None:
+                if name != "r":
+                    raise ValueError(f"level field {name!r} missing")
+                kw[name] = torch.zeros(
+                    tuple(n + 2 for n in d), dtype=dtype, device=device
+                )
+                continue
+            kw[name] = torch.from_numpy(
+                np.ascontiguousarray(crop(np.asarray(arr), d))
+            ).to(device=device, dtype=dtype)
+        out.append(GridLevel(**kw))
+    newton_f = out[0].f if params.mode == Mode.NEWTON else None
+    return GridState(levels=tuple(out), newton_f=newton_f)
+
+
+def state_to_numpy(
+    state: GridState, params: GridParams
+) -> List[Dict[str, np.ndarray]]:
+    """Per-level numpy fields of a port state in the JAX package's
+    allocation, zero beyond the padded region."""
+    out = []
+    for d, lvl in zip(params.level_dims(), state.levels):
+        fields = {}
+        for name in _fields(params):
+            a = getattr(lvl, name).detach().cpu().numpy()
+            full = np.zeros(jax_alloc_shape(d), dtype=a.dtype)
+            full[: a.shape[0], : a.shape[1], : a.shape[2]] = a
+            fields[name] = full
+        out.append(fields)
+    return out

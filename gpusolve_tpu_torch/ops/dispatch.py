@@ -1,0 +1,122 @@
+"""Per-op choice between the CUDA kernels and their plain versions.
+
+The counterpart of ``gpusolve_tpu/ops/dispatch.py``.  ``GridParams.backend``
+and the tensors' device decide:
+  * a CPU tensor runs the plain PyTorch version (the kernel wrapper itself
+    routes it there); ``backend="cuda"`` on a CPU tensor raises;
+  * a CUDA tensor launches the CUDA kernel (float32 only; the wrapper
+    raises on anything else), or runs the plain version when
+    ``backend="ref"`` was asked for.
+No failure of a kernel falls back to the plain version.
+
+The ops keep the kernels' buffer protocol (``ops/kernels.py``): outputs are
+written in place into buffers the caller passes, interiors only, and every
+op takes the batch's ``done`` flag.  ``smooth`` ping-pongs v with the
+level's spare buffer and returns the pair in their new roles.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from gpusolve_tpu_torch.config import GridParams
+from gpusolve_tpu_torch.ops import kernels
+
+Dims = Tuple[int, int, int]
+
+
+def _pick(params: GridParams, t: torch.Tensor, kernel, plain):
+    """The kernel wrapper, which runs its plain version itself for a CPU
+    tensor, or the plain version when ``backend="ref"``."""
+    if params.backend == "ref":
+        return plain
+    if params.backend == "cuda" and t.device.type != "cuda":
+        raise ValueError(
+            f"backend='cuda' needs CUDA tensors, got a tensor on {t.device}"
+        )
+    return kernel
+
+
+def smooth(
+    v: torch.Tensor,
+    f: torch.Tensor,
+    spare: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    h: float,
+    n_iter: int,
+    done: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_iter`` damped-Jacobi sweeps.  Returns ``(v_new, spare_new)``:
+    each sweep writes into the spare buffer, and the two trade roles."""
+    sweep = _pick(
+        params, v, kernels.jacobi_sweep, kernels.jacobi_sweep_plain
+    )
+    a, b = v, spare
+    for _ in range(n_iter):
+        sweep(b, a, f, dims, params, h, done)
+        a, b = b, a
+    return a, b
+
+
+def residual_op(
+    r: Optional[torch.Tensor],
+    v: torch.Tensor,
+    f: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    h: float,
+    *,
+    write_r: bool = True,
+    norm_out: Optional[torch.Tensor] = None,
+    thr: float = -1.0,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """Residual into ``r`` (when ``write_r``); with ``norm_out`` (a
+    one-element tensor) also Σr² into it, setting ``done`` when
+    ``thr >= 0`` and ``Σr² <= thr``."""
+    with_norm = norm_out is not None
+    residual = _pick(params, v, kernels.residual, kernels.residual_plain)
+    partials = residual(
+        r, v, f, dims, params, h, write_r=write_r, with_norm=with_norm,
+        done=done,
+    )
+    if with_norm:
+        finalize = _pick(
+            params, v, kernels.finalize, kernels.finalize_plain
+        )
+        finalize(partials, norm_out, thr, done)
+
+
+def restrict_op(
+    f_coarse: torch.Tensor,
+    v_coarse: torch.Tensor,
+    r_fine: torch.Tensor,
+    fine_dims: Dims,
+    coarse_dims: Dims,
+    params: GridParams,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """Full-weighting restriction of ``r_fine`` into ``f_coarse``, and the
+    zero start of ``v_coarse`` (LINEAR)."""
+    op = _pick(
+        params, r_fine, kernels.restrict_zero, kernels.restrict_zero_plain
+    )
+    op(f_coarse, v_coarse, r_fine, fine_dims, coarse_dims, done)
+
+
+def prolong_add_op(
+    v_fine: torch.Tensor,
+    v_coarse: torch.Tensor,
+    coarse_dims: Dims,
+    fine_dims: Dims,
+    params: GridParams,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``v_fine += P(v_coarse)`` in place."""
+    op = _pick(
+        params, v_fine, kernels.prolong_add, kernels.prolong_add_plain
+    )
+    op(v_fine, v_coarse, fine_dims, coarse_dims, done)

@@ -1,0 +1,507 @@
+"""The CUDA kernels of the LINEAR cycle: build, binding, wrappers, and the
+plain PyTorch version beside each.
+
+The kernels live in ``csrc/multigrid.cu``.  On first use they are compiled
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
+with a plain C interface under ``gpusolve_tpu_torch/build/`` and loaded with
+``ctypes``; nothing is built when this module is imported.
+
+Every wrapper:
+  * takes the output buffers from the caller and writes them in place (the
+    kernels allocate nothing; the wrapper allocates scratch with
+    ``torch.empty``), and writes interiors only, so zero halos stay zero;
+  * takes an optional ``done`` flag (an int32 tensor of one element): a
+    kernel returns at once when it is set, which is how a batch of cycles
+    stops on the device (``vcycle_batch``);
+  * on a CPU tensor runs its plain version, which has the same contract and
+    reads ``done`` on the host; on a CUDA tensor it checks device, dtype,
+    shape and contiguity, launches on the current stream, raises on any
+    launch error, and adds one to ``launches[name]``.
+
+Each plain version computes the same function with ``ops/ref.py``, writes
+the same cells (interiors only) and rounds every field value bit for bit as
+its kernel does; ``chip_smoke.py`` holds each kernel against it on the
+card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from gpusolve_tpu_torch.config import GridParams, Mode, Stencil
+from gpusolve_tpu_torch.ops import ref
+
+Dims = Tuple[int, int, int]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "multigrid.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+KERNELS = ("residual", "finalize", "jacobi_sweep", "restrict_zero",
+           "prolong_add")
+# Launches of each kernel since the last reset_launches(): only the CUDA
+# launches count, never the plain versions.
+launches = {name: 0 for name in KERNELS}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and binding
+# ---------------------------------------------------------------------------
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
+        "CUDA kernels are compiled on first use"
+    )
+
+
+def _library_path() -> Path:
+    """The built library's path, keyed by a hash of the source and flags so
+    an edited source builds anew."""
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"libmultigrid-{digest}.so"
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernels if they are not built yet.  Returns the library
+    path and the compiler's messages (ptxas register and spill counts), or
+    an empty string when the library was already there."""
+    out = _library_path()
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out, proc.stdout + proc.stderr
+
+
+def _bind(path: Path):
+    lib = ctypes.CDLL(str(path))
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    sig = {
+        "mg_residual_blocks": ([i, i, i], ll),
+        "mg_error_string": ([i], ctypes.c_char_p),
+        "mg_residual": ([p, p, p, p, p, i, i, i, p, p, i, f, i, p], i),
+        "mg_finalize": ([p, ll, p, f, p, p], i),
+        "mg_jacobi": ([p, p, p, p, i, i, i, p, p, i, f, f, f, p], i),
+        "mg_restrict_zero": ([p, p, p, p, i, i, i, i, i, i, p], i),
+        "mg_prolong_add": ([p, p, p, i, i, i, i, i, i, p], i),
+    }
+    for name, (args, res) in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
+    return lib
+
+
+def lib():
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = _bind(build()[0])
+        return _lib
+
+
+def _check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib().mg_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
+
+
+class _Taps:
+    """The stencil as the C interface takes it: values and (x, y, z)
+    offsets in host arrays that live as long as this object."""
+
+    def __init__(self, stencil: Stencil) -> None:
+        n = len(stencil.values)
+        if n == 0 or n > 7:
+            raise ValueError(f"stencil has {n} taps; the kernels take 1..7")
+        self.n = n
+        self.val = (ctypes.c_float * n)(*stencil.values)
+        self.off = (ctypes.c_int * (3 * n))(
+            *[o for off in stencil.offsets for o in off]
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(stencil: Stencil) -> _Taps:
+    return _Taps(stencil)
+
+
+# ---------------------------------------------------------------------------
+# Checks
+# ---------------------------------------------------------------------------
+
+
+def _padded(dims: Dims) -> Tuple[int, int, int]:
+    return (dims[0] + 2, dims[1] + 2, dims[2] + 2)
+
+
+def _check(t: torch.Tensor, what: str, shape, device, dtype=torch.float32):
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{what} is not contiguous")
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensor on {t.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}"
+        )
+    return t.device
+
+
+def _check_halving(fine_dims: Dims, coarse_dims: Dims) -> None:
+    if any(c != fd // 2 for fd, c in zip(fine_dims, coarse_dims)):
+        raise ValueError(
+            f"coarse dims {coarse_dims} are not the halving of {fine_dims}"
+        )
+
+
+def _check_linear(params: GridParams) -> None:
+    if params.mode != Mode.LINEAR:
+        raise NotImplementedError(
+            f"the CUDA kernels cover LINEAR mode; {params.mode.name} comes "
+            "with ROADMAP Queue 2 item 2(c)/(d)"
+        )
+
+
+def _done_or_zero(done: Optional[torch.Tensor], device) -> torch.Tensor:
+    if done is None:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    _check(done, "done", (1,), device, torch.int32)
+    return done
+
+
+def _is_done(done: Optional[torch.Tensor]) -> bool:
+    return done is not None and bool(done.item())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# residual — replaces gpusolve_tpu/ops/pallas_kernels.py::_residual_call
+# (:292) for LINEAR.  Bound: bytes (reads v and f, writes r: 12 B/point with
+# r, 8 B/point norm-only, ~15 flops).  Design: one thread per (y, z) column
+# walks 8 x-planes so neighbour taps hit in L1; Σr² is reduced in float64
+# per block into `partials` (one double per block, fixed order) for
+# `finalize`, instead of the TPU kernel's sequential Kahan chain, which a
+# parallel grid cannot carry.
+# ---------------------------------------------------------------------------
+
+
+def residual_plain(
+    r_out, v, f, dims, params, h, *, write_r=True, with_norm=False,
+    done=None,
+) -> Optional[torch.Tensor]:
+    """Plain version of :func:`residual`: the partials are one float64
+    Σr²."""
+    _check_linear(params)
+    if _is_done(done):
+        return v.new_zeros(1, dtype=torch.float64) if with_norm else None
+    r, _ = ref.residual(v, f, dims, params, h)
+    if write_r:
+        ref.interior(r_out, dims).copy_(ref.interior(r, dims))
+    if not with_norm:
+        return None
+    r_int = ref.interior(r, dims).to(torch.float64)
+    return torch.sum(r_int * r_int).reshape(1)
+
+
+def residual(
+    r_out: Optional[torch.Tensor],
+    v: torch.Tensor,
+    f: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    h: float,
+    *,
+    write_r: bool = True,
+    with_norm: bool = False,
+    done: Optional[torch.Tensor] = None,
+) -> Optional[torch.Tensor]:
+    """``r = f − A·v/h²`` over the interior, written into ``r_out`` when
+    ``write_r``.  With ``with_norm`` returns the float64 partial sums of r²
+    that :func:`finalize` reduces; else None."""
+    if v.device.type == "cpu":
+        return residual_plain(
+            r_out, v, f, dims, params, h, write_r=write_r,
+            with_norm=with_norm, done=done,
+        )
+    _check_linear(params)
+    dev = _cuda_device(v)
+    shape = _padded(dims)
+    _check(v, "v", shape, dev)
+    _check(f, "f", shape, dev)
+    if write_r:
+        _check(r_out, "r_out", shape, dev)
+        if r_out.data_ptr() in (v.data_ptr(), f.data_ptr()):
+            raise ValueError("r_out must not alias v or f")
+    done = _done_or_zero(done, dev)
+    L = lib()
+    partials = None
+    if with_norm:
+        partials = torch.empty(
+            L.mg_residual_blocks(*dims), dtype=torch.float64, device=dev
+        )
+    t = _taps(params.stencil)
+    rc = L.mg_residual(
+        v.data_ptr(), f.data_ptr(), r_out.data_ptr() if write_r else None,
+        partials.data_ptr() if with_norm else None, done.data_ptr(),
+        *dims, t.val, t.off, t.n, 1.0 / (h * h), int(write_r), _stream(dev),
+    )
+    _check_rc(rc, "residual")
+    launches["residual"] += 1
+    return partials
+
+
+# ---------------------------------------------------------------------------
+# finalize — replaces the norm output and in-kernel early stop of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (cycle_body, :1370) and
+# the Σr² scalar of _residual_call.  Bound: launch latency (one block reads
+# the ~n/2048 partials, a few hundred KB at 511³).  Design: one block of
+# 1024 threads sums the partials in a fixed order in float64, rounds once
+# to float32, writes ``out[0]`` and sets ``done`` when
+# ``thr >= 0 and sumsq <= thr``.
+# ---------------------------------------------------------------------------
+
+
+def finalize_plain(partials, out, thr=-1.0, done=None) -> None:
+    """Plain version of :func:`finalize`."""
+    if _is_done(done):
+        return
+    ss = torch.sum(partials).to(out.dtype)
+    out.copy_(ss.reshape(1))
+    if thr >= 0.0 and done is not None:
+        done.copy_((ss <= thr).to(torch.int32).reshape(1))
+
+
+def finalize(
+    partials: torch.Tensor,
+    out: torch.Tensor,
+    thr: float = -1.0,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``out[0] = float32(Σ partials)``; set ``done`` when ``thr >= 0`` and
+    the sum is ``<= thr``.  ``out`` may be a one-element view into a longer
+    vector (the batch's per-cycle norms)."""
+    if partials.device.type == "cpu":
+        return finalize_plain(partials, out, thr, done)
+    dev = _cuda_device(partials)
+    _check(partials, "partials", None, dev, torch.float64)
+    _check(out, "out", (1,), dev)
+    if thr >= 0.0 and done is None:
+        raise ValueError("a stop threshold needs a done flag to set")
+    done = _done_or_zero(done, dev)
+    rc = lib().mg_finalize(
+        partials.data_ptr(), partials.numel(), out.data_ptr(), thr,
+        done.data_ptr(), _stream(dev),
+    )
+    _check_rc(rc, "finalize")
+    launches["finalize"] += 1
+
+
+# ---------------------------------------------------------------------------
+# jacobi_sweep — replaces the LINEAR sweeps of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (jacobi_plane, :421) and
+# gpusolve_tpu/ops/pallas_kernels.py::_jacobi_call (:172).  Bound: bytes
+# (reads v and f, writes v_out: 12 B/point, ~17 flops).  Design: out of
+# place into the level's spare buffer (the dispatch.smooth ping-pong), with
+# the residual's thread walk; one pass per sweep (the TPU kernel fuses a
+# leg's sweeps into one pass, later work here).
+# ---------------------------------------------------------------------------
+
+
+def jacobi_sweep_plain(v_out, v, f, dims, params, h, done=None) -> None:
+    """Plain version of :func:`jacobi_sweep`."""
+    _check_linear(params)
+    if _is_done(done):
+        return
+    new_v = ref.jacobi(v, f, dims, params, h, 1)
+    ref.interior(v_out, dims).copy_(ref.interior(new_v, dims))
+
+
+def jacobi_sweep(
+    v_out: torch.Tensor,
+    v: torch.Tensor,
+    f: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    h: float,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """One damped-Jacobi sweep ``v_out = v + ω·(α·(f − A·v/h²))``,
+    ``α = h²/values[0]``, over the interior of ``v_out``."""
+    if v.device.type == "cpu":
+        return jacobi_sweep_plain(v_out, v, f, dims, params, h, done)
+    _check_linear(params)
+    dev = _cuda_device(v)
+    shape = _padded(dims)
+    for name, t in (("v_out", v_out), ("v", v), ("f", f)):
+        _check(t, name, shape, dev)
+    if v_out.data_ptr() in (v.data_ptr(), f.data_ptr()):
+        raise ValueError("v_out must not alias v or f")
+    done = _done_or_zero(done, dev)
+    t = _taps(params.stencil)
+    rc = lib().mg_jacobi(
+        v_out.data_ptr(), v.data_ptr(), f.data_ptr(), done.data_ptr(),
+        *dims, t.val, t.off, t.n, 1.0 / (h * h),
+        (h * h) / params.stencil.diag, params.omega, _stream(dev),
+    )
+    _check_rc(rc, "jacobi_sweep")
+    launches["jacobi_sweep"] += 1
+
+
+# ---------------------------------------------------------------------------
+# restrict_zero — replaces the restrict consumer of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (restrict_yz, :484) and
+# gpusolve_tpu/ops/pallas_kernels.py::_restrict_call (:526), with the
+# coarse v zero start fused in.  Bound: bytes (reads the fine r once,
+# writes coarse f and v: 5 B per fine point).  Design: one thread per
+# coarse point gathers its 27 fine taps, most of which neighbouring threads
+# also load (L1 hits); the zero fill rides along so coarse v costs no pass.
+# ---------------------------------------------------------------------------
+
+
+def restrict_zero_plain(
+    f_coarse, v_coarse, r_fine, fine_dims, coarse_dims, done=None
+) -> None:
+    """Plain version of :func:`restrict_zero`."""
+    if _is_done(done):
+        return
+    fc = ref.restrict_full_weighting(
+        r_fine, fine_dims, coarse_dims, f_coarse.shape
+    )
+    ref.interior(f_coarse, coarse_dims).copy_(ref.interior(fc, coarse_dims))
+    ref.interior(v_coarse, coarse_dims).zero_()
+
+
+def restrict_zero(
+    f_coarse: torch.Tensor,
+    v_coarse: torch.Tensor,
+    r_fine: torch.Tensor,
+    fine_dims: Dims,
+    coarse_dims: Dims,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """27-point full weighting of ``r_fine`` into the interior of
+    ``f_coarse``; the interior of ``v_coarse`` is set to zero."""
+    if r_fine.device.type == "cpu":
+        return restrict_zero_plain(
+            f_coarse, v_coarse, r_fine, fine_dims, coarse_dims, done
+        )
+    dev = _cuda_device(r_fine)
+    _check(r_fine, "r_fine", _padded(fine_dims), dev)
+    _check(f_coarse, "f_coarse", _padded(coarse_dims), dev)
+    _check(v_coarse, "v_coarse", _padded(coarse_dims), dev)
+    if f_coarse.data_ptr() == v_coarse.data_ptr():
+        raise ValueError("f_coarse and v_coarse must be distinct")
+    _check_halving(fine_dims, coarse_dims)
+    done = _done_or_zero(done, dev)
+    rc = lib().mg_restrict_zero(
+        f_coarse.data_ptr(), v_coarse.data_ptr(), r_fine.data_ptr(),
+        done.data_ptr(), *coarse_dims, *fine_dims, _stream(dev),
+    )
+    _check_rc(rc, "restrict_zero")
+    launches["restrict_zero"] += 1
+
+
+# ---------------------------------------------------------------------------
+# prolong_add — replaces the prolongation + correction of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (prolong_yz, :499) and
+# gpusolve_tpu/ops/pallas_kernels.py::_prolong_call (:613).  Bound: bytes
+# (reads and writes fine v, reads the ⅛-size coarse v: 8.5 B per fine
+# point).  Design: in place (each point reads only its own fine v); one
+# thread per coarse z column evaluates the reference's 4-pass interpolation
+# in closed form for the two fine z points the column feeds, from up to 8
+# coarse values, which neighbouring threads share through L1.
+# ---------------------------------------------------------------------------
+
+
+def prolong_add_plain(
+    v_fine, v_coarse, fine_dims, coarse_dims, done=None
+) -> None:
+    """Plain version of :func:`prolong_add`."""
+    if _is_done(done):
+        return
+    new_v = ref.prolong_add(v_fine, v_coarse, coarse_dims, fine_dims)
+    ref.interior(v_fine, fine_dims).copy_(ref.interior(new_v, fine_dims))
+
+
+def prolong_add(
+    v_fine: torch.Tensor,
+    v_coarse: torch.Tensor,
+    fine_dims: Dims,
+    coarse_dims: Dims,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``v_fine += P(v_coarse)`` over the interior, trilinear, in place."""
+    if v_fine.device.type == "cpu":
+        return prolong_add_plain(
+            v_fine, v_coarse, fine_dims, coarse_dims, done
+        )
+    dev = _cuda_device(v_fine)
+    _check(v_fine, "v_fine", _padded(fine_dims), dev)
+    _check(v_coarse, "v_coarse", _padded(coarse_dims), dev)
+    _check_halving(fine_dims, coarse_dims)
+    done = _done_or_zero(done, dev)
+    rc = lib().mg_prolong_add(
+        v_fine.data_ptr(), v_coarse.data_ptr(), done.data_ptr(),
+        *fine_dims, *coarse_dims, _stream(dev),
+    )
+    _check_rc(rc, "prolong_add")
+    launches["prolong_add"] += 1

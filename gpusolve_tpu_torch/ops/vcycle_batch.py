@@ -1,0 +1,155 @@
+"""A batch of up to ``maxk`` multigrid cycles with an early stop on the
+device: the counterpart of ``gpusolve_tpu/ops/pallas_vcycle2.py``
+(``vcycle2_fused`` :1452, ``batch_call`` :1506).
+
+The TPU package runs the batch as one Pallas launch.  Here the host
+enqueues every op of every cycle (V, W or F, LINEAR) on the current stream
+without waiting, and the early stop lives on the device: every kernel reads
+the batch's ``done`` flag and returns at once when it is set, and the
+finalize kernel of each cycle writes that cycle's Σr² into ``norms[i]`` and
+sets ``done`` when ``thr >= 0 and Σr² <= thr``.  Cycles after the stop
+write nothing, so the levels stay as the last executed cycle left them and
+their norms stay −1.  The host reads the norms once, at the end of the
+batch.
+
+On CPU tensors, or with ``backend="ref"``, the same function runs the plain
+ops, which read ``done`` on the host.
+
+State is updated in place: the smoother ping-pongs each level's v with its
+spare buffer r, so the host tracks which tensor holds v after every cycle
+and, once the norms show how many cycles ran, hands each level the
+tensors it held after the last executed cycle.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gpusolve_tpu_torch.config import GridParams, Mode
+from gpusolve_tpu_torch.grid import GridLevel, GridState
+from gpusolve_tpu_torch.ops import dispatch as ops
+
+_SUBCYCLES = {"V": ("V",), "W": ("W", "W"), "F": ("F", "V")}
+
+
+def level_visits(nlev: int, cycle_type: str) -> List[int]:
+    """Visits of each level per outer cycle: V -> 1, F -> l+1, W -> 2^l."""
+    visits = [1] * nlev
+    for lev in range(1, nlev):
+        if cycle_type == "W":
+            visits[lev] = 2 * visits[lev - 1]
+        elif cycle_type == "F":
+            visits[lev] = visits[lev - 1] + 1
+    return visits
+
+
+def launches_per_cycle(params: GridParams) -> dict:
+    """Kernel launches one cycle makes, by kernel (the count the launch
+    counters must show): each visit of a non-coarsest level runs pre + post
+    sweeps, one residual, one restriction and one prolongation; each visit
+    of the coarsest runs pre + post sweeps; the cycle ends with the
+    norm-only residual and the finalize."""
+    nlev = params.num_levels
+    visits = level_visits(nlev, params.cycle_type)
+    sweeps = params.pre_smoothing + params.post_smoothing
+    inner = sum(visits[:-1])
+    return {
+        "residual": inner + 1,
+        "finalize": 1,
+        "jacobi_sweep": sweeps * sum(visits),
+        "restrict_zero": inner,
+        "prolong_add": inner,
+    }
+
+
+def _cycle(
+    levels: List[GridLevel], params: GridParams, done: torch.Tensor
+) -> None:
+    """One cycle of ``params.cycle_type`` rooted at the finest level,
+    without the final norm."""
+    nlev = len(levels)
+    dims = params.level_dims()
+    hs = [params.level_h(i) for i in range(nlev)]
+
+    def smooth_level(i: int, n_iter: int) -> None:
+        lvl = levels[i]
+        lvl.v, lvl.r = ops.smooth(
+            lvl.v, lvl.f, lvl.r, dims[i], params, hs[i], n_iter, done
+        )
+
+    def cycle_at(i: int, kind: str) -> None:
+        if i == nlev - 1:
+            # Coarsest level: smoothing only, no direct solve.
+            smooth_level(i, params.pre_smoothing + params.post_smoothing)
+            return
+        # Down: pre-smooth, residual, restrict it into the coarse RHS and
+        # start the coarse v at zero.
+        smooth_level(i, params.pre_smoothing)
+        lvl, nxt = levels[i], levels[i + 1]
+        ops.residual_op(
+            lvl.r, lvl.v, lvl.f, dims[i], params, hs[i], done=done
+        )
+        ops.restrict_op(
+            nxt.f, nxt.v, lvl.r, dims[i], dims[i + 1], params, done
+        )
+        for sub in _SUBCYCLES[kind]:
+            cycle_at(i + 1, sub)
+        # Up: prolong the coarse correction into v, post-smooth.
+        ops.prolong_add_op(
+            lvl.v, nxt.v, dims[i + 1], dims[i], params, done
+        )
+        smooth_level(i, params.post_smoothing)
+
+    cycle_at(0, params.cycle_type)
+
+
+def run(
+    state: GridState,
+    params: GridParams,
+    maxk: int,
+    ncyc: Optional[int] = None,
+    thr: float = -1.0,
+    timer=None,
+) -> np.ndarray:
+    """Run up to ``min(ncyc, maxk)`` cycles on ``state`` in place.
+
+    Returns the ``(maxk,)`` vector of per-cycle finest-level Σr² in the
+    working dtype, −1 for cycles not executed (stopped by
+    ``Σr² <= thr`` with ``thr >= 0``, or beyond ``ncyc``).  The one host
+    sync of the batch is the read of this vector (timed as ``sumBuffer``
+    when a timer is given)."""
+    if params.mode != Mode.LINEAR:
+        raise NotImplementedError(
+            f"{params.mode.name} cycles come with ROADMAP Queue 2 item "
+            "2(c)/(d)"
+        )
+    levels = list(state.levels)
+    lvl0 = levels[0]
+    dims0 = params.level_dims()[0]
+    h0 = params.level_h(0)
+    n = maxk if ncyc is None else min(ncyc, maxk)
+    norms = torch.full((maxk,), -1.0, dtype=lvl0.v.dtype, device=lvl0.v.device)
+    done = torch.zeros(1, dtype=torch.int32, device=lvl0.v.device)
+    held: List[List[Tuple[torch.Tensor, torch.Tensor]]] = [
+        [(lvl.v, lvl.r) for lvl in levels]
+    ]
+    for i in range(n):
+        _cycle(levels, params, done)
+        lvl0 = levels[0]
+        ops.residual_op(
+            None, lvl0.v, lvl0.f, dims0, params, h0, write_r=False,
+            norm_out=norms[i : i + 1], thr=thr, done=done,
+        )
+        held.append([(lvl.v, lvl.r) for lvl in levels])
+    if timer is not None:
+        with timer.section("sumBuffer"):
+            out = norms.cpu().numpy()
+    else:
+        out = norms.cpu().numpy()
+    executed = int(np.count_nonzero(out != -1.0))
+    for lvl, (v, r) in zip(levels, held[executed]):
+        lvl.v, lvl.r = v, r
+    return out
