@@ -4,25 +4,35 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line is printed):
-  1. the card (nvidia-smi name and power limit), versions, kernel build;
-  2. every CUDA kernel against its plain PyTorch version on CUDA tensors at
-     15³, 16³, (31,15,63), 127³ and the 511³ level-0 shape: fields to
-     rtol 1e-5 with atol 1e-5·max|plain|, Σr² to rel 1e-5; a set ``done``
-     flag must leave every output untouched;
-  3. the main path: examples/linear_127.conf at grid_dim 511³ (9 levels)
-     through build_grid + solve(check_every=10), with the launch counters
-     zeroed just before and read just after; the counts must equal what
-     the schedule implies, the history must fall and end by the stop test
-     or maxiter, and the same solve on the plain ops (backend="ref") on
-     the card must give the same history (rel 2e-4 while the residual is
+  1. the card (nvidia-smi name and power limit), versions, kernel build,
+     and ptxas's registers and spills for every kernel instantiation;
+  2. every CUDA kernel, in each mode it has (LINEAR, FAS, NEWTON with ũ
+     random at scale 0.3), against its plain PyTorch version on CUDA
+     tensors at 15³, 16³, (31,15,63), 127³ and the 511³ level-0 shape:
+     fields to rtol 1e-5 with atol 1e-5·max|plain|, Σr² to rel 1e-5,
+     each printed with whether it is bit-identical; a set ``done`` flag
+     must leave every output untouched;
+  3. the main paths, each with the launch counters zeroed just before it
+     and read just after; the counts must equal what the schedule
+     implies, and the same run on the plain ops (backend="ref") on the
+     card must give the same history (rel 2e-4 while the residual is
      >= 1e-4·initial, a factor 1.5 nearer the float32 floor, a stop at
-     most one cycle apart); then W and F cycles at 127³ likewise;
-  4. the CLI on examples/linear_127.conf as it is;
-  5. times at 511³ with CUDA events: device ms per cycle over a 10-cycle
-     batch, a profiler breakdown by kernel, each kernel's time beside its
-     bound (bytes over the card's memory rate, or operations over its
-     float32 rate), its plain version's time and a PyTorch library call
-     computing the same function, and a one-field copy as the stream
+     most one cycle apart):
+       * examples/linear_127.conf at grid_dim 511³ (9 levels) through
+         build_grid + solve(check_every=10), then W and F at 127³;
+       * examples/nonlinear_127.conf (FAS) likewise at 511³, W and F at
+         127³;
+       * examples/newton_127.conf at 511³ through newton_solve (the plain
+         run takes 3 outer steps and is compared on those);
+  4. the CLI on the three example configs as they are (--validate on the
+     nonlinear and Newton ones: the mode line, the progress lines, and a
+     max-abs error against the analytic solution under 5e-4);
+  5. times at 511³ with CUDA events: device ms per LINEAR and FAS cycle
+     over a 10-cycle batch and per Newton step, a profiler breakdown by
+     kernel for each, each kernel's time beside its bound (bytes over the
+     card's memory rate, or operations over its float32 rate), its plain
+     version's time and a PyTorch library call computing the same
+     function where there is one, and a one-field copy as the stream
      ceiling.
 
 The line before the last is the JSON object {"kernels": [...]}; the last
@@ -42,24 +52,38 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CONF = os.path.join(HERE, "examples", "linear_127.conf")
+CONFS = {
+    mode: os.path.join(HERE, "examples", f"{mode}_127.conf")
+    for mode in ("linear", "nonlinear", "newton")
+}
 SRC = "gpusolve_tpu_torch/ops/csrc/multigrid.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
 BIG = (511, 511, 511)
 RTOL = 1e-5
 DEVICE = "cuda"
+NEWTON_PLAIN_STEPS = 3
 
 # The TPU kernel each CUDA kernel replaces (builder line of the Pallas
 # kernel, or of the part of _vcycle2_call it stands for).
 REPLACES = {
     "residual": "gpusolve_tpu/ops/pallas_kernels.py:292",
+    "residual_fas": "gpusolve_tpu/ops/pallas_kernels.py:292",
+    "residual_newton": "gpusolve_tpu/ops/pallas_kernels.py:292",
     "finalize": "gpusolve_tpu/ops/pallas_vcycle2.py:1370",
     "jacobi_sweep": "gpusolve_tpu/ops/pallas_vcycle2.py:421",
+    "jacobi_sweep_fas": "gpusolve_tpu/ops/pallas_kernels.py:172",
+    "jacobi_sweep_newton": "gpusolve_tpu/ops/pallas_vcycle2.py:432",
     "restrict_zero": "gpusolve_tpu/ops/pallas_vcycle2.py:484",
+    "restrict": "gpusolve_tpu/ops/pallas_kernels.py:526",
     "prolong_add": "gpusolve_tpu/ops/pallas_vcycle2.py:499",
+    "apply_fas": "gpusolve_tpu/ops/pallas_vcycle2.py:1338",
+    "subtract": "gpusolve_tpu/ops/pallas_vcycle2.py:527",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+# Operations counted for one e^x (a range reduction, a polynomial and a
+# scale); the bound of every kernel here is bytes all the same.
+EXP_OPS = 8
 
 
 class SmokeFailure(Exception):
@@ -99,6 +123,43 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+def padded(dims):
+    return (dims[0] + 2) * (dims[1] + 2) * (dims[2] + 2)
+
+
+def inner(dims):
+    return dims[0] * dims[1] * dims[2]
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: ptxas
+# ---------------------------------------------------------------------------
+
+
+def print_ptxas(log):
+    """One line per kernel instantiation: registers and spills.  The
+    LINEAR instantiations must not spill."""
+    name = None
+    spills = {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d+([A-Za-z_]+_kernel)(?:IL[ib](\d)E)?",
+                          m.group(1))
+            name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "") \
+                if k else m.group(1)
+            continue
+        if name and "spill" in line:
+            spills[name] = line.strip()
+        if name and "registers" in line:
+            print(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}; "
+                  f"{spills.get(name, '')}")
+    for lin in ("residual_kernel<0>", "jacobi_kernel<0>"):
+        line = spills.get(lin, "")
+        check(not re.search(r"[1-9]\d* bytes spill", line),
+              f"{lin} spills: {line}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -124,102 +185,174 @@ class Fields:
 
         self.v = field(dims, 0.05)
         self.f = field(dims, 100.0)
+        self.nv = field(dims, 0.3)  # Newton's ũ, as tests/test_pallas.py
         self.vc = field(self.cdims, 0.05)
+        self.wc = field(self.cdims, 0.05)
 
 
-def close(got, want, what, errs, key):
-    """Fields agree to rtol 1e-5 and atol 1e-5·max|want|."""
+class Record:
+    """Worst field error and bit-identity of each kernel over the shapes."""
+
+    def __init__(self):
+        self.errs = {}
+        self.same = {}
+
+    def close(self, got, want, what, key):
+        """Fields agree to rtol 1e-5 and atol 1e-5·max|want|."""
+        import torch
+
+        diff = (got - want).abs()
+        err = float(diff.max())
+        atol = RTOL * float(want.abs().max())
+        ok = bool((diff <= atol + RTOL * want.abs()).all())
+        same = bool(torch.equal(got, want))
+        self.errs[key] = max(self.errs.get(key, 0.0), err)
+        self.same[key] = self.same.get(key, True) and same
+        check(ok, f"{what}: max_abs_err {err:.3e} over atol {atol:.3e}")
+        return (f"{what}: max_abs_err={err:.3e} (atol {atol:.3e}) "
+                f"bit-identical={same}")
+
+    def scalar(self, got, want, what, key):
+        err = abs(got - want)
+        check(err <= RTOL * abs(want), f"{what}: {got} vs {want}")
+        self.errs[key] = max(self.errs.get(key, 0.0), err)
+        self.same[key] = self.same.get(key, True) and got == want
+        return f"{what}: rel_err={err / abs(want):.3e}"
+
+
+def check_mode_kernels(p, x, rec, lines):
+    """The mode-templated kernels (residual, jacobi_sweep; FAS apply_fas)
+    in ``p.mode``, and finalize in LINEAR."""
     import torch
 
-    diff = (got - want).abs()
-    err = float(diff.max())
-    atol = RTOL * float(want.abs().max())
-    ok = bool((diff <= atol + RTOL * want.abs()).all())
-    errs[key] = max(errs.get(key, 0.0), err)
-    check(ok, f"{what}: max_abs_err {err:.3e} over atol {atol:.3e}")
-    return err, atol
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    dims, h = x.dims, p.level_h(0)
+    tag = f"{'x'.join(map(str, dims))} {p.mode.name}"
+    nv = x.nv if p.mode == Mode.NEWTON else None
+    res = K.variant("residual", p.mode)
+    r_k, r_p = torch.zeros_like(x.v), torch.zeros_like(x.v)
+    parts = K.residual(r_k, x.v, x.f, dims, p, h, with_norm=True,
+                       newton_v=nv)
+    parts_p = K.residual_plain(r_p, x.v, x.f, dims, p, h, with_norm=True,
+                               newton_v=nv)
+    ss_k, ss_p = x.v.new_empty(1), x.v.new_empty(1)
+    K.finalize(parts, ss_k)
+    K.finalize_plain(parts_p, ss_p)
+    lines.append(rec.close(r_k, r_p, f"{res} {tag}", res))
+    lines.append(rec.scalar(float(ss_k), float(ss_p),
+                            f"{res} sum r^2 {tag}", res))
+    if p.mode == Mode.LINEAR:
+        # finalize alone: the kernel's partials through both versions.
+        fin_p = x.v.new_empty(1)
+        K.finalize_plain(parts, fin_p)
+        lines.append(rec.scalar(float(ss_k), float(fin_p),
+                                f"finalize {tag}", "finalize"))
+
+    jac = K.variant("jacobi_sweep", p.mode)
+    out_k, out_p = torch.zeros_like(x.v), torch.zeros_like(x.v)
+    K.jacobi_sweep(out_k, x.v, x.f, dims, p, h, newton_v=nv)
+    K.jacobi_sweep_plain(out_p, x.v, x.f, dims, p, h, newton_v=nv)
+    lines.append(rec.close(out_k, out_p, f"{jac} {tag}", jac))
+
+    outs = [r_k, out_k]
+    if p.mode == Mode.NONLINEAR:
+        a_k, a_p = x.f.clone(), x.f.clone()
+        K.apply_fas(a_k, x.v, dims, p, h)
+        K.apply_fas_plain(a_p, x.v, dims, p, h)
+        lines.append(rec.close(a_k, a_p, f"apply_fas {tag}", "apply_fas"))
+        outs.append(a_k)
+
+    # A set done flag: every kernel returns without writing.
+    done = torch.ones(1, dtype=torch.int32, device=DEVICE)
+    snap = [t.clone() for t in (*outs, ss_k)]
+    K.residual(r_k, x.f, x.v, dims, p, h, done=done, newton_v=nv)
+    K.finalize(parts, ss_k, 1e30, done)
+    K.jacobi_sweep(out_k, x.f, x.v, dims, p, h, done, newton_v=nv)
+    if p.mode == Mode.NONLINEAR:
+        K.apply_fas(outs[-1], x.f, dims, p, h, done)
+    torch.cuda.synchronize()
+    for a, b in zip(snap, (*outs, ss_k)):
+        check(torch.equal(a, b), f"done flag ignored at {tag}")
+    lines.append(f"done-flag skip {tag}: ok")
 
 
-def check_kernels(params_of, errs):
+def check_transfer_kernels(x, rec, lines):
+    """The mode-free kernels: restrict_zero, restrict (one and two
+    outputs), prolong_add, subtract."""
     import torch
 
     from gpusolve_tpu_torch.ops import kernels as K
 
+    dims, cdims = x.dims, x.cdims
+    tag = "x".join(map(str, dims))
+    fc_k = 7.0 * x.vc  # stale values, zero halo
+    vc_k = x.vc.clone()
+    fc_p, vc_p = fc_k.clone(), vc_k.clone()
+    K.restrict_zero(fc_k, vc_k, x.f, dims, cdims)
+    K.restrict_zero_plain(fc_p, vc_p, x.f, dims, cdims)
+    lines.append(rec.close(fc_k, fc_p, f"restrict_zero {tag}",
+                           "restrict_zero"))
+    check(torch.equal(vc_k, vc_p), f"restrict_zero {tag}: coarse v")
+
+    o_k, o2_k = 7.0 * x.vc, 3.0 * x.wc
+    o_p, o2_p = o_k.clone(), o2_k.clone()
+    K.restrict(o_k, x.v, dims, cdims, out2=o2_k)
+    K.restrict_plain(o_p, x.v, dims, cdims, out2=o2_p)
+    lines.append(rec.close(o_k, o_p, f"restrict {tag}", "restrict"))
+    check(torch.equal(o_k, o2_k), f"restrict {tag}: out2 differs from out")
+    one_k = x.wc.clone()
+    K.restrict(one_k, x.nv, dims, cdims)
+    one_p = x.wc.clone()
+    K.restrict_plain(one_p, x.nv, dims, cdims)
+    lines.append(rec.close(one_k, one_p, f"restrict one-output {tag}",
+                           "restrict"))
+
+    v_k, v_p = x.v.clone(), x.v.clone()
+    K.prolong_add(v_k, x.vc, dims, cdims)
+    K.prolong_add_plain(v_p, x.vc, dims, cdims)
+    lines.append(rec.close(v_k, v_p, f"prolong_add {tag}", "prolong_add"))
+
+    s_k, s_p = x.vc.clone(), x.vc.clone()
+    K.subtract(s_k, x.wc, cdims)
+    K.subtract_plain(s_p, x.wc, cdims)
+    lines.append(rec.close(s_k, s_p, f"subtract {tag}", "subtract"))
+
+    done = torch.ones(1, dtype=torch.int32, device=DEVICE)
+    outs = (fc_k, vc_k, o_k, o2_k, v_k, s_k)
+    snap = [t.clone() for t in outs]
+    K.restrict_zero(fc_k, vc_k, x.v, dims, cdims, done)
+    K.restrict(o_k, x.f, dims, cdims, done, out2=o2_k)
+    K.prolong_add(v_k, x.vc, dims, cdims, done)
+    K.subtract(s_k, x.vc, cdims, done)
+    torch.cuda.synchronize()
+    for a, b in zip(snap, outs):
+        check(torch.equal(a, b), f"done flag ignored at {tag}")
+    lines.append(f"done-flag skip {tag} transfers: ok")
+
+
+def check_kernels(base, rec):
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+
     for n, dims in enumerate(SHAPES):
-        p = params_of(dims)
-        h = p.level_h(0)
         x = Fields(dims, seed=100 + n)
-        tag = "x".join(map(str, dims))
         lines = []
-
-        r_k, r_p = torch.zeros_like(x.v), torch.zeros_like(x.v)
-        parts = K.residual(r_k, x.v, x.f, dims, p, h, with_norm=True)
-        parts_p = K.residual_plain(r_p, x.v, x.f, dims, p, h,
-                                   with_norm=True)
-        ss_k, ss_p = x.v.new_empty(1), x.v.new_empty(1)
-        K.finalize(parts, ss_k)
-        K.finalize_plain(parts_p, ss_p)
-        err, atol = close(r_k, r_p, f"residual {tag}", errs, "residual")
-        rel = abs(float(ss_k) - float(ss_p)) / float(ss_p)
-        check(rel <= RTOL, f"residual sum r^2 {tag}: rel err {rel:.3e}")
-        lines.append(f"residual {tag}: max_abs_err={err:.3e} "
-                     f"(atol {atol:.3e}) sumsq rel_err={rel:.3e}")
-
-        # finalize alone: the kernel's partials through both versions.
-        fin_p = x.v.new_empty(1)
-        K.finalize_plain(parts, fin_p)
-        err = abs(float(ss_k) - float(fin_p))
-        errs["finalize"] = max(errs.get("finalize", 0.0), err)
-        check(err <= RTOL * abs(float(fin_p)), f"finalize {tag}: {err:.3e}")
-        lines.append(f"finalize {tag}: max_abs_err={err:.3e}")
-
-        out_k, out_p = torch.zeros_like(x.v), torch.zeros_like(x.v)
-        K.jacobi_sweep(out_k, x.v, x.f, dims, p, h)
-        K.jacobi_sweep_plain(out_p, x.v, x.f, dims, p, h)
-        err, atol = close(out_k, out_p, f"jacobi_sweep {tag}", errs,
-                          "jacobi_sweep")
-        lines.append(f"jacobi_sweep {tag}: max_abs_err={err:.3e} "
-                     f"(atol {atol:.3e})")
-
-        fc_k = 7.0 * x.vc  # stale values, zero halo
-        vc_k = x.vc.clone()
-        fc_p, vc_p = fc_k.clone(), vc_k.clone()
-        K.restrict_zero(fc_k, vc_k, r_k, dims, x.cdims)
-        K.restrict_zero_plain(fc_p, vc_p, r_k, dims, x.cdims)
-        err, atol = close(fc_k, fc_p, f"restrict_zero {tag}", errs,
-                          "restrict_zero")
-        check(torch.equal(vc_k, vc_p), f"restrict_zero {tag}: coarse v")
-        lines.append(f"restrict_zero {tag}: max_abs_err={err:.3e} "
-                     f"(atol {atol:.3e})")
-
-        v_k, v_p = x.v.clone(), x.v.clone()
-        K.prolong_add(v_k, x.vc, dims, x.cdims)
-        K.prolong_add_plain(v_p, x.vc, dims, x.cdims)
-        err, atol = close(v_k, v_p, f"prolong_add {tag}", errs,
-                          "prolong_add")
-        lines.append(f"prolong_add {tag}: max_abs_err={err:.3e} "
-                     f"(atol {atol:.3e})")
-
-        # A set done flag: every kernel returns without writing.
-        done = torch.ones(1, dtype=torch.int32, device=DEVICE)
-        snap = [t.clone() for t in (r_k, ss_k, out_k, fc_k, vc_k, v_k)]
-        K.residual(r_k, x.f, x.v, dims, p, h, done=done)
-        K.finalize(parts, ss_k, 1e30, done)
-        K.jacobi_sweep(out_k, x.f, x.v, dims, p, h, done)
-        K.restrict_zero(fc_k, vc_k, x.v, dims, x.cdims, done)
-        K.prolong_add(v_k, x.vc, dims, x.cdims, done)
-        torch.cuda.synchronize()
-        for a, b in zip(snap, (r_k, ss_k, out_k, fc_k, vc_k, v_k)):
-            check(torch.equal(a, b), f"done flag ignored at {tag}")
-        lines.append(f"done-flag skip {tag}: ok")
+        for mode in Mode:
+            p = base.replace(grid_dim=dims, mode=mode, print_progress=False)
+            check_mode_kernels(p, x, rec, lines)
+        check_transfer_kernels(x, rec, lines)
         for line in lines:
             print(f"check {line}")
         del x
         torch.cuda.empty_cache()
+    print(f"check bit-identical over all shapes: {rec.same}")
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the main path
+# Phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -248,71 +381,107 @@ def run_solve(params, check_every):
     state = gt.build_grid(params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, hist = gt.solve(state, params, check_every=check_every)
+    if params.mode == gt.Mode.NEWTON:
+        state, hist = gt.newton_solve(state, params, check_every=check_every)
+    else:
+        state, hist = gt.solve(state, params, check_every=check_every)
     torch.cuda.synchronize()
     return state, hist, time.perf_counter() - t0
 
 
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
 def expected_counts(params, hist, k):
+    """Launches of a solve: whole batches of ``k`` cycles (the cycles after
+    an early stop are enqueued and skip on the device), plus the initial
+    residual norm.  A Newton solve: the initial F, and per outer step R(ũ)
+    into levels 1..L−2, one inner batch of 10 cycles and F again."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
 
-    executed = len(hist) - 1
-    launched = min(params.maxiter, k * math.ceil(executed / k))
     per = launches_per_cycle(params)
-    return {
-        name: n * launched + (1 if name in ("residual", "finalize") else 0)
-        for name, n in per.items()
-    }
+    executed = len(hist) - 1
+    if params.mode == Mode.NEWTON:
+        cycles = 10 * executed
+        norms = executed + 1
+        first = "residual_fas"
+    else:
+        cycles = min(params.maxiter, k * math.ceil(executed / k))
+        norms = 1
+        first = K.variant("residual", params.mode)
+    want = {name: 0 for name in K.KERNELS}
+    for name, n in per.items():
+        want[name] += n * cycles
+    want[first] += norms
+    want["finalize"] += norms
+    if params.mode == Mode.NEWTON:
+        want["restrict"] += executed * max(0, params.num_levels - 2)
+    return nonzero(want)
 
 
-def main_path(params):
+def main_path(params, label, k=10, plain_maxiter=None):
+    """One main path: launch counts, the stop, the fall of the residual,
+    and the plain ops on the card.  Returns the state and the counts."""
     import torch
 
+    from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
 
-    k = 10
     K.reset_launches()
     state, hist, secs = run_solve(params, k)
-    counts = dict(K.launches)
-    print(f"main path 511^3 V: {len(hist) - 1} cycles in {secs:.3f} s "
-          f"wall ({1e3 * secs / (len(hist) - 1):.2f} ms per cycle, initial "
-          f"residual included), history {hist}")
-    print(f"main path launches: {counts}")
+    counts = nonzero(K.launches)
+    steps = len(hist) - 1
+    print(f"main path {label}: {steps} steps in {secs:.3f} s wall "
+          f"({1e3 * secs / steps:.2f} ms per step, initial residual "
+          f"included), history {hist}")
+    print(f"main path {label} launches: {counts}")
     want = expected_counts(params, hist, k)
-    check(counts == want, f"launch counts {counts} != schedule {want}")
-    check(all(n > 0 for n in counts.values()), "a kernel never launched")
+    check(counts == want, f"{label}: launch counts {counts} != schedule "
+          f"{want}")
     initial = hist[0]
     stop = [i for i, r in enumerate(hist[1:])
             if r <= initial / (1.0 / params.tol)]
-    check(stop == [] and len(hist) - 1 == params.maxiter
-          or stop == [len(hist) - 2],
-          "the loop did not end by the stop test or maxiter")
-    above = [r for r in hist if r >= 1e-4 * initial]
+    check(stop == [] and steps == params.maxiter or stop == [steps - 1],
+          f"{label}: the loop did not end by the stop test or maxiter")
+    # LINEAR falls every step down to 1e-4·initial; FAS and Newton reach
+    # their float32 floor sooner, so they are held to falling above 1e-2.
+    floor = 1e-4 if params.mode == Mode.LINEAR else 1e-2
+    above = [r for r in hist if r >= floor * initial]
     check(all(b < a for a, b in zip(above, above[1:])),
-          "the residual did not fall every cycle")
+          f"{label}: the residual did not fall every step")
 
     K.reset_launches()
-    ref_state, ref_hist, ref_secs = run_solve(params.replace(backend="ref"), k)
+    plain = params.replace(backend="ref",
+                           maxiter=plain_maxiter or params.maxiter)
+    ref_state, ref_hist, ref_secs = run_solve(plain, k)
     check(all(n == 0 for n in K.launches.values()),
           "the plain path launched a kernel")
-    print(f"plain path 511^3 V: {ref_secs:.3f} s wall "
-          f"({1e3 * ref_secs / (len(ref_hist) - 1):.2f} ms per cycle), "
+    print(f"plain path {label}: {ref_secs:.3f} s wall "
+          f"({1e3 * ref_secs / (len(ref_hist) - 1):.2f} ms per step), "
           f"history {ref_hist}")
-    worst = histories_agree(hist, ref_hist, "511^3 kernels vs plain")
-    v, vr = state.levels[0].v, ref_state.levels[0].v
-    vdiff = float((v - vr).abs().max())
-    scale = float(vr.abs().max())
-    check(vdiff <= 2e-5 * scale + 2e-4 * scale,
-          f"final v differs by {vdiff:.3e}")
-    print(f"kernels vs plain at 511^3: worst history rel diff {worst:.3e}, "
-          f"final v max_abs_diff {vdiff:.3e} (bit-identical: "
-          f"{torch.equal(v, vr)})")
+    worst = histories_agree(hist[:len(ref_hist)] if plain_maxiter
+                            else hist, ref_hist, f"{label} kernels vs plain")
+    line = f"kernels vs plain {label}: worst history rel diff {worst:.3e}"
+    if plain_maxiter is None:
+        field = "newton_v" if params.mode == Mode.NEWTON else "v"
+        v = getattr(state.levels[0], field)
+        vr = getattr(ref_state.levels[0], field)
+        vdiff = float((v - vr).abs().max())
+        scale = float(vr.abs().max())
+        check(vdiff <= 2e-5 * scale + 2e-4 * scale,
+              f"{label}: final v differs by {vdiff:.3e}")
+        line += (f", final {field} max_abs_diff {vdiff:.3e} "
+                 f"(bit-identical: {torch.equal(v, vr)})")
+    print(line)
     del ref_state
     torch.cuda.empty_cache()
-    return state, hist, counts
+    return state, counts
 
 
-def other_cycles(params127):
+def other_cycles(params127, label):
     from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
 
@@ -321,39 +490,50 @@ def other_cycles(params127):
                               print_progress=False)
         K.reset_launches()
         _, hist, secs = run_solve(p, 3)
-        counts = dict(K.launches)
+        counts = nonzero(K.launches)
         _, ref_hist, _ = run_solve(p.replace(backend="ref"), 3)
-        worst = histories_agree(hist, ref_hist, f"127^3 {cyc}")
+        worst = histories_agree(hist, ref_hist, f"127^3 {label} {cyc}")
         per = launches_per_cycle(p)
-        check(counts["jacobi_sweep"] == 3 * per["jacobi_sweep"],
-              f"{cyc}: launch counts {counts}")
-        print(f"127^3 {cyc}-cycle: history {hist} ({secs:.3f} s), worst rel "
-              f"diff vs plain {worst:.3e}, launches {counts}")
+        sweep = K.variant("jacobi_sweep", p.mode)
+        check(counts[sweep] == 3 * per[sweep],
+              f"{label} {cyc}: launch counts {counts}")
+        print(f"127^3 {label} {cyc}-cycle: history {hist} ({secs:.3f} s), "
+              f"worst rel diff vs plain {worst:.3e}, launches {counts}")
 
 
-def cli_path():
+def cli_path(conf, mode_line, newton=False):
     from gpusolve_tpu_torch import cli
     from gpusolve_tpu_torch.ops import kernels as K
 
     K.reset_launches()
+    validate = mode_line != "Solving linear problem"
+    args = [conf, "--devices"] + (["--validate"] if validate else [])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main([CONF, "--devices"])
+        rc = cli.main(args)
     out = buf.getvalue()
     sys.stdout.write(out)
     check(rc == 0, f"cli exited {rc}")
     lines = out.splitlines()
-    check(lines[0] == f"Using config file {CONF}", "cli: config line")
-    check("Solving linear problem" in lines, "cli: mode line")
-    init = [ln for ln in lines if ln.startswith("Inital residual: ")]
-    iters = [re.match(r"^iter: (\d+) residual: (\S+) Took (\d+)ms", ln)
-             for ln in lines if ln.startswith("iter: ")]
+    check(lines[0] == f"Using config file {conf}", "cli: config line")
+    check(mode_line in lines, f"cli: mode line {mode_line!r}")
+    word = "newton iter" if newton else "iter"
+    first = "Inital newton residual: " if newton else "Inital residual: "
+    init = [ln for ln in lines if ln.startswith(first)]
+    iters = [re.match(rf"^{word}: (\d+) residual: (\S+) Took (\d+)ms", ln)
+             for ln in lines if ln.startswith(f"{word}: ")]
     check(len(init) == 1 and iters and all(iters), "cli: progress lines")
     check([int(m.group(1)) for m in iters] == list(range(len(iters))),
           "cli: iteration numbers")
-    check(all(n > 0 for n in K.launches.values()),
-          f"cli: a kernel never launched {dict(K.launches)}")
-    print(f"cli launches: {dict(K.launches)}")
+    if validate:
+        m = [re.match(r"^max-abs error vs analytic solution: (\S+)$", ln)
+             for ln in lines if ln.startswith("max-abs error")]
+        check(len(m) == 1 and m[0], "cli: the --validate line")
+        err = float(m[0].group(1))
+        check(math.isfinite(err) and err < 5e-4,
+              f"cli: max-abs error {err} vs the analytic solution")
+    check(K.launches["finalize"] > 0, f"cli: no kernel ran {K.launches}")
+    print(f"cli launches: {nonzero(K.launches)}")
 
 
 # ---------------------------------------------------------------------------
@@ -379,9 +559,32 @@ def trilinear_filter(scale):
     return (w * scale).reshape(1, 1, 3, 3, 3)
 
 
-def time_kernels(params, state, rate):
-    """Each kernel's device time at the 511³ level-0 shape, its bound, its
-    plain version's time and a PyTorch call computing the same function."""
+def time_cases(cases, rate, rows):
+    """Each case's device time, bound, plain time and library time."""
+    for name, (kern, plain, libcall, nbytes, flops, shape) in cases.items():
+        ms = cuda_ms(kern, reps=20)
+        plain_ms = cuda_ms(plain, reps=3)
+        library_ms = cuda_ms(libcall, reps=5) if libcall else None
+        t_bytes = nbytes / rate * 1e3
+        t_ops = flops / F32_PEAK * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+        )
+        lib = f"{library_ms:.3f} ms" if library_ms is not None else "—"
+        print(f"time {name} {shape}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({rows[name]['bound_by']}, {nbytes / 1e9:.3f} GB), "
+              f"{nbytes / ms / 1e6:.1f} GB/s = "
+              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.3f} "
+              f"ms; library {lib}")
+
+
+def time_kernels(params, state, rate, rows):
+    """The LINEAR kernels' device time at the 511³ level-0 shape, their
+    bound, their plain version's time and a PyTorch call computing the
+    same function."""
     import torch
     import torch.nn.functional as F
 
@@ -397,10 +600,8 @@ def time_kernels(params, state, rate):
     r = torch.zeros_like(v)
     out = torch.zeros_like(v)
     fc, vc = torch.zeros_like(lvl1.f), lvl1.v.clone()
-    pad = (dims[0] + 2) * (dims[1] + 2) * (dims[2] + 2)
-    inner = dims[0] * dims[1] * dims[2]
-    cpad = (cdims[0] + 2) * (cdims[1] + 2) * (cdims[2] + 2)
-    cinner = cdims[0] * cdims[1] * cdims[2]
+    pad, n = padded(dims), inner(dims)
+    cn = inner(cdims)
     ntaps = len(params.stencil.values)
     parts = K.residual(None, v, f, dims, params, h, write_r=False,
                        with_norm=True)
@@ -411,59 +612,41 @@ def time_kernels(params, state, rate):
     v5 = v[None, None]
     vc5 = vc[None, None]
     r5 = r[None, None]
-
+    s = "511^3"
     cases = {
-        # name: (kernel, plain, library, bytes, flops)
+        # name: (kernel, plain, library, bytes, flops, shape)
         "residual": (
             lambda: K.residual(r, v, f, dims, params, h),
             lambda: K.residual_plain(r, v, f, dims, params, h),
             lambda: F.conv3d(v5, taps_w),
-            4 * (2 * pad + inner), (2 * ntaps + 1) * inner,
+            4 * (2 * pad + n), (2 * ntaps + 1) * n, s,
         ),
         "finalize": (
             lambda: K.finalize(parts, ss),
             lambda: K.finalize_plain(parts, ss),
             lambda: torch.sum(parts),
-            8 * parts.numel() + 4, parts.numel(),
+            8 * parts.numel() + 4, parts.numel(), s,
         ),
         "jacobi_sweep": (
             lambda: K.jacobi_sweep(out, v, f, dims, params, h),
             lambda: K.jacobi_sweep_plain(out, v, f, dims, params, h),
             lambda: F.conv3d(v5, taps_w),
-            4 * (2 * pad + inner), (2 * ntaps + 4) * inner,
+            4 * (2 * pad + n), (2 * ntaps + 4) * n, s,
         ),
         "restrict_zero": (
             lambda: K.restrict_zero(fc, vc, r, dims, cdims),
             lambda: K.restrict_zero_plain(fc, vc, r, dims, cdims),
             lambda: F.conv3d(r5, restrict_w, stride=2),
-            4 * (pad + 2 * cinner), 53 * cinner,
+            4 * (pad + 2 * cn), 53 * cn, s,
         ),
         "prolong_add": (
             lambda: K.prolong_add(out, vc, dims, cdims),
             lambda: K.prolong_add_plain(out, vc, dims, cdims),
             lambda: F.conv_transpose3d(vc5, prolong_w, stride=2),
-            4 * (pad + cpad + inner), 11.5 * inner,
+            4 * (pad + padded(cdims) + n), 11.5 * n, s,
         ),
     }
-    rows = {}
-    for name, (kern, plain, libcall, nbytes, flops) in cases.items():
-        ms = cuda_ms(kern, reps=20)
-        plain_ms = cuda_ms(plain, reps=3)
-        library_ms = cuda_ms(libcall, reps=5)
-        t_bytes = nbytes / rate * 1e3
-        t_ops = flops / F32_PEAK * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        rows[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=nbytes,
-        )
-        print(f"time {name} 511^3: {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({rows[name]['bound_by']}, {nbytes / 1e9:.3f} GB), "
-              f"{nbytes / ms / 1e6:.1f} GB/s = "
-              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.3f} "
-              f"ms; library {library_ms:.3f} ms")
+    time_cases(cases, rate, rows)
     norm_only = cuda_ms(
         lambda: K.residual(None, v, f, dims, params, h, write_r=False,
                            with_norm=True), reps=20)
@@ -473,55 +656,146 @@ def time_kernels(params, state, rate):
     copy_ms = cuda_ms(lambda: dst.copy_(v), reps=20)
     print(f"time copy of one 511^3 field: {copy_ms:.4f} ms = "
           f"{2 * 4 * pad / copy_ms / 1e6:.1f} GB/s (stream ceiling)")
-    return rows
+
+
+def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
+                      rate, rows):
+    """The FAS and Newton kernels at the largest shapes the main paths
+    give them: the mode-templated ones and restrict at the 511³ level 0,
+    apply_fas and subtract at the 255³ level 1.  No single PyTorch call
+    computes the nonlinear residual, sweep or operator (library —)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    dims = BIG
+    cdims = fas_params.level_dims()[1]
+    h, hc = fas_params.level_h(0), fas_params.level_h(1)
+    l0, l1 = fas_state.levels[0], fas_state.levels[1]
+    v, f = l0.v, l0.f
+    nv = newton_state.levels[0].newton_v
+    vn, fn = newton_state.levels[0].v, newton_state.levels[0].f
+    r = torch.zeros_like(v)
+    out = torch.zeros_like(v)
+    fc, vc, rv = l1.f.clone(), l1.v.clone(), l1.rest_v.clone()
+    pad, n = padded(dims), inner(dims)
+    cpad, cn = padded(cdims), inner(cdims)
+    taps = 2 * len(fas_params.stencil.values)
+    restrict_w = trilinear_filter(0.125)
+    v5 = v[None, None]
+    diff = torch.empty_like(vc)
+    s, sc = "511^3", "255^3"
+    fp, np_ = fas_params, newton_params
+    cases = {
+        "residual_fas": (
+            lambda: K.residual(r, v, f, dims, fp, h),
+            lambda: K.residual_plain(r, v, f, dims, fp, h),
+            None, 4 * (2 * pad + n), (taps + 4 + EXP_OPS) * n, s,
+        ),
+        "residual_newton": (
+            lambda: K.residual(r, vn, fn, dims, np_, h, newton_v=nv),
+            lambda: K.residual_plain(r, vn, fn, dims, np_, h, newton_v=nv),
+            None, 4 * (3 * pad + n), (taps + 5 + EXP_OPS) * n, s,
+        ),
+        "jacobi_sweep_fas": (
+            lambda: K.jacobi_sweep(out, v, f, dims, fp, h),
+            lambda: K.jacobi_sweep_plain(out, v, f, dims, fp, h),
+            None, 4 * (2 * pad + n), (taps + 10 + EXP_OPS) * n, s,
+        ),
+        "jacobi_sweep_newton": (
+            lambda: K.jacobi_sweep(out, vn, fn, dims, np_, h, newton_v=nv),
+            lambda: K.jacobi_sweep_plain(out, vn, fn, dims, np_, h,
+                                         newton_v=nv),
+            None, 4 * (3 * pad + n), (taps + 9 + EXP_OPS) * n, s,
+        ),
+        "restrict": (
+            lambda: K.restrict(vc, v, dims, cdims, out2=rv),
+            lambda: K.restrict_plain(vc, v, dims, cdims, out2=rv),
+            lambda: F.conv3d(v5, restrict_w, stride=2),
+            4 * (pad + 2 * cn), 53 * cn, s,
+        ),
+        "apply_fas": (
+            lambda: K.apply_fas(fc, vc, cdims, fp, hc),
+            lambda: K.apply_fas_plain(fc, vc, cdims, fp, hc),
+            None, 4 * (2 * cpad + cn), (taps + 4 + EXP_OPS) * cn, sc,
+        ),
+        "subtract": (
+            lambda: K.subtract(vc, rv, cdims),
+            lambda: K.subtract_plain(vc, rv, cdims),
+            lambda: torch.sub(vc, rv, out=diff),
+            4 * (2 * cpad + cn), cn, sc,
+        ),
+    }
+    time_cases(cases, rate, rows)
+
+
+def profile_rows(prof, per, what):
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.count, ev.key[:70]))
+    rows.sort(reverse=True)
+    for dev_us, count, key in rows:
+        print(f"profile {what} {key}: {dev_us / 1e3 / per:.3f} ms/{what} "
+              f"({count / per:g} launches/{what})")
+    return sum(r[0] for r in rows) / 1e3, bool(rows)
 
 
 def cycle_bytes(params):
     """Bytes one cycle of the per-op structure moves: sweeps and the
     written residual 3 fields, the norm-only residual 2, restriction the
-    fine r plus coarse f and v, prolongation fine v twice plus coarse v."""
+    fine r plus coarse f and v, prolongation fine v twice plus coarse v;
+    FAS adds R(v) (the fine v plus two coarse fields), the tau fold
+    (three coarse) and the subtraction (three coarse)."""
+    from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops.vcycle_batch import level_visits
 
     dims = params.level_dims()
     visits = level_visits(len(dims), params.cycle_type)
     sweeps = params.pre_smoothing + params.post_smoothing
+    fas = params.mode == Mode.NONLINEAR
     total = 0
     for i, d in enumerate(dims):
-        dense = 4 * (d[0] + 2) * (d[1] + 2) * (d[2] + 2)
+        dense = 4 * padded(d)
         total += visits[i] * sweeps * 3 * dense
         if i + 1 < len(dims):
-            c = dims[i + 1]
-            cdense = 4 * (c[0] + 2) * (c[1] + 2) * (c[2] + 2)
+            cdense = 4 * padded(dims[i + 1])
             total += visits[i] * (3 * dense + dense + 2 * cdense
                                   + 2 * dense + cdense)
-    d0 = dims[0]
-    return total + 2 * 4 * (d0[0] + 2) * (d0[1] + 2) * (d0[2] + 2)
+            if fas:
+                total += visits[i] * (dense + 2 * cdense + 6 * cdense)
+    return total + 2 * 4 * padded(dims[0])
 
 
 def fused_cycle_bytes(params):
-    """The least bytes a cycle with each leg fused into one pass moves (the
-    TPU kernel's wavefront, ROADMAP's first perf item): per visit of a
-    non-coarsest level a down pass reads v and f and writes v and the
-    coarse f, an up pass reads v, f and the coarse v and writes v (the
-    finest norm folded in); the coarsest reads v and f and writes v."""
+    """The least bytes a LINEAR cycle with each leg fused into one pass
+    moves (the TPU kernel's wavefront, ROADMAP's first perf item): per
+    visit of a non-coarsest level a down pass reads v and f and writes v
+    and the coarse f, an up pass reads v, f and the coarse v and writes v
+    (the finest norm folded in); the coarsest reads v and f and writes
+    v."""
     from gpusolve_tpu_torch.ops.vcycle_batch import level_visits
 
     dims = params.level_dims()
     visits = level_visits(len(dims), params.cycle_type)
     total = 0
     for i, d in enumerate(dims):
-        dense = 4 * (d[0] + 2) * (d[1] + 2) * (d[2] + 2)
+        dense = 4 * padded(d)
         if i + 1 < len(dims):
-            c = dims[i + 1]
-            cdense = 4 * (c[0] + 2) * (c[1] + 2) * (c[2] + 2)
+            cdense = 4 * padded(dims[i + 1])
             total += visits[i] * (6 * dense + 2 * cdense)
         else:
             total += visits[i] * 3 * dense
     return total
 
 
-def time_cycles(params, state, rate):
+def time_cycles(params, state, rate, label):
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from gpusolve_tpu_torch.ops import vcycle_batch
 
@@ -538,15 +812,14 @@ def time_cycles(params, state, rate):
     wall = (time.perf_counter() - t0) * 1e3 / k
     dev = a.elapsed_time(b) / k
     nbytes = cycle_bytes(params)
-    print(f"cycle 511^3 V(3,3): {dev:.3f} ms/cycle device (CUDA events over "
+    print(f"cycle {label}: {dev:.3f} ms/cycle device (CUDA events over "
           f"a {k}-cycle batch), {wall:.3f} ms/cycle wall; "
           f"{nbytes / 1e9:.3f} GB/cycle -> {nbytes / dev / 1e6:.1f} GB/s, "
           f"bound {nbytes / rate * 1e3:.3f} ms/cycle")
-    fused = fused_cycle_bytes(params)
-    print(f"cycle 511^3 fused-leg bound: {fused / 1e9:.3f} GB/cycle -> "
-          f"{fused / rate * 1e3:.3f} ms/cycle")
-
-    from torch.profiler import ProfilerActivity, profile
+    if label.startswith("511^3 LINEAR"):
+        fused = fused_cycle_bytes(params)
+        print(f"cycle 511^3 fused-leg bound: {fused / 1e9:.3f} GB/cycle -> "
+              f"{fused / rate * 1e3:.3f} ms/cycle")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -554,24 +827,60 @@ def time_cycles(params, state, rate):
         vcycle_batch.run(state, params, maxk=k)
         torch.cuda.synchronize()
         wall_p = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key[:70]))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e3
-    if rows:
-        for dev_us, count, key in rows:
-            print(f"profile {key}: {dev_us / 1e3 / k:.3f} ms/cycle "
-                  f"({count // k} launches/cycle)")
-        print(f"profile busy {busy / k:.3f} ms/cycle of {wall_p / k:.3f} "
-              f"wall -> idle share {1 - busy / wall_p:.3f}")
+    busy, any_rows = profile_rows(prof, k, "cycle")
+    if any_rows:
+        print(f"profile {label} busy {busy / k:.3f} ms/cycle of "
+              f"{wall_p / k:.3f} wall -> idle share {1 - busy / wall_p:.3f}")
     else:
         print("profile: no device time recorded (not measured)")
     return dev
+
+
+def time_newton_steps(params, steps=3):
+    """Device and wall ms per outer Newton step from a fresh 511³ state
+    (CUDA events around ``steps`` steps after the initial F), in two runs
+    for the spread, then a profiler breakdown of a third."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.solver import newton
+
+    def run(window=contextlib.nullcontext()):
+        state = gt.build_grid(params)
+        fn = newton.comp_f(state, params)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        hist, inner = [fn], []
+        with window:
+            t0 = time.perf_counter()
+            a.record()
+            for _ in range(steps):
+                inner.append(len(newton.find_error(state, params,
+                                                   f_norm=fn)))
+                fn = newton.comp_f(state, params)
+                hist.append(fn)
+            b.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return a.elapsed_time(b), wall, hist, inner
+
+    run()  # warm
+    for n in range(2):
+        dev, wall, hist, inner = run()
+        print(f"newton step 511^3 (run {n + 1}): {dev / steps:.3f} ms/step "
+              f"device (CUDA events over {steps} steps), "
+              f"{wall / steps:.3f} ms/step wall; inner cycles per step "
+              f"{inner}; history {hist}")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, wall_p, _, _ = run(prof)
+    busy, any_rows = profile_rows(prof, steps, "step")
+    if any_rows:
+        print(f"profile newton busy {busy / steps:.3f} ms/step of "
+              f"{wall_p / steps:.3f} wall -> idle share "
+              f"{1 - busy / wall_p:.3f}")
+    return dev / steps
 
 
 def main() -> int:
@@ -604,34 +913,58 @@ def main() -> int:
     K.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(path, HERE)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
+    print_ptxas(log)
     rate = mem_rate(name)
 
-    base = gt.parse_config(CONF)
+    base = gt.parse_config(CONFS["linear"])
+    rec = Record()
+    check_kernels(base, rec)
 
-    def params_of(dims):
-        return base.replace(grid_dim=dims, print_progress=False)
+    # Phase 3: each main path with its own counts.
+    launched = {kname: 0 for kname in K.KERNELS}
+    states = {}
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG)
+        plain_maxiter = NEWTON_PLAIN_STEPS if label == "newton" else None
+        states[label], counts = main_path(
+            params, f"511^3 {label}", plain_maxiter=plain_maxiter
+        )
+        for kname, n in counts.items():
+            launched[kname] += n
+        if label != "newton":
+            other_cycles(gt.parse_config(CONFS[label]), label)
+    missing = [kname for kname, n in launched.items() if n == 0]
+    check(not missing, f"kernels no main path launched: {missing}")
 
-    errs = {}
-    check_kernels(params_of, errs)
+    # Phase 4: the CLI.
+    cli_path(CONFS["linear"], "Solving linear problem")
+    cli_path(CONFS["nonlinear"], "Solving nonlinear problem")
+    cli_path(CONFS["newton"], "Solving newton problem", newton=True)
 
-    params = base.replace(grid_dim=BIG)
-    state, hist, counts = main_path(params)
-    other_cycles(base)
-    cli_path()
-
-    rows = time_kernels(params, state, rate)
-    time_cycles(params.replace(print_progress=False), state, rate)
+    # Phase 5: times.
+    rows = {}
+    lin = gt.parse_config(CONFS["linear"], grid_dim=BIG,
+                          print_progress=False)
+    fas = gt.parse_config(CONFS["nonlinear"], grid_dim=BIG,
+                          print_progress=False)
+    newt = gt.parse_config(CONFS["newton"], grid_dim=BIG,
+                           print_progress=False)
+    time_kernels(lin, states["linear"], rate, rows)
+    time_mode_kernels(fas, states["nonlinear"], newt, states["newton"],
+                      rate, rows)
+    time_cycles(lin, states.pop("linear"), rate, "511^3 LINEAR V(3,3)")
+    time_cycles(fas, states.pop("nonlinear"), rate, "511^3 FAS V(3,3)")
+    states.clear()
+    torch.cuda.empty_cache()
+    time_newton_steps(newt)
 
     kernels_line = []
     for kname in K.KERNELS:
         row = rows[kname]
         kernels_line.append({
             "name": kname, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[kname], "launches": counts[kname],
-            "max_abs_err": errs[kname], "ms": row["ms"],
+            "replaces": REPLACES[kname], "launches": launched[kname],
+            "max_abs_err": rec.errs[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

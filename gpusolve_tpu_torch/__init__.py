@@ -6,16 +6,22 @@ grid with a config-driven 7-point stencil.  The JAX package ``gpusolve_tpu``
 beside it is the reference this package is held against; this package
 imports neither it nor jax.
 
-This slice runs the LINEAR single-device solve (V, W and F cycles) on
-hand-written CUDA kernels (``ops/csrc/multigrid.cu``), with a plain PyTorch
-version of every op (``ops/ref.py``) that runs on the CPU and serves as the
-kernels' oracle.  Entry points run on CUDA unless the caller asks for the
-CPU (``device="cpu"``, or ``--platform cpu`` on the CLI).
+It runs the single-device solve in all three modes (LINEAR multigrid,
+NONLINEAR FAS multigrid, and the NEWTON outer loop with its inner
+multigrid solve; V, W and F cycles) on hand-written CUDA kernels
+(``ops/csrc/multigrid.cu``), with a plain PyTorch version of every op
+(``ops/ref.py``) that runs on the CPU and serves as the kernels' oracle.
+Entry points run on CUDA unless the caller asks for the CPU
+(``device="cpu"``, or ``--platform cpu`` on the CLI).
 
     import gpusolve_tpu_torch as gt
-    params = gt.parse_config("examples/linear_127.conf")
+    params = gt.parse_config("examples/linear_127.conf")   # or nonlinear_
     state = gt.build_grid(params)            # on CUDA
     state, history = gt.solve(state, params, check_every=10)
+
+    params = gt.parse_config("examples/newton_127.conf")
+    state, history = gt.newton_solve(gt.build_grid(params), params)
+    solution = state.levels[0].newton_v
 """
 
 from gpusolve_tpu_torch.config import (
@@ -26,6 +32,7 @@ from gpusolve_tpu_torch.config import (
     parse_config_text,
 )
 from gpusolve_tpu_torch.grid import GridLevel, GridState, build_grid
+from gpusolve_tpu_torch.solver.newton import newton_solve
 from gpusolve_tpu_torch.solver.vcycle import solve, vcycle
 
 __all__ = [
@@ -35,6 +42,7 @@ __all__ = [
     "Mode",
     "Stencil",
     "build_grid",
+    "newton_solve",
     "parse_config",
     "parse_config_text",
     "solve",

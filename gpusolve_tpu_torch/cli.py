@@ -1,9 +1,12 @@
 """Command-line entry point: ``python -m gpusolve_tpu_torch.cli <config>``.
 
 The single-device counterpart of ``gpusolve_tpu/cli.py``, with the same
-progress lines (``Using config file …``, ``Solving linear problem``,
-``Inital residual: …``, ``iter: N residual: R Took Xms``) that the
-reference's experiment harness parses.
+progress lines (``Using config file …``, ``Solving linear problem`` /
+``Solving nonlinear problem`` / ``Solving newton problem``,
+``Inital residual: …`` or ``Inital newton residual: …``, then
+``iter: N residual: R Took Xms`` or ``newton iter: N …``) that the
+reference's experiment harness parses.  Modes 0 and 1 run ``solve``;
+mode 2 runs ``newton_solve``, whose solution is level 0's ``newton_v``.
 
 Flags:
   --dtype {float32,float64}  float32 on the card; float64 runs the plain
@@ -15,10 +18,14 @@ Flags:
   --quiet                    no progress lines
   --platform P               ``cpu`` runs on the host; default CUDA
   --devices                  print the CUDA device before solving
+  --dump PATH                write the final solution in the reference's
+                             Vector3::dump text format
+  --validate                 print the max-abs error against the analytic
+                             solution (modes 1 and 2)
 
-Modes 1 and 2 and the flags of later slices (``--mesh``, ``--refine``,
-``--save-state``, ``--load-state``, ``--dump``, ``--profile``) exit 1 with
-a message saying they are not ported yet.
+The flags of later slices (``--mesh``, ``--refine``, ``--save-state``,
+``--load-state``, ``--profile``) exit 1 with a message saying they are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,8 +39,15 @@ _NOT_PORTED = {
     "refine": "ROADMAP Queue 1 item 9",
     "save_state": "ROADMAP Queue 1 item 8",
     "load_state": "ROADMAP Queue 1 item 8",
-    "dump": "ROADMAP Queue 1 item 5",
     "profile": "ROADMAP Queue 1 item 5",
+}
+
+
+# The reference announces the mode (gpusolve_tpu/cli.py:411-417).
+_MODE_LINES = {
+    0: "Solving linear problem",
+    1: "Solving nonlinear problem",
+    2: "Solving newton problem",
 }
 
 
@@ -69,8 +83,15 @@ def build_argparser() -> argparse.ArgumentParser:
         "--devices", action="store_true",
         help="print the CUDA device before solving",
     )
-    for flag in ("--mesh", "--save-state", "--load-state", "--dump",
-                 "--profile"):
+    ap.add_argument(
+        "--dump", default=None, metavar="PATH",
+        help="write the final solution in Vector3::dump text format",
+    )
+    ap.add_argument(
+        "--validate", action="store_true",
+        help="print the max-abs error vs the analytic solution (modes 1, 2)",
+    )
+    for flag in ("--mesh", "--save-state", "--load-state", "--profile"):
         ap.add_argument(flag, default=None, help="not ported yet")
     ap.add_argument("--refine", action="store_true", help="not ported yet")
     return ap
@@ -117,7 +138,9 @@ def main(argv=None) -> int:
 
     from gpusolve_tpu_torch.config import Mode, parse_config
     from gpusolve_tpu_torch.grid import build_grid
+    from gpusolve_tpu_torch.solver.newton import newton_solve
     from gpusolve_tpu_torch.solver.vcycle import solve
+    from gpusolve_tpu_torch.utils.dump import compare_analytic, dump_field
 
     print(f"Using config file {args.config}")
     try:
@@ -131,16 +154,7 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
-    if params.mode != Mode.LINEAR:
-        print(
-            f"mode {int(params.mode)} ({params.mode.name}) is not ported to "
-            "gpusolve_tpu_torch yet (ROADMAP Queue 2 items 2(c)/2(d), "
-            "Queue 1 item 7)",
-            file=sys.stderr,
-        )
-        return 1
-
-    print("Solving linear problem")
+    print(_MODE_LINES[params.mode])
     if not params.properly_nested:
         print(
             "warning: grid dims are not 2^k-1-nested; coarse grids are "
@@ -160,7 +174,23 @@ def main(argv=None) -> int:
         else:
             print("Device [0]: cpu")
         print("Using device [0]")
-    solve(state, params, check_every=args.check_every)
+    if params.mode == Mode.NEWTON:
+        state, _ = newton_solve(state, params, check_every=args.check_every)
+        solution = state.levels[0].newton_v
+    else:
+        state, _ = solve(state, params, check_every=args.check_every)
+        solution = state.levels[0].v
+    if args.dump or args.validate:
+        solution = solution.cpu().numpy()
+    if args.dump:
+        dump_field(solution, args.dump)
+        print(f"Dumped solution to {args.dump}")
+    if args.validate:
+        if params.mode == Mode.LINEAR:
+            print("--validate only applies to nonlinear/newton modes")
+        else:
+            err = compare_analytic(solution, params.h)
+            print(f"max-abs error vs analytic solution: {err:.6g}")
     return 0
 
 

@@ -98,8 +98,9 @@ class GridParams:
     backend: str = "auto"  # "auto" | "ref" | "cuda", see the module note
     # "V" recurses once per level, "W" twice, "F" F-then-V.  Each coarse
     # visit continues from the previous visit's v; every visit restricts
-    # afresh and zeroes its own coarser start, so one outer cycle is one
-    # stop-test iteration whatever the schedule.
+    # afresh and starts its own coarser v anew (at zero, or at the
+    # restricted v in FAS), so one outer cycle is one stop-test iteration
+    # whatever the schedule.
     cycle_type: str = "V"
 
     def __post_init__(self) -> None:

@@ -7,12 +7,14 @@ the zero Dirichlet boundary.  Every cell outside the interior is zero
 forever; every op writes interiors only.  The TPU package's (8, 8, 128)
 allocation rounding is a TPU tiling rule and is not carried over.
 
-Fields per level (LINEAR): ``v`` (solution / correction), ``f`` (RHS:
+Fields per level: ``v`` (solution / correction), ``f`` (RHS:
 the analytic RHS on level 0, the restricted residual below) and ``r``
 (residual scratch and the smoother's ping-pong partner).  The interpolated
 correction ``e`` of the reference is fused away: the prolongation adds into
 ``v`` directly.  ``rest_v`` (FAS) and ``newton_v`` (Newton) are allocated
-for those modes only.
+for those modes only.  Newton's ``newton_f``, the original finest RHS, is a
+tensor of its own: the ops write in place, and every Newton step writes F
+into level 0's f, so an alias of that f would lose the RHS.
 
 Analytic RHS:
   * linear mode:    f(x,y,z) = -(f2(x)f0(y)f0(z) + f0(x)f2(y)f0(z)
@@ -210,5 +212,5 @@ def build_grid(params: GridParams, device=None) -> GridState:
                 newton_v=zeros() if params.mode == Mode.NEWTON else None,
             )
         )
-    newton_f = levels[0].f if params.mode == Mode.NEWTON else None
+    newton_f = levels[0].f.clone() if params.mode == Mode.NEWTON else None
     return GridState(levels=tuple(levels), newton_f=newton_f)

@@ -9,7 +9,7 @@ module imports no JAX), crop them, and back.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,10 +64,14 @@ def state_from_numpy(
     params: GridParams,
     levels: Sequence[Mapping[str, np.ndarray]],
     device=None,
+    newton_f: Optional[np.ndarray] = None,
 ) -> GridState:
     """A port ``GridState`` from per-level JAX fields.  Each mapping holds
     the level's fields by name (``v``, ``f`` and, by mode, ``rest_v`` or
-    ``newton_v``); a missing ``r`` starts at zero."""
+    ``newton_v``); a missing ``r`` starts at zero.
+
+    NEWTON needs the JAX state's ``newton_f`` as its own argument: after a
+    ``comp_f`` the JAX level-0 ``f`` holds F, not the RHS."""
     device = resolve_device(device)
     dtype = torch_dtype(params.dtype)
     dims = params.level_dims()
@@ -87,12 +91,20 @@ def state_from_numpy(
                     tuple(n + 2 for n in d), dtype=dtype, device=device
                 )
                 continue
-            kw[name] = torch.from_numpy(
-                np.ascontiguousarray(crop(np.asarray(arr), d))
-            ).to(device=device, dtype=dtype)
+            kw[name] = _to_torch(arr, d, device, dtype)
         out.append(GridLevel(**kw))
-    newton_f = out[0].f if params.mode == Mode.NEWTON else None
-    return GridState(levels=tuple(out), newton_f=newton_f)
+    nf = None
+    if params.mode == Mode.NEWTON:
+        if newton_f is None:
+            raise ValueError("NEWTON mode needs the JAX state's newton_f")
+        nf = _to_torch(newton_f, dims[0], device, dtype)
+    return GridState(levels=tuple(out), newton_f=nf)
+
+
+def _to_torch(arr, dims: Dims, device, dtype) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(crop(np.asarray(arr), dims))
+    ).to(device=device, dtype=dtype)
 
 
 def state_to_numpy(

@@ -1,27 +1,34 @@
-// Multigrid kernels of the LINEAR V/W/F cycle, for Hopper (sm_90a).
+// Multigrid kernels of the V/W/F cycle in all three modes (LINEAR, FAS,
+// NEWTON), for Hopper (sm_90a).
 //
-// They replace, for LINEAR mode, the two TPU kernels of the single-device
-// solve: gpusolve_tpu/ops/pallas_kernels.py::_residual_call (the residual
-// and its norm) and gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (the
-// whole batch of cycles).  The batch is built here from five per-op
-// kernels that the host launches level by level (ops/vcycle_batch.py):
+// They replace the TPU kernels of the single-device solve:
+// gpusolve_tpu/ops/pallas_kernels.py::_jacobi_call, ::_residual_call (the
+// residual, its norm and the FAS operator), ::_restrict_call, ::_prolong_call
+// and gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (the whole batch of
+// cycles).  The batch is built here from per-op kernels that the host
+// launches level by level (ops/vcycle_batch.py):
 //
-//   mg_residual       r = f - A v / h^2, optional r write, per-block sum r^2
+//   mg_residual       r = f - (A v / h^2 + mode term), optional r write,
+//                     per-block sum r^2
 //   mg_finalize       one block: sum the partials, write norms[i], set done
-//   mg_jacobi         v_out = v + omega * (alpha * (f - A v / h^2))
+//   mg_jacobi         one damped-Jacobi sweep, out of place, per mode
 //   mg_restrict_zero  coarse f = 27-point full weighting of r; coarse v = 0
+//   mg_restrict       out = full weighting of a fine field (FAS R(r), R(v)
+//                     into coarse v and rest_v at once; Newton R(u~))
 //   mg_prolong_add    v += P(coarse v), trilinear, in place
+//   mg_apply_fas      out += A v / h^2 + gamma v e^v (the FAS tau fold)
+//   mg_subtract       v -= w (FAS: coarse v -= rest_v before prolongation)
 //
 // Array model: a level is a dense (nx+2, ny+2, nz+2) float32 array, z
 // contiguous, with a zero halo that no kernel ever writes.
 //
 // Bound: every kernel streams its fields once and does a handful of flops
-// per point (under 2 flops per byte), far below the card's flop-per-byte
-// ridge, so each is bound by device-memory bytes.  The design moves each
-// field once per op: a block covers a 32(z) x 8(y) column and walks XCH
-// x-planes, so the +-x taps of one plane were loaded by the block's
-// previous plane and hit in L1, and the +-y/+-z taps hit in L1 from the
-// neighbouring threads' loads.  Fusing the sweeps of a leg into one pass
+// per point (under 2 flops per byte even with expf's ~20), far below the
+// card's flop-per-byte ridge, so each is bound by device-memory bytes.  The
+// design moves each field once per op: a block covers a 32(z) x 8(y) column
+// and walks XCH x-planes, so the +-x taps of one plane were loaded by the
+// block's previous plane and hit in L1, and the +-y/+-z taps hit in L1 from
+// the neighbouring threads' loads.  Fusing the sweeps of a leg into one pass
 // (2.5-D temporal blocking, the TPU kernel's wavefront) is later work.
 //
 // Early stop: every kernel takes the device flag `done` and returns at once
@@ -29,11 +36,17 @@
 // the host can enqueue a whole batch of cycles with no sync, and the cycles
 // after the stop write nothing, as in the TPU kernel.
 //
-// Rounding: every product and sum is rounded as its own operation
-// (__fmul_rn / __fadd_rn keep nvcc from contracting them into FMAs), in the
-// operation order of the plain PyTorch version (ops/ref.py), so the fields
-// agree bit for bit with it.  Only the norm differs: it is summed in
-// float64 in a fixed order (deterministic) and rounded to float32 once.
+// Rounding: every product, sum and quotient is rounded as its own operation
+// (__fmul_rn / __fadd_rn / __fdiv_rn keep nvcc from contracting them into
+// FMAs), in the operation order of the plain PyTorch version (ops/ref.py,
+// itself the order of gpusolve_tpu/ops/xla.py), and e^x is the accurate
+// expf, never __expf; never build with --use_fast_math.  So the fields
+// agree with the plain versions bit for bit wherever expf and torch.exp on
+// the card agree.  Only the norm differs: it is summed in float64 in a
+// fixed order (deterministic) and rounded to float32 once.
+//
+// The residual and the sweep are templated on the mode, so the LINEAR
+// instantiations carry no nonlinear code and keep their registers.
 //
 // Every entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError().
@@ -49,6 +62,11 @@ constexpr int kXCH = 8;       // x-planes walked by one block
 constexpr int kThreads = kBZ * kBY;
 constexpr int kFinThreads = 1024;
 
+// Solver modes, as config.Mode numbers them.
+constexpr int kLinear = 0;
+constexpr int kNonlinear = 1;
+constexpr int kNewton = 2;
+
 struct Taps {
   float val[kMaxTaps];
   // Linear element offset of each tap: |off| <= sx + sy + 1, which fits an
@@ -60,6 +78,13 @@ struct Taps {
 struct Geom {  // interior dims and strides of one padded level
   int nx, ny, nz;
   long long sx, sy;
+};
+
+// The mode's scalars, each rounded once to float32 on the host as the
+// plain version's tensor-scalar ops round them.
+struct ModeArgs {
+  float gamma;
+  float pre_fac;  // values[0] / h^2 (the FAS and Newton Jacobi denominator)
 };
 
 Geom make_geom(int nx, int ny, int nz) {
@@ -90,6 +115,32 @@ __device__ __forceinline__ float stencil_at(const float* __restrict__ v,
   return __fmul_rn(acc, inv_h2);
 }
 
+// FAS term gamma * v * e^v, as (gamma * v) * e^v.
+__device__ __forceinline__ float fas_term(float v, float ex, float gamma) {
+  return __fmul_rn(__fmul_rn(gamma, v), ex);
+}
+
+// A v / h^2 plus the mode's nonlinear term, in the plain version's order:
+//   NONLINEAR  av + (gamma v) e^v
+//   NEWTON     av + ((gamma (1 + nv)) v) e^nv
+template <int M>
+__device__ __forceinline__ float operator_at(const float* __restrict__ v,
+                                             const float* __restrict__ nv,
+                                             long long idx, const Taps& t,
+                                             float inv_h2, float gamma) {
+  const float av = stencil_at(v, idx, t, inv_h2);
+  if constexpr (M == kNonlinear) {
+    const float vc = v[idx];
+    return __fadd_rn(av, fas_term(vc, expf(vc), gamma));
+  } else if constexpr (M == kNewton) {
+    const float n = nv[idx];
+    const float lin0 = __fmul_rn(gamma, __fadd_rn(1.0f, n));
+    return __fadd_rn(av, __fmul_rn(__fmul_rn(lin0, v[idx]), expf(n)));
+  } else {
+    return av;
+  }
+}
+
 // Fixed-order block sum of one double per thread; the result is valid in
 // thread 0.
 __device__ double block_sum(double x) {
@@ -113,11 +164,12 @@ __device__ double block_sum(double x) {
 // quarter of the byte bound.
 constexpr int kMinBlocks = 6;
 
+template <int M>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 residual_kernel(const float* __restrict__ v, const float* __restrict__ f,
-                float* __restrict__ r, double* __restrict__ partials,
-                const int* __restrict__ done, Geom g, Taps taps,
-                float inv_h2, int write_r) {
+                const float* __restrict__ nv, float* __restrict__ r,
+                double* __restrict__ partials, const int* __restrict__ done,
+                Geom g, Taps taps, float inv_h2, float gamma, int write_r) {
   if (*done) return;
   const int k = blockIdx.x * kBZ + threadIdx.x + 1;
   const int j = blockIdx.y * kBY + threadIdx.y + 1;
@@ -127,7 +179,8 @@ residual_kernel(const float* __restrict__ v, const float* __restrict__ f,
   if (k <= g.nz && j <= g.ny) {
     long long idx = i0 * g.sx + j * g.sy + k;
     for (int i = i0; i < i1; ++i, idx += g.sx) {
-      const float res = __fsub_rn(f[idx], stencil_at(v, idx, taps, inv_h2));
+      const float res = __fsub_rn(
+          f[idx], operator_at<M>(v, nv, idx, taps, inv_h2, gamma));
       if (write_r) r[idx] = res;
       ss += (double)res * (double)res;
     }
@@ -139,6 +192,29 @@ residual_kernel(const float* __restrict__ v, const float* __restrict__ f,
                gridDim.x * (blockIdx.y + (long long)gridDim.y * blockIdx.z)] =
           total;
     }
+  }
+}
+
+// The FAS operator A v / h^2 + gamma v e^v (the residual kernel's
+// apply_mode, no f), added onto out: the tau fold f_c = R(r) + A_c(R v),
+// rounded as f_next + a_coarse (onto a zero out it is the operator
+// itself).  Each point reads and writes only its own out value, so out may
+// be the coarse f that holds R(r).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+apply_fas_kernel(float* out, const float* __restrict__ v,
+                 const int* __restrict__ done, Geom g, Taps taps,
+                 float inv_h2, float gamma) {
+  if (*done) return;
+  const int k = blockIdx.x * kBZ + threadIdx.x + 1;
+  const int j = blockIdx.y * kBY + threadIdx.y + 1;
+  if (k > g.nz || j > g.ny) return;
+  const int i0 = blockIdx.z * kXCH + 1;
+  const int i1 = min(i0 + kXCH, g.nx + 1);
+  long long idx = i0 * g.sx + j * g.sy + k;
+  for (int i = i0; i < i1; ++i, idx += g.sx) {
+    const float a =
+        operator_at<kNonlinear>(v, nullptr, idx, taps, inv_h2, gamma);
+    out[idx] = __fadd_rn(out[idx], a);
   }
 }
 
@@ -162,10 +238,19 @@ finalize_kernel(const double* __restrict__ partials, long long n,
   }
 }
 
+// One sweep, in the order of ops/ref.py::jacobi:
+//   LINEAR     v + omega (alpha r),  r = f - av
+//   NONLINEAR  ex = e^v; r = f - (av + (gamma v) ex);
+//              v + omega (r / (pre_fac + (gamma (1 + v)) ex))
+//   NEWTON     ex = e^nv; lin = (gamma (1 + nv)) ex; r = f - (av + lin v);
+//              v + omega (r / (pre_fac + lin))
+// Newton's lin * v is ordered otherwise than the Newton residual's term.
+template <int M>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 jacobi_kernel(float* __restrict__ v_out, const float* __restrict__ v,
-              const float* __restrict__ f, const int* __restrict__ done,
-              Geom g, Taps taps, float inv_h2, float alpha, float omega) {
+              const float* __restrict__ f, const float* __restrict__ nv,
+              const int* __restrict__ done, Geom g, Taps taps, float inv_h2,
+              float alpha, float omega, ModeArgs ma) {
   if (*done) return;
   const int k = blockIdx.x * kBZ + threadIdx.x + 1;
   const int j = blockIdx.y * kBY + threadIdx.y + 1;
@@ -174,18 +259,41 @@ jacobi_kernel(float* __restrict__ v_out, const float* __restrict__ v,
   const int i1 = min(i0 + kXCH, g.nx + 1);
   long long idx = i0 * g.sx + j * g.sy + k;
   for (int i = i0; i < i1; ++i, idx += g.sx) {
-    const float res = __fsub_rn(f[idx], stencil_at(v, idx, taps, inv_h2));
-    v_out[idx] = __fadd_rn(v[idx], __fmul_rn(omega, __fmul_rn(alpha, res)));
+    const float av = stencil_at(v, idx, taps, inv_h2);
+    if constexpr (M == kLinear) {
+      const float res = __fsub_rn(f[idx], av);
+      v_out[idx] = __fadd_rn(v[idx], __fmul_rn(omega, __fmul_rn(alpha, res)));
+    } else {
+      const float vc = v[idx];
+      float ex, term, lin;
+      if constexpr (M == kNonlinear) {
+        ex = expf(vc);
+        term = fas_term(vc, ex, ma.gamma);
+        lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, vc)), ex);
+      } else {
+        const float n = nv[idx];
+        ex = expf(n);
+        lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, n)), ex);
+        term = __fmul_rn(lin, vc);
+      }
+      const float res = __fsub_rn(f[idx], __fadd_rn(av, term));
+      const float denom = __fadd_rn(ma.pre_fac, lin);
+      v_out[idx] = __fadd_rn(vc, __fmul_rn(omega, __fdiv_rn(res, denom)));
+    }
   }
 }
 
 // Coarse point (ci, cj, ck) takes fine points (2ci+a, 2cj+b, 2ck+c),
 // a, b, c in {-1, 0, 1}, with weight 0.125 * w(a) * w(b) * w(c),
 // w(0) = 1, w(+-1) = 0.5, summed in (a, b, c) lexicographic order.
+// kZero: out0 = R(in) and out1 = 0 (the LINEAR/Newton coarse start);
+// else out0 = R(in) and, when out1 is given, out1 = R(in) as well (FAS
+// R(v) into coarse v and rest_v in one pass).
+template <bool kZero>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-restrict_zero_kernel(float* __restrict__ fc, float* __restrict__ vc,
-                     const float* __restrict__ rf,
-                     const int* __restrict__ done, Geom c, Geom fg) {
+restrict_kernel(float* __restrict__ out0, float* __restrict__ out1,
+                const float* __restrict__ in, const int* __restrict__ done,
+                Geom c, Geom fg) {
   if (*done) return;
   const int ck = blockIdx.x * kBZ + threadIdx.x + 1;
   const int cj = blockIdx.y * kBY + threadIdx.y + 1;
@@ -204,15 +312,19 @@ restrict_zero_kernel(float* __restrict__ fc, float* __restrict__ vc,
         for (int cc = 0; cc < 3; ++cc) {
           const float w = 0.125f * w1[a] * w1[b] * w1[cc];
           const float term = __fmul_rn(
-              w, __ldg(rf + center + (a - 1) * fg.sx + (b - 1) * fg.sy +
+              w, __ldg(in + center + (a - 1) * fg.sx + (b - 1) * fg.sy +
                        (cc - 1)));
           acc = (a == 0 && b == 0 && cc == 0) ? term : __fadd_rn(acc, term);
         }
       }
     }
     const long long cidx = ci * c.sx + cj * c.sy + ck;
-    fc[cidx] = acc;
-    vc[cidx] = 0.0f;
+    out0[cidx] = acc;
+    if constexpr (kZero) {
+      out1[cidx] = 0.0f;
+    } else {
+      if (out1 != nullptr) out1[cidx] = acc;
+    }
   }
 }
 
@@ -265,6 +377,23 @@ prolong_add_kernel(float* __restrict__ vf, const float* __restrict__ vc,
   }
 }
 
+// v -= w over the interior, in place: the FAS coarse v - rest_v that the
+// prolongation then reads (each point touches only itself).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+subtract_kernel(float* v, const float* __restrict__ w,
+                const int* __restrict__ done, Geom g) {
+  if (*done) return;
+  const int k = blockIdx.x * kBZ + threadIdx.x + 1;
+  const int j = blockIdx.y * kBY + threadIdx.y + 1;
+  if (k > g.nz || j > g.ny) return;
+  const int i0 = blockIdx.z * kXCH + 1;
+  const int i1 = min(i0 + kXCH, g.nx + 1);
+  long long idx = i0 * g.sx + j * g.sy + k;
+  for (int i = i0; i < i1; ++i, idx += g.sx) {
+    v[idx] = __fsub_rn(v[idx], w[idx]);
+  }
+}
+
 Taps make_taps(const float* val, const int* off3, int ntaps, const Geom& g) {
   Taps t;
   t.n = ntaps;
@@ -291,14 +420,41 @@ const char* mg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int mg_residual(const float* v, const float* f, float* r, double* partials,
-                const int* done, int nx, int ny, int nz, const float* tap_val,
-                const int* tap_off3, int ntaps, float inv_h2, int write_r,
+// mode: 0 LINEAR, 1 NONLINEAR, 2 NEWTON (nv is read only by NEWTON).
+int mg_residual(const float* v, const float* f, const float* nv, float* r,
+                double* partials, const int* done, int nx, int ny, int nz,
+                const float* tap_val, const int* tap_off3, int ntaps,
+                float inv_h2, float gamma, int mode, int write_r,
                 cudaStream_t stream) {
   const Geom g = make_geom(nx, ny, nz);
-  residual_kernel<<<grid_for(g), dim3(kBZ, kBY), 0, stream>>>(
-      v, f, r, partials, done, g, make_taps(tap_val, tap_off3, ntaps, g),
-      inv_h2, write_r);
+  const Taps t = make_taps(tap_val, tap_off3, ntaps, g);
+  const dim3 grid = grid_for(g), block(kBZ, kBY);
+  switch (mode) {
+    case kLinear:
+      residual_kernel<kLinear><<<grid, block, 0, stream>>>(
+          v, f, nv, r, partials, done, g, t, inv_h2, gamma, write_r);
+      break;
+    case kNonlinear:
+      residual_kernel<kNonlinear><<<grid, block, 0, stream>>>(
+          v, f, nv, r, partials, done, g, t, inv_h2, gamma, write_r);
+      break;
+    case kNewton:
+      residual_kernel<kNewton><<<grid, block, 0, stream>>>(
+          v, f, nv, r, partials, done, g, t, inv_h2, gamma, write_r);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int mg_apply_fas(float* out, const float* v, const int* done, int nx, int ny,
+                 int nz, const float* tap_val, const int* tap_off3, int ntaps,
+                 float inv_h2, float gamma, cudaStream_t stream) {
+  const Geom g = make_geom(nx, ny, nz);
+  apply_fas_kernel<<<grid_for(g), dim3(kBZ, kBY), 0, stream>>>(
+      out, v, done, g, make_taps(tap_val, tap_off3, ntaps, g), inv_h2,
+      gamma);
   return (int)cudaGetLastError();
 }
 
@@ -308,14 +464,31 @@ int mg_finalize(const double* partials, long long n, float* out, float thr,
   return (int)cudaGetLastError();
 }
 
-int mg_jacobi(float* v_out, const float* v, const float* f, const int* done,
-              int nx, int ny, int nz, const float* tap_val,
+int mg_jacobi(float* v_out, const float* v, const float* f, const float* nv,
+              const int* done, int nx, int ny, int nz, const float* tap_val,
               const int* tap_off3, int ntaps, float inv_h2, float alpha,
-              float omega, cudaStream_t stream) {
+              float omega, float gamma, float pre_fac, int mode,
+              cudaStream_t stream) {
   const Geom g = make_geom(nx, ny, nz);
-  jacobi_kernel<<<grid_for(g), dim3(kBZ, kBY), 0, stream>>>(
-      v_out, v, f, done, g, make_taps(tap_val, tap_off3, ntaps, g), inv_h2,
-      alpha, omega);
+  const Taps t = make_taps(tap_val, tap_off3, ntaps, g);
+  const dim3 grid = grid_for(g), block(kBZ, kBY);
+  const ModeArgs ma{gamma, pre_fac};
+  switch (mode) {
+    case kLinear:
+      jacobi_kernel<kLinear><<<grid, block, 0, stream>>>(
+          v_out, v, f, nv, done, g, t, inv_h2, alpha, omega, ma);
+      break;
+    case kNonlinear:
+      jacobi_kernel<kNonlinear><<<grid, block, 0, stream>>>(
+          v_out, v, f, nv, done, g, t, inv_h2, alpha, omega, ma);
+      break;
+    case kNewton:
+      jacobi_kernel<kNewton><<<grid, block, 0, stream>>>(
+          v_out, v, f, nv, done, g, t, inv_h2, alpha, omega, ma);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -323,8 +496,18 @@ int mg_restrict_zero(float* fc, float* vc, const float* rf, const int* done,
                      int cnx, int cny, int cnz, int fnx, int fny, int fnz,
                      cudaStream_t stream) {
   const Geom c = make_geom(cnx, cny, cnz);
-  restrict_zero_kernel<<<grid_for(c), dim3(kBZ, kBY), 0, stream>>>(
+  restrict_kernel<true><<<grid_for(c), dim3(kBZ, kBY), 0, stream>>>(
       fc, vc, rf, done, c, make_geom(fnx, fny, fnz));
+  return (int)cudaGetLastError();
+}
+
+// out1 may be null (one output).
+int mg_restrict(float* out0, float* out1, const float* in, const int* done,
+                int cnx, int cny, int cnz, int fnx, int fny, int fnz,
+                cudaStream_t stream) {
+  const Geom c = make_geom(cnx, cny, cnz);
+  restrict_kernel<false><<<grid_for(c), dim3(kBZ, kBY), 0, stream>>>(
+      out0, out1, in, done, c, make_geom(fnx, fny, fnz));
   return (int)cudaGetLastError();
 }
 
@@ -337,6 +520,13 @@ int mg_prolong_add(float* vf, const float* vc, const int* done, int fnx,
                   (fnx + kXCH - 1) / kXCH);
   prolong_add_kernel<<<grid, dim3(kBZ, kBY), 0, stream>>>(
       vf, vc, done, fg, make_geom(cnx, cny, cnz));
+  return (int)cudaGetLastError();
+}
+
+int mg_subtract(float* v, const float* w, const int* done, int nx, int ny,
+                int nz, cudaStream_t stream) {
+  const Geom g = make_geom(nx, ny, nz);
+  subtract_kernel<<<grid_for(g), dim3(kBZ, kBY), 0, stream>>>(v, w, done, g);
   return (int)cudaGetLastError();
 }
 

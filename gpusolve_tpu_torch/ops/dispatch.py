@@ -48,15 +48,17 @@ def smooth(
     h: float,
     n_iter: int,
     done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``n_iter`` damped-Jacobi sweeps.  Returns ``(v_new, spare_new)``:
-    each sweep writes into the spare buffer, and the two trade roles."""
+    """``n_iter`` damped-Jacobi sweeps (NEWTON with the frozen
+    ``newton_v``).  Returns ``(v_new, spare_new)``: each sweep writes into
+    the spare buffer, and the two trade roles."""
     sweep = _pick(
         params, v, kernels.jacobi_sweep, kernels.jacobi_sweep_plain
     )
     a, b = v, spare
     for _ in range(n_iter):
-        sweep(b, a, f, dims, params, h, done)
+        sweep(b, a, f, dims, params, h, done, newton_v)
         a, b = b, a
     return a, b
 
@@ -73,15 +75,16 @@ def residual_op(
     norm_out: Optional[torch.Tensor] = None,
     thr: float = -1.0,
     done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
 ) -> None:
-    """Residual into ``r`` (when ``write_r``); with ``norm_out`` (a
-    one-element tensor) also Σr² into it, setting ``done`` when
+    """The mode's residual into ``r`` (when ``write_r``); with ``norm_out``
+    (a one-element tensor) also Σr² into it, setting ``done`` when
     ``thr >= 0`` and ``Σr² <= thr``."""
     with_norm = norm_out is not None
     residual = _pick(params, v, kernels.residual, kernels.residual_plain)
     partials = residual(
         r, v, f, dims, params, h, write_r=write_r, with_norm=with_norm,
-        done=done,
+        done=done, newton_v=newton_v,
     )
     if with_norm:
         finalize = _pick(
@@ -90,7 +93,7 @@ def residual_op(
         finalize(partials, norm_out, thr, done)
 
 
-def restrict_op(
+def restrict_zero_op(
     f_coarse: torch.Tensor,
     v_coarse: torch.Tensor,
     r_fine: torch.Tensor,
@@ -100,11 +103,26 @@ def restrict_op(
     done: Optional[torch.Tensor] = None,
 ) -> None:
     """Full-weighting restriction of ``r_fine`` into ``f_coarse``, and the
-    zero start of ``v_coarse`` (LINEAR)."""
+    zero start of ``v_coarse`` (LINEAR and NEWTON)."""
     op = _pick(
         params, r_fine, kernels.restrict_zero, kernels.restrict_zero_plain
     )
     op(f_coarse, v_coarse, r_fine, fine_dims, coarse_dims, done)
+
+
+def restrict_op(
+    out: torch.Tensor,
+    fine: torch.Tensor,
+    fine_dims: Dims,
+    coarse_dims: Dims,
+    params: GridParams,
+    done: Optional[torch.Tensor] = None,
+    out2: Optional[torch.Tensor] = None,
+) -> None:
+    """Full-weighting restriction of ``fine`` into ``out`` (and ``out2``),
+    with no zero fill: FAS's R(r) and R(v), Newton's R(ũ)."""
+    op = _pick(params, fine, kernels.restrict, kernels.restrict_plain)
+    op(out, fine, fine_dims, coarse_dims, done, out2)
 
 
 def prolong_add_op(
@@ -120,3 +138,29 @@ def prolong_add_op(
         params, v_fine, kernels.prolong_add, kernels.prolong_add_plain
     )
     op(v_fine, v_coarse, fine_dims, coarse_dims, done)
+
+
+def apply_fas_op(
+    out: torch.Tensor,
+    v: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    h: float,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``out += A(v)/h² + γ·v·eᵛ``, the FAS operator (the tau fold onto the
+    coarse f)."""
+    op = _pick(params, v, kernels.apply_fas, kernels.apply_fas_plain)
+    op(out, v, dims, params, h, done)
+
+
+def subtract_op(
+    v: torch.Tensor,
+    w: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``v −= w`` in place (FAS: coarse v − rest_v)."""
+    op = _pick(params, v, kernels.subtract, kernels.subtract_plain)
+    op(v, w, dims, done)

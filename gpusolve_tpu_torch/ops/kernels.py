@@ -1,5 +1,5 @@
-"""The CUDA kernels of the LINEAR cycle: build, binding, wrappers, and the
-plain PyTorch version beside each.
+"""The CUDA kernels of the multigrid cycle (LINEAR, FAS and NEWTON): build,
+binding, wrappers, and the plain PyTorch version beside each.
 
 The kernels live in ``csrc/multigrid.cu``.  On first use they are compiled
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
@@ -18,10 +18,14 @@ Every wrapper:
     shape and contiguity, launches on the current stream, raises on any
     launch error, and adds one to ``launches[name]``.
 
+The residual and the sweep are one kernel templated on the mode; each mode
+counts under its own name (``residual``, ``residual_fas``,
+``residual_newton``, and so for ``jacobi_sweep``).  NEWTON reads the frozen
+linearisation point ``newton_v`` (ũ), which its wrappers require.
+
 Each plain version computes the same function with ``ops/ref.py``, writes
-the same cells (interiors only) and rounds every field value bit for bit as
-its kernel does; ``chip_smoke.py`` holds each kernel against it on the
-card.
+the same cells (interiors only) and rounds every field value as its kernel
+does; ``chip_smoke.py`` holds each kernel against it on the card.
 """
 
 from __future__ import annotations
@@ -50,8 +54,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("residual", "finalize", "jacobi_sweep", "restrict_zero",
-           "prolong_add")
+_SUFFIX = {Mode.LINEAR: "", Mode.NONLINEAR: "_fas", Mode.NEWTON: "_newton"}
+KERNELS = (
+    "residual", "residual_fas", "residual_newton", "finalize",
+    "jacobi_sweep", "jacobi_sweep_fas", "jacobi_sweep_newton",
+    "restrict_zero", "restrict", "prolong_add", "apply_fas", "subtract",
+)
 # Launches of each kernel since the last reset_launches(): only the CUDA
 # launches count, never the plain versions.
 launches = {name: 0 for name in KERNELS}
@@ -60,6 +68,11 @@ launches = {name: 0 for name in KERNELS}
 def reset_launches() -> None:
     for name in KERNELS:
         launches[name] = 0
+
+
+def variant(base: str, mode: Mode) -> str:
+    """The counter name of a mode-templated kernel, e.g. ``residual_fas``."""
+    return base + _SUFFIX[Mode(mode)]
 
 
 # ---------------------------------------------------------------------------
@@ -122,11 +135,18 @@ def _bind(path: Path):
     sig = {
         "mg_residual_blocks": ([i, i, i], ll),
         "mg_error_string": ([i], ctypes.c_char_p),
-        "mg_residual": ([p, p, p, p, p, i, i, i, p, p, i, f, i, p], i),
+        "mg_residual": (
+            [p, p, p, p, p, p, i, i, i, p, p, i, f, f, i, i, p], i
+        ),
+        "mg_apply_fas": ([p, p, p, i, i, i, p, p, i, f, f, p], i),
         "mg_finalize": ([p, ll, p, f, p, p], i),
-        "mg_jacobi": ([p, p, p, p, i, i, i, p, p, i, f, f, f, p], i),
+        "mg_jacobi": (
+            [p, p, p, p, p, i, i, i, p, p, i, f, f, f, f, f, i, p], i
+        ),
         "mg_restrict_zero": ([p, p, p, p, i, i, i, i, i, i, p], i),
+        "mg_restrict": ([p, p, p, p, i, i, i, i, i, i, p], i),
         "mg_prolong_add": ([p, p, p, i, i, i, i, i, i, p], i),
+        "mg_subtract": ([p, p, p, i, i, i, p], i),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)
@@ -210,12 +230,14 @@ def _check_halving(fine_dims: Dims, coarse_dims: Dims) -> None:
         )
 
 
-def _check_linear(params: GridParams) -> None:
-    if params.mode != Mode.LINEAR:
-        raise NotImplementedError(
-            f"the CUDA kernels cover LINEAR mode; {params.mode.name} comes "
-            "with ROADMAP Queue 2 item 2(c)/(d)"
-        )
+def _newton_v_for(params: GridParams, newton_v):
+    """ũ when the mode reads it (NEWTON, where it is required), else
+    None."""
+    if params.mode != Mode.NEWTON:
+        return None
+    if newton_v is None:
+        raise ValueError("NEWTON mode needs newton_v (the frozen ũ)")
+    return newton_v
 
 
 def _done_or_zero(done: Optional[torch.Tensor], device) -> torch.Tensor:
@@ -235,25 +257,27 @@ def _stream(device) -> ctypes.c_void_p:
 
 # ---------------------------------------------------------------------------
 # residual — replaces gpusolve_tpu/ops/pallas_kernels.py::_residual_call
-# (:292) for LINEAR.  Bound: bytes (reads v and f, writes r: 12 B/point with
-# r, 8 B/point norm-only, ~15 flops).  Design: one thread per (y, z) column
-# walks 8 x-planes so neighbour taps hit in L1; Σr² is reduced in float64
-# per block into `partials` (one double per block, fixed order) for
-# `finalize`, instead of the TPU kernel's sequential Kahan chain, which a
-# parallel grid cannot carry.
+# (:292) in all three modes.  Bound: bytes (reads v and f, NEWTON also ũ,
+# writes r: 12 B/point with r, 16 with ũ, 8 B/point norm-only; ~15 flops,
+# ~40 with expf).  Design: one thread per (y, z) column walks 8 x-planes so
+# neighbour taps hit in L1; Σr² is reduced in float64 per block into
+# `partials` (one double per block, fixed order) for `finalize`, instead of
+# the TPU kernel's sequential Kahan chain, which a parallel grid cannot
+# carry.  The mode is a template parameter, so the LINEAR instantiation
+# carries no nonlinear code.
 # ---------------------------------------------------------------------------
 
 
 def residual_plain(
     r_out, v, f, dims, params, h, *, write_r=True, with_norm=False,
-    done=None,
+    done=None, newton_v=None,
 ) -> Optional[torch.Tensor]:
     """Plain version of :func:`residual`: the partials are one float64
     Σr²."""
-    _check_linear(params)
+    nv = _newton_v_for(params, newton_v)
     if _is_done(done):
         return v.new_zeros(1, dtype=torch.float64) if with_norm else None
-    r, _ = ref.residual(v, f, dims, params, h)
+    r, _ = ref.residual(v, f, dims, params, h, newton_v=nv)
     if write_r:
         ref.interior(r_out, dims).copy_(ref.interior(r, dims))
     if not with_norm:
@@ -273,24 +297,31 @@ def residual(
     write_r: bool = True,
     with_norm: bool = False,
     done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
 ) -> Optional[torch.Tensor]:
-    """``r = f − A·v/h²`` over the interior, written into ``r_out`` when
+    """``r = f − (A·v/h² + mode term)`` over the interior (LINEAR: no term,
+    NONLINEAR: γ·v·eᵛ, NEWTON: γ·(1+ũ)·v·e^ũ), written into ``r_out`` when
     ``write_r``.  With ``with_norm`` returns the float64 partial sums of r²
     that :func:`finalize` reduces; else None."""
     if v.device.type == "cpu":
         return residual_plain(
             r_out, v, f, dims, params, h, write_r=write_r,
-            with_norm=with_norm, done=done,
+            with_norm=with_norm, done=done, newton_v=newton_v,
         )
-    _check_linear(params)
+    nv = _newton_v_for(params, newton_v)
     dev = _cuda_device(v)
     shape = _padded(dims)
     _check(v, "v", shape, dev)
     _check(f, "f", shape, dev)
+    if nv is not None:
+        _check(nv, "newton_v", shape, dev)
     if write_r:
         _check(r_out, "r_out", shape, dev)
-        if r_out.data_ptr() in (v.data_ptr(), f.data_ptr()):
-            raise ValueError("r_out must not alias v or f")
+        inputs = [v.data_ptr(), f.data_ptr()]
+        if nv is not None:
+            inputs.append(nv.data_ptr())
+        if r_out.data_ptr() in inputs:
+            raise ValueError("r_out must not alias v, f or newton_v")
     done = _done_or_zero(done, dev)
     L = lib()
     partials = None
@@ -300,13 +331,64 @@ def residual(
         )
     t = _taps(params.stencil)
     rc = L.mg_residual(
-        v.data_ptr(), f.data_ptr(), r_out.data_ptr() if write_r else None,
+        v.data_ptr(), f.data_ptr(), nv.data_ptr() if nv is not None else None,
+        r_out.data_ptr() if write_r else None,
         partials.data_ptr() if with_norm else None, done.data_ptr(),
-        *dims, t.val, t.off, t.n, 1.0 / (h * h), int(write_r), _stream(dev),
+        *dims, t.val, t.off, t.n, 1.0 / (h * h), params.gamma,
+        int(params.mode), int(write_r), _stream(dev),
     )
-    _check_rc(rc, "residual")
-    launches["residual"] += 1
+    name = variant("residual", params.mode)
+    _check_rc(rc, name)
+    launches[name] += 1
     return partials
+
+
+# ---------------------------------------------------------------------------
+# apply_fas — replaces the apply_mode variant of
+# gpusolve_tpu/ops/pallas_kernels.py::_residual_call (:292, used by
+# apply_stencil_fas) and the FAS tau fold of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (:1338-1340).  Bound:
+# bytes (reads v, reads and writes out: 12 B/point).  Design: the
+# residual's thread walk, adding onto the coarse f that holds R(r), so the
+# tau correction costs no extra field.
+# ---------------------------------------------------------------------------
+
+
+def apply_fas_plain(out, v, dims, params, h, done=None):
+    """Plain version of :func:`apply_fas`."""
+    if _is_done(done):
+        return
+    a = ref.interior(ref.apply_stencil_fas(v, dims, params, h), dims)
+    ref.interior(out, dims).add_(a)
+
+
+def apply_fas(
+    out: torch.Tensor,
+    v: torch.Tensor,
+    dims: Dims,
+    params: GridParams,
+    h: float,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``out += A(v)/h² + γ·v·eᵛ`` over the interior: the tau fold
+    ``f_c = R(r) + A_c(R v)``, rounded as that sum; onto a zero ``out``,
+    the FAS operator itself."""
+    if v.device.type == "cpu":
+        return apply_fas_plain(out, v, dims, params, h, done)
+    dev = _cuda_device(v)
+    shape = _padded(dims)
+    _check(out, "out", shape, dev)
+    _check(v, "v", shape, dev)
+    if out.data_ptr() == v.data_ptr():
+        raise ValueError("out must not alias v")
+    done = _done_or_zero(done, dev)
+    t = _taps(params.stencil)
+    rc = lib().mg_apply_fas(
+        out.data_ptr(), v.data_ptr(), done.data_ptr(), *dims, t.val, t.off,
+        t.n, 1.0 / (h * h), params.gamma, _stream(dev),
+    )
+    _check_rc(rc, "apply_fas")
+    launches["apply_fas"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -356,22 +438,26 @@ def finalize(
 
 
 # ---------------------------------------------------------------------------
-# jacobi_sweep — replaces the LINEAR sweeps of
-# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (jacobi_plane, :421) and
-# gpusolve_tpu/ops/pallas_kernels.py::_jacobi_call (:172).  Bound: bytes
-# (reads v and f, writes v_out: 12 B/point, ~17 flops).  Design: out of
+# jacobi_sweep — replaces the sweeps of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (jacobi_plane, :421;
+# the Newton ũ stream `snv`, :432-444) and
+# gpusolve_tpu/ops/pallas_kernels.py::_jacobi_call (:172), in all three
+# modes.  Bound: bytes (reads v and f, NEWTON also ũ, writes v_out: 12 or
+# 16 B/point; ~17 flops, ~45 with expf and the division).  Design: out of
 # place into the level's spare buffer (the dispatch.smooth ping-pong), with
 # the residual's thread walk; one pass per sweep (the TPU kernel fuses a
 # leg's sweeps into one pass, later work here).
 # ---------------------------------------------------------------------------
 
 
-def jacobi_sweep_plain(v_out, v, f, dims, params, h, done=None) -> None:
+def jacobi_sweep_plain(
+    v_out, v, f, dims, params, h, done=None, newton_v=None
+) -> None:
     """Plain version of :func:`jacobi_sweep`."""
-    _check_linear(params)
+    nv = _newton_v_for(params, newton_v)
     if _is_done(done):
         return
-    new_v = ref.jacobi(v, f, dims, params, h, 1)
+    new_v = ref.jacobi(v, f, dims, params, h, 1, newton_v=nv)
     ref.interior(v_out, dims).copy_(ref.interior(new_v, dims))
 
 
@@ -383,37 +469,50 @@ def jacobi_sweep(
     params: GridParams,
     h: float,
     done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
 ) -> None:
-    """One damped-Jacobi sweep ``v_out = v + ω·(α·(f − A·v/h²))``,
-    ``α = h²/values[0]``, over the interior of ``v_out``."""
+    """One damped-Jacobi sweep over the interior of ``v_out``:
+    LINEAR ``v + ω·(α·r)``, ``α = h²/values[0]``; NONLINEAR
+    ``v + ω·r/(s₀/h² + γ(1+v)eᵛ)``; NEWTON ``v + ω·r/(s₀/h² + γ(1+ũ)e^ũ)``
+    with r the mode's residual."""
     if v.device.type == "cpu":
-        return jacobi_sweep_plain(v_out, v, f, dims, params, h, done)
-    _check_linear(params)
+        return jacobi_sweep_plain(
+            v_out, v, f, dims, params, h, done, newton_v
+        )
+    nv = _newton_v_for(params, newton_v)
     dev = _cuda_device(v)
     shape = _padded(dims)
     for name, t in (("v_out", v_out), ("v", v), ("f", f)):
         _check(t, name, shape, dev)
-    if v_out.data_ptr() in (v.data_ptr(), f.data_ptr()):
-        raise ValueError("v_out must not alias v or f")
+    inputs = [v.data_ptr(), f.data_ptr()]
+    if nv is not None:
+        _check(nv, "newton_v", shape, dev)
+        inputs.append(nv.data_ptr())
+    if v_out.data_ptr() in inputs:
+        raise ValueError("v_out must not alias v, f or newton_v")
     done = _done_or_zero(done, dev)
     t = _taps(params.stencil)
     rc = lib().mg_jacobi(
-        v_out.data_ptr(), v.data_ptr(), f.data_ptr(), done.data_ptr(),
+        v_out.data_ptr(), v.data_ptr(), f.data_ptr(),
+        nv.data_ptr() if nv is not None else None, done.data_ptr(),
         *dims, t.val, t.off, t.n, 1.0 / (h * h),
-        (h * h) / params.stencil.diag, params.omega, _stream(dev),
+        (h * h) / params.stencil.diag, params.omega, params.gamma,
+        params.stencil.diag / (h * h), int(params.mode), _stream(dev),
     )
-    _check_rc(rc, "jacobi_sweep")
-    launches["jacobi_sweep"] += 1
+    name = variant("jacobi_sweep", params.mode)
+    _check_rc(rc, name)
+    launches[name] += 1
 
 
 # ---------------------------------------------------------------------------
 # restrict_zero — replaces the restrict consumer of
 # gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (restrict_yz, :484) and
-# gpusolve_tpu/ops/pallas_kernels.py::_restrict_call (:526), with the
-# coarse v zero start fused in.  Bound: bytes (reads the fine r once,
-# writes coarse f and v: 5 B per fine point).  Design: one thread per
-# coarse point gathers its 27 fine taps, most of which neighbouring threads
-# also load (L1 hits); the zero fill rides along so coarse v costs no pass.
+# gpusolve_tpu/ops/pallas_kernels.py::_restrict_call (:526) for the LINEAR
+# and NEWTON coarse start, with the coarse v zero fill fused in.  Bound:
+# bytes (reads the fine r once, writes coarse f and v: 5 B per fine point).
+# Design: one thread per coarse point gathers its 27 fine taps, most of
+# which neighbouring threads also load (L1 hits); the zero fill rides along
+# so coarse v costs no pass.
 # ---------------------------------------------------------------------------
 
 
@@ -461,6 +560,63 @@ def restrict_zero(
 
 
 # ---------------------------------------------------------------------------
+# restrict — replaces gpusolve_tpu/ops/pallas_kernels.py::_restrict_call
+# (:526) where no zero fill follows: the FAS restrictions of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (R(r) into coarse f,
+# R(v) into coarse v and rest_v, :634-640) and Newton's R(ũ) into levels
+# 1..L−2 (gpusolve_tpu/solver/newton.py:62-80).  Bound: bytes (reads the
+# fine field once, writes one or two coarse fields: 4.5 or 5 B per fine
+# point).  Design: restrict_zero's gather; a second output takes the same
+# value in the same pass, so FAS's two copies of R(v) cost one read.
+# ---------------------------------------------------------------------------
+
+
+def restrict_plain(
+    out, fine, fine_dims, coarse_dims, done=None, out2=None
+) -> None:
+    """Plain version of :func:`restrict`."""
+    if _is_done(done):
+        return
+    rc = ref.interior(
+        ref.restrict_full_weighting(fine, fine_dims, coarse_dims, out.shape),
+        coarse_dims,
+    )
+    for o in (out, out2):
+        if o is not None:
+            ref.interior(o, coarse_dims).copy_(rc)
+
+
+def restrict(
+    out: torch.Tensor,
+    fine: torch.Tensor,
+    fine_dims: Dims,
+    coarse_dims: Dims,
+    done: Optional[torch.Tensor] = None,
+    out2: Optional[torch.Tensor] = None,
+) -> None:
+    """27-point full weighting of ``fine`` into the interior of ``out``
+    (and of ``out2`` when given)."""
+    if fine.device.type == "cpu":
+        return restrict_plain(out, fine, fine_dims, coarse_dims, done, out2)
+    dev = _cuda_device(fine)
+    _check(fine, "fine", _padded(fine_dims), dev)
+    _check(out, "out", _padded(coarse_dims), dev)
+    if out2 is not None:
+        _check(out2, "out2", _padded(coarse_dims), dev)
+        if out2.data_ptr() == out.data_ptr():
+            raise ValueError("out and out2 must be distinct")
+    _check_halving(fine_dims, coarse_dims)
+    done = _done_or_zero(done, dev)
+    rc = lib().mg_restrict(
+        out.data_ptr(), out2.data_ptr() if out2 is not None else None,
+        fine.data_ptr(), done.data_ptr(), *coarse_dims, *fine_dims,
+        _stream(dev),
+    )
+    _check_rc(rc, "restrict")
+    launches["restrict"] += 1
+
+
+# ---------------------------------------------------------------------------
 # prolong_add — replaces the prolongation + correction of
 # gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (prolong_yz, :499) and
 # gpusolve_tpu/ops/pallas_kernels.py::_prolong_call (:613).  Bound: bytes
@@ -505,3 +661,43 @@ def prolong_add(
     )
     _check_rc(rc, "prolong_add")
     launches["prolong_add"] += 1
+
+
+# ---------------------------------------------------------------------------
+# subtract — replaces the FAS `v −= restV` of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (:527-528): the coarse
+# v becomes v − rest_v before the prolongation reads it, and keeps that
+# value, as in the JAX cycle.  Bound: bytes (reads v and w, writes v: 12
+# B/point of the coarse level, ⅛ of the fine).  Design: in place, one
+# thread per (y, z) column walking 8 x-planes; a fold into prolong_add
+# could not leave the coarse state, since its threads share coarse values.
+# ---------------------------------------------------------------------------
+
+
+def subtract_plain(v, w, dims, done=None) -> None:
+    """Plain version of :func:`subtract`."""
+    if _is_done(done):
+        return
+    ref.interior(v, dims).sub_(ref.interior(w, dims))
+
+
+def subtract(
+    v: torch.Tensor,
+    w: torch.Tensor,
+    dims: Dims,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``v −= w`` over the interior, in place."""
+    if v.device.type == "cpu":
+        return subtract_plain(v, w, dims, done)
+    dev = _cuda_device(v)
+    _check(v, "v", _padded(dims), dev)
+    _check(w, "w", _padded(dims), dev)
+    if v.data_ptr() == w.data_ptr():
+        raise ValueError("v and w must be distinct")
+    done = _done_or_zero(done, dev)
+    rc = lib().mg_subtract(
+        v.data_ptr(), w.data_ptr(), done.data_ptr(), *dims, _stream(dev)
+    )
+    _check_rc(rc, "subtract")
+    launches["subtract"] += 1

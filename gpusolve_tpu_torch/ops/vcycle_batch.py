@@ -3,11 +3,11 @@ device: the counterpart of ``gpusolve_tpu/ops/pallas_vcycle2.py``
 (``vcycle2_fused`` :1452, ``batch_call`` :1506).
 
 The TPU package runs the batch as one Pallas launch.  Here the host
-enqueues every op of every cycle (V, W or F, LINEAR) on the current stream
-without waiting, and the early stop lives on the device: every kernel reads
-the batch's ``done`` flag and returns at once when it is set, and the
-finalize kernel of each cycle writes that cycle's Σr² into ``norms[i]`` and
-sets ``done`` when ``thr >= 0 and Σr² <= thr``.  Cycles after the stop
+enqueues every op of every cycle (V, W or F; LINEAR, FAS or NEWTON) on the
+current stream without waiting, and the early stop lives on the device:
+every kernel reads the batch's ``done`` flag and returns at once when it is
+set, and the finalize kernel of each cycle writes that cycle's Σr² into
+``norms[i]`` and sets ``done`` when ``thr >= 0 and Σr² <= thr``.  Cycles after the stop
 write nothing, so the levels stay as the last executed cycle left them and
 their norms stay −1.  The host reads the norms once, at the end of the
 batch.
@@ -18,7 +18,21 @@ ops, which read ``done`` on the host.
 State is updated in place: the smoother ping-pongs each level's v with its
 spare buffer r, so the host tracks which tensor holds v after every cycle
 and, once the norms show how many cycles ran, hands each level the
-tensors it held after the last executed cycle.
+tensors it held after the last executed cycle.  Every other field (f,
+rest_v, newton_v) keeps its tensor, and the ops of skipped cycles write
+none of them.
+
+Per mode, a visit of a non-coarsest level i (JAX: gpusolve_tpu/solver/
+vcycle.py:86-148):
+  * LINEAR, NEWTON: pre-sweeps, residual, R(r) into the coarse f with the
+    coarse v started at zero, the coarse visits, v += P(coarse v),
+    post-sweeps.  NEWTON's sweeps and residuals read each level's frozen ũ.
+  * NONLINEAR (FAS): pre-sweeps, residual, R(r) into the coarse f, R(v)
+    into the coarse v and rest_v, the tau fold f_c += A_c(R v), the coarse
+    visits, coarse v −= rest_v, v += P(coarse v), post-sweeps.  A coarse v
+    never starts from zero.
+A repeated coarse visit (W, F) continues from the v the previous visit
+left.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import torch
 from gpusolve_tpu_torch.config import GridParams, Mode
 from gpusolve_tpu_torch.grid import GridLevel, GridState
 from gpusolve_tpu_torch.ops import dispatch as ops
+from gpusolve_tpu_torch.ops import kernels
 
 _SUBCYCLES = {"V": ("V",), "W": ("W", "W"), "F": ("F", "V")}
 
@@ -48,21 +63,28 @@ def level_visits(nlev: int, cycle_type: str) -> List[int]:
 
 def launches_per_cycle(params: GridParams) -> dict:
     """Kernel launches one cycle makes, by kernel (the count the launch
-    counters must show): each visit of a non-coarsest level runs pre + post
-    sweeps, one residual, one restriction and one prolongation; each visit
-    of the coarsest runs pre + post sweeps; the cycle ends with the
-    norm-only residual and the finalize."""
+    counters must show), for the cycle's mode.  Each visit of a
+    non-coarsest level runs pre + post sweeps, one residual, one
+    prolongation and its restriction: LINEAR and NEWTON one
+    ``restrict_zero``; FAS two ``restrict`` (R(r); R(v) into v and
+    rest_v), one ``apply_fas`` and one ``subtract``.  Each visit of the
+    coarsest runs pre + post sweeps; the cycle ends with the norm-only
+    residual and the finalize."""
     nlev = params.num_levels
     visits = level_visits(nlev, params.cycle_type)
     sweeps = params.pre_smoothing + params.post_smoothing
     inner = sum(visits[:-1])
-    return {
-        "residual": inner + 1,
+    counts = {
+        kernels.variant("residual", params.mode): inner + 1,
         "finalize": 1,
-        "jacobi_sweep": sweeps * sum(visits),
-        "restrict_zero": inner,
-        "prolong_add": inner,
+        kernels.variant("jacobi_sweep", params.mode): sweeps * sum(visits),
     }
+    if params.mode == Mode.NONLINEAR:
+        counts.update(restrict=2 * inner, apply_fas=inner, subtract=inner)
+    else:
+        counts["restrict_zero"] = inner
+    counts["prolong_add"] = inner
+    return counts
 
 
 def _cycle(
@@ -73,11 +95,13 @@ def _cycle(
     nlev = len(levels)
     dims = params.level_dims()
     hs = [params.level_h(i) for i in range(nlev)]
+    fas = params.mode == Mode.NONLINEAR
 
     def smooth_level(i: int, n_iter: int) -> None:
         lvl = levels[i]
         lvl.v, lvl.r = ops.smooth(
-            lvl.v, lvl.f, lvl.r, dims[i], params, hs[i], n_iter, done
+            lvl.v, lvl.f, lvl.r, dims[i], params, hs[i], n_iter, done,
+            lvl.newton_v,
         )
 
     def cycle_at(i: int, kind: str) -> None:
@@ -85,19 +109,33 @@ def _cycle(
             # Coarsest level: smoothing only, no direct solve.
             smooth_level(i, params.pre_smoothing + params.post_smoothing)
             return
-        # Down: pre-smooth, residual, restrict it into the coarse RHS and
-        # start the coarse v at zero.
+        # Down: pre-smooth, residual, restrict it into the coarse RHS.
         smooth_level(i, params.pre_smoothing)
         lvl, nxt = levels[i], levels[i + 1]
         ops.residual_op(
-            lvl.r, lvl.v, lvl.f, dims[i], params, hs[i], done=done
+            lvl.r, lvl.v, lvl.f, dims[i], params, hs[i], done=done,
+            newton_v=lvl.newton_v,
         )
-        ops.restrict_op(
-            nxt.f, nxt.v, lvl.r, dims[i], dims[i + 1], params, done
-        )
+        if fas:
+            # Tau correction: the coarse v starts at R(v), kept in rest_v,
+            # and the coarse operator applied to it joins the coarse RHS.
+            ops.restrict_op(nxt.f, lvl.r, dims[i], dims[i + 1], params, done)
+            ops.restrict_op(
+                nxt.v, lvl.v, dims[i], dims[i + 1], params, done,
+                out2=nxt.rest_v,
+            )
+            ops.apply_fas_op(
+                nxt.f, nxt.v, dims[i + 1], params, hs[i + 1], done
+            )
+        else:
+            ops.restrict_zero_op(
+                nxt.f, nxt.v, lvl.r, dims[i], dims[i + 1], params, done
+            )
         for sub in _SUBCYCLES[kind]:
             cycle_at(i + 1, sub)
         # Up: prolong the coarse correction into v, post-smooth.
+        if fas:
+            ops.subtract_op(nxt.v, nxt.rest_v, dims[i + 1], params, done)
         ops.prolong_add_op(
             lvl.v, nxt.v, dims[i + 1], dims[i], params, done
         )
@@ -121,11 +159,6 @@ def run(
     ``Σr² <= thr`` with ``thr >= 0``, or beyond ``ncyc``).  The one host
     sync of the batch is the read of this vector (timed as ``sumBuffer``
     when a timer is given)."""
-    if params.mode != Mode.LINEAR:
-        raise NotImplementedError(
-            f"{params.mode.name} cycles come with ROADMAP Queue 2 item "
-            "2(c)/(d)"
-        )
     levels = list(state.levels)
     lvl0 = levels[0]
     dims0 = params.level_dims()[0]
@@ -142,6 +175,7 @@ def run(
         ops.residual_op(
             None, lvl0.v, lvl0.f, dims0, params, h0, write_r=False,
             norm_out=norms[i : i + 1], thr=thr, done=done,
+            newton_v=lvl0.newton_v,
         )
         held.append([(lvl.v, lvl.r) for lvl in levels])
     if timer is not None:

@@ -1,4 +1,5 @@
-"""Multigrid cycle, residual norm and the solve loop (LINEAR).
+"""Multigrid cycle, residual norm and the solve loop (LINEAR and FAS; the
+inner solve of NEWTON).
 
 The counterpart of ``gpusolve_tpu/solver/vcycle.py``.  ``solve`` always
 runs the batched loop of the JAX package's ``_solve_fused2``: batches of up
@@ -12,10 +13,9 @@ how many cycles share a sync.
 
 The cycle (V, W or F) is the recursion ``cycle_at`` in
 ``ops/vcycle_batch.py``: the coarsest level is smoothed only (pre + post
-sweeps), and a coarse v starts at zero on each visit of its parent.
-
-NONLINEAR (FAS) and NEWTON raise ``NotImplementedError``; they come with
-ROADMAP Queue 2 items 2(c) and 2(d) and Queue 1 item 7.
+sweeps); a coarse v starts at zero on each visit of its parent (LINEAR,
+NEWTON) or at the restricted fine v (FAS).  NEWTON's outer loop, which
+runs this solve as its inner linear solve, is ``solver/newton.py``.
 """
 
 from __future__ import annotations
@@ -25,24 +25,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from gpusolve_tpu_torch.config import GridParams, Mode
+from gpusolve_tpu_torch.config import GridParams
 from gpusolve_tpu_torch.grid import GridState
 from gpusolve_tpu_torch.ops import dispatch as ops
 from gpusolve_tpu_torch.ops import vcycle_batch
 from gpusolve_tpu_torch.utils.timer import Timer
-
-
-def _check_mode(params: GridParams) -> None:
-    if params.mode == Mode.NONLINEAR:
-        raise NotImplementedError(
-            "NONLINEAR (FAS) mode is not ported yet: ROADMAP Queue 2 item "
-            "2(c)"
-        )
-    if params.mode == Mode.NEWTON:
-        raise NotImplementedError(
-            "NEWTON mode is not ported yet: ROADMAP Queue 2 item 2(d) and "
-            "Queue 1 item 7"
-        )
 
 
 def _np_dtype(state: GridState):
@@ -52,7 +39,6 @@ def _np_dtype(state: GridState):
 def vcycle(state: GridState, params: GridParams) -> Tuple[GridState, float]:
     """One cycle of ``params.cycle_type``; returns the state (updated in
     place) and the finest-level residual norm."""
-    _check_mode(params)
     norms = vcycle_batch.run(state, params, maxk=1)
     return state, float(np.sqrt(norms[0]))
 
@@ -60,12 +46,13 @@ def vcycle(state: GridState, params: GridParams) -> Tuple[GridState, float]:
 def residual_norm(
     state: GridState, params: GridParams
 ) -> Tuple[GridState, float]:
-    """Residual at the finest level, stored in level 0's r, and its norm."""
+    """The mode's residual at the finest level, stored in level 0's r, and
+    its norm."""
     lvl = state.levels[0]
     sumsq = lvl.v.new_empty(1)
     ops.residual_op(
         lvl.r, lvl.v, lvl.f, params.level_dims()[0], params,
-        params.level_h(0), norm_out=sumsq,
+        params.level_h(0), norm_out=sumsq, newton_v=lvl.newton_v,
     )
     return state, float(np.sqrt(sumsq.cpu().numpy()[0]))
 
@@ -132,7 +119,6 @@ def solve(
     stops exactly where the uninterrupted run would, and the history omits
     the leading initial entry.
     """
-    _check_mode(params)
     if timer is None and params.print_progress:
         timer = Timer()
     if initial_residual is None:

@@ -1,5 +1,5 @@
-"""The port's CLI on the CPU: the reference's output lines, and a clear exit
-for everything this slice does not run yet."""
+"""The port's CLI on the CPU: the reference's output lines in every mode,
+and a clear exit for every flag not ported yet."""
 
 import os
 import re
@@ -61,15 +61,35 @@ def test_cli_float64_and_devices(small_conf, capsys):
         ["--load-state", "x.npz"], ["--dump", "v.txt"], ["--profile", "d"],
     ],
 )
-def test_cli_not_ported_flags_exit_1(small_conf, capsys, args):
-    assert cli.main([small_conf(), "--platform", "cpu", *args]) == 1
+def test_cli_not_ported_flags_exit_1(
+    small_conf, capsys, tmp_path, monkeypatch, args
+):
+    """The flags of later slices exit 1 with "not ported"; --dump, ported
+    since, writes the solution and exits 0."""
+    monkeypatch.chdir(tmp_path)
+    rc = cli.main([small_conf(), "--platform", "cpu", *args])
+    if args[0] == "--dump":
+        assert rc == 0 and (tmp_path / args[1]).is_file()
+        assert f"Dumped solution to {args[1]}" in capsys.readouterr().out
+        return
+    assert rc == 1
     assert "not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("mode", [1, 2])
 def test_cli_other_modes_exit_1(small_conf, capsys, mode):
-    assert cli.main([small_conf(mode=mode), "--platform", "cpu"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    """Modes 1 and 2 exited 1 before they were ported; they run now, with
+    the reference's mode line and progress lines."""
+    assert cli.main([small_conf(mode=mode), "--platform", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[1] == ("Solving nonlinear problem" if mode == 1
+                      else "Solving newton problem")
+    word = "iter" if mode == 1 else "newton iter"
+    first = "Inital residual: " if mode == 1 else "Inital newton residual: "
+    assert out[2].startswith(first)
+    assert len(out) > 3
+    assert all(re.match(rf"^{word}: {i} residual: \S+ Took \d+ms", ln)
+               for i, ln in enumerate(out[3:]))
 
 
 def test_cli_errors(small_conf, capsys, monkeypatch):

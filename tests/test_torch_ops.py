@@ -240,7 +240,19 @@ def test_dispatch_backend_rules():
 
 
 def test_kernel_wrappers_reject_non_linear():
-    _, pt = params_pair(Mode.NEWTON, (15, 15, 15), "float32")
-    v = torch.zeros((17, 17, 17))
-    with pytest.raises(NotImplementedError, match="LINEAR"):
-        kernels.jacobi_sweep(v.clone(), v, v, (15, 15, 15), pt, 0.1)
+    """The wrappers took LINEAR only before FAS and Newton were ported; a
+    NEWTON sweep or residual now needs ũ: without newton_v the wrapper
+    raises, with it the wrapper runs the Newton op."""
+    dims = (15, 15, 15)
+    _, pt = params_pair(Mode.NEWTON, dims, "float32")
+    rng = np.random.default_rng(6)
+    v, f = (torch.from_numpy(rand_field(rng, dims, np.float32, s))
+            for s in (0.5, 50.0))
+    nv = torch.from_numpy(rand_field(rng, dims, np.float32, 0.3))
+    out = torch.zeros_like(v)
+    with pytest.raises(ValueError, match="newton_v"):
+        kernels.jacobi_sweep(out, v, f, dims, pt, 0.1)
+    with pytest.raises(ValueError, match="newton_v"):
+        kernels.residual(out, v, f, dims, pt, 0.1)
+    kernels.jacobi_sweep(out, v, f, dims, pt, 0.1, newton_v=nv)
+    assert torch.equal(out, ref.jacobi(v, f, dims, pt, 0.1, 1, newton_v=nv))

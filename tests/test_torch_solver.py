@@ -20,6 +20,7 @@ from gpusolve_tpu.solver import vcycle as jvc
 from gpusolve_tpu_torch import config as tcfg
 from gpusolve_tpu_torch import grid as tgrid
 from gpusolve_tpu_torch.ops import kernels, vcycle_batch
+from gpusolve_tpu_torch.solver import newton as tnewton
 from gpusolve_tpu_torch.solver import vcycle as tvc
 
 
@@ -189,10 +190,14 @@ def test_progress_lines(capsys):
 
 @pytest.mark.parametrize("mode", [1, 2])
 def test_other_modes_not_ported(mode):
+    """Modes 1 and 2, which the LINEAR slice rejected, run now: FAS through
+    solve, Newton through newton_solve, each falling every step."""
     _, pt = params_pair((15, 15, 15), mode=mode)
     state = tgrid.build_grid(pt, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvc.solve(state, pt)
+    run = tvc.solve if mode == 1 else tnewton.newton_solve
+    state, hist = run(state, pt)
+    assert len(hist) == 4
+    assert all(b < a / 4 for a, b in zip(hist, hist[1:]))
 
 
 def test_cpu_solve_launches_no_kernel():
