@@ -28,9 +28,10 @@ Phases (any failure exits non-zero before the last line is printed):
      nonlinear and Newton ones: the mode line, the progress lines, and a
      max-abs error against the analytic solution under 5e-4);
   5. times at 511³ with CUDA events: device ms per LINEAR and FAS cycle
-     over a 10-cycle batch and per Newton step, a profiler breakdown by
-     kernel for each, each kernel's time beside its bound (bytes over the
-     card's memory rate, or operations over its float32 rate), its plain
+     over a 10-cycle batch and per Newton step of newton_solve, a
+     profiler breakdown by kernel for each, each kernel's time beside its
+     bound (the bytes of kernel_bytes over the card's memory rate, or
+     operations over its float32 rate), its plain
      version's time and a PyTorch library call computing the same
      function where there is one, and a one-field copy as the stream
      ceiling.
@@ -129,6 +130,31 @@ def padded(dims):
 
 def inner(dims):
     return dims[0] * dims[1] * dims[2]
+
+
+def kernel_bytes(name, dims, cdims=None, outputs=2):
+    """Bytes one launch must move at level ``dims`` (coarse ``cdims``):
+    each input read once, each output written once.  A field counts at its
+    padded size only where the kernel reads its halo (the stencil's v;
+    prolong_add's coarse v); reads of the interior only, and every write,
+    count the interior.  The restriction reads fine points 2c−1..2c+1 of
+    each coarse c (on 2^k−1 grids the fine interior) and writes
+    ``outputs`` coarse fields (restrict_zero: f and the zeroed v).
+    apply_fas and subtract run on their own level, ``dims``."""
+    n, pad = inner(dims), padded(dims)
+    if name.startswith(("residual", "jacobi_sweep")):
+        fields = 3 if name.endswith("_newton") else 2  # f, r or v out; ũ
+        return 4 * (pad + fields * n)
+    if name.startswith("restrict"):
+        box = math.prod(2 * c + 1 for c in cdims)
+        return 4 * (box + outputs * inner(cdims))
+    if name == "prolong_add":
+        return 4 * (padded(cdims) + 2 * n)
+    if name == "apply_fas":
+        return 4 * (pad + 2 * n)  # v with halo; out read and written
+    if name == "subtract":
+        return 4 * 3 * n
+    raise ValueError(name)
 
 
 # ---------------------------------------------------------------------------
@@ -600,8 +626,7 @@ def time_kernels(params, state, rate, rows):
     r = torch.zeros_like(v)
     out = torch.zeros_like(v)
     fc, vc = torch.zeros_like(lvl1.f), lvl1.v.clone()
-    pad, n = padded(dims), inner(dims)
-    cn = inner(cdims)
+    n, cn = inner(dims), inner(cdims)
     ntaps = len(params.stencil.values)
     parts = K.residual(None, v, f, dims, params, h, write_r=False,
                        with_norm=True)
@@ -619,7 +644,7 @@ def time_kernels(params, state, rate, rows):
             lambda: K.residual(r, v, f, dims, params, h),
             lambda: K.residual_plain(r, v, f, dims, params, h),
             lambda: F.conv3d(v5, taps_w),
-            4 * (2 * pad + n), (2 * ntaps + 1) * n, s,
+            kernel_bytes("residual", dims), (2 * ntaps + 1) * n, s,
         ),
         "finalize": (
             lambda: K.finalize(parts, ss),
@@ -631,31 +656,33 @@ def time_kernels(params, state, rate, rows):
             lambda: K.jacobi_sweep(out, v, f, dims, params, h),
             lambda: K.jacobi_sweep_plain(out, v, f, dims, params, h),
             lambda: F.conv3d(v5, taps_w),
-            4 * (2 * pad + n), (2 * ntaps + 4) * n, s,
+            kernel_bytes("jacobi_sweep", dims), (2 * ntaps + 4) * n, s,
         ),
         "restrict_zero": (
             lambda: K.restrict_zero(fc, vc, r, dims, cdims),
             lambda: K.restrict_zero_plain(fc, vc, r, dims, cdims),
             lambda: F.conv3d(r5, restrict_w, stride=2),
-            4 * (pad + 2 * cn), 53 * cn, s,
+            kernel_bytes("restrict_zero", dims, cdims), 53 * cn, s,
         ),
         "prolong_add": (
             lambda: K.prolong_add(out, vc, dims, cdims),
             lambda: K.prolong_add_plain(out, vc, dims, cdims),
             lambda: F.conv_transpose3d(vc5, prolong_w, stride=2),
-            4 * (pad + padded(cdims) + n), 11.5 * n, s,
+            kernel_bytes("prolong_add", dims, cdims), 11.5 * n, s,
         ),
     }
     time_cases(cases, rate, rows)
     norm_only = cuda_ms(
         lambda: K.residual(None, v, f, dims, params, h, write_r=False,
                            with_norm=True), reps=20)
+    norm_bytes = kernel_bytes("residual", dims) - 4 * n  # r not written
     print(f"time residual norm-only 511^3: {norm_only:.4f} ms, bound "
-          f"{4 * 2 * pad / rate * 1e3:.4f} ms")
+          f"{norm_bytes / rate * 1e3:.4f} ms")
     dst = torch.empty_like(v)
     copy_ms = cuda_ms(lambda: dst.copy_(v), reps=20)
     print(f"time copy of one 511^3 field: {copy_ms:.4f} ms = "
-          f"{2 * 4 * pad / copy_ms / 1e6:.1f} GB/s (stream ceiling)")
+          f"{2 * 4 * padded(dims) / copy_ms / 1e6:.1f} GB/s (stream "
+          f"ceiling)")
 
 
 def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
@@ -679,8 +706,7 @@ def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
     r = torch.zeros_like(v)
     out = torch.zeros_like(v)
     fc, vc, rv = l1.f.clone(), l1.v.clone(), l1.rest_v.clone()
-    pad, n = padded(dims), inner(dims)
-    cpad, cn = padded(cdims), inner(cdims)
+    n, cn = inner(dims), inner(cdims)
     taps = 2 * len(fas_params.stencil.values)
     restrict_w = trilinear_filter(0.125)
     v5 = v[None, None]
@@ -691,40 +717,45 @@ def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
         "residual_fas": (
             lambda: K.residual(r, v, f, dims, fp, h),
             lambda: K.residual_plain(r, v, f, dims, fp, h),
-            None, 4 * (2 * pad + n), (taps + 4 + EXP_OPS) * n, s,
+            None, kernel_bytes("residual_fas", dims),
+            (taps + 4 + EXP_OPS) * n, s,
         ),
         "residual_newton": (
             lambda: K.residual(r, vn, fn, dims, np_, h, newton_v=nv),
             lambda: K.residual_plain(r, vn, fn, dims, np_, h, newton_v=nv),
-            None, 4 * (3 * pad + n), (taps + 5 + EXP_OPS) * n, s,
+            None, kernel_bytes("residual_newton", dims),
+            (taps + 5 + EXP_OPS) * n, s,
         ),
         "jacobi_sweep_fas": (
             lambda: K.jacobi_sweep(out, v, f, dims, fp, h),
             lambda: K.jacobi_sweep_plain(out, v, f, dims, fp, h),
-            None, 4 * (2 * pad + n), (taps + 10 + EXP_OPS) * n, s,
+            None, kernel_bytes("jacobi_sweep_fas", dims),
+            (taps + 10 + EXP_OPS) * n, s,
         ),
         "jacobi_sweep_newton": (
             lambda: K.jacobi_sweep(out, vn, fn, dims, np_, h, newton_v=nv),
             lambda: K.jacobi_sweep_plain(out, vn, fn, dims, np_, h,
                                          newton_v=nv),
-            None, 4 * (3 * pad + n), (taps + 9 + EXP_OPS) * n, s,
+            None, kernel_bytes("jacobi_sweep_newton", dims),
+            (taps + 9 + EXP_OPS) * n, s,
         ),
         "restrict": (
             lambda: K.restrict(vc, v, dims, cdims, out2=rv),
             lambda: K.restrict_plain(vc, v, dims, cdims, out2=rv),
             lambda: F.conv3d(v5, restrict_w, stride=2),
-            4 * (pad + 2 * cn), 53 * cn, s,
+            kernel_bytes("restrict", dims, cdims), 53 * cn, s,
         ),
         "apply_fas": (
             lambda: K.apply_fas(fc, vc, cdims, fp, hc),
             lambda: K.apply_fas_plain(fc, vc, cdims, fp, hc),
-            None, 4 * (2 * cpad + cn), (taps + 4 + EXP_OPS) * cn, sc,
+            None, kernel_bytes("apply_fas", cdims),
+            (taps + 4 + EXP_OPS) * cn, sc,
         ),
         "subtract": (
             lambda: K.subtract(vc, rv, cdims),
             lambda: K.subtract_plain(vc, rv, cdims),
             lambda: torch.sub(vc, rv, out=diff),
-            4 * (2 * cpad + cn), cn, sc,
+            kernel_bytes("subtract", cdims), cn, sc,
         ),
     }
     time_cases(cases, rate, rows)
@@ -746,51 +777,56 @@ def profile_rows(prof, per, what):
 
 
 def cycle_bytes(params):
-    """Bytes one cycle of the per-op structure moves: sweeps and the
-    written residual 3 fields, the norm-only residual 2, restriction the
-    fine r plus coarse f and v, prolongation fine v twice plus coarse v;
-    FAS adds R(v) (the fine v plus two coarse fields), the tau fold
-    (three coarse) and the subtraction (three coarse)."""
+    """Bytes one cycle of the per-op structure moves: kernel_bytes of
+    every launch launches_per_cycle counts, level by level, and the final
+    norm-only residual."""
     from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops.vcycle_batch import level_visits
 
     dims = params.level_dims()
     visits = level_visits(len(dims), params.cycle_type)
     sweeps = params.pre_smoothing + params.post_smoothing
-    fas = params.mode == Mode.NONLINEAR
+    res = K.variant("residual", params.mode)
+    jac = K.variant("jacobi_sweep", params.mode)
     total = 0
     for i, d in enumerate(dims):
-        dense = 4 * padded(d)
-        total += visits[i] * sweeps * 3 * dense
+        per = sweeps * kernel_bytes(jac, d)
         if i + 1 < len(dims):
-            cdense = 4 * padded(dims[i + 1])
-            total += visits[i] * (3 * dense + dense + 2 * cdense
-                                  + 2 * dense + cdense)
-            if fas:
-                total += visits[i] * (dense + 2 * cdense + 6 * cdense)
-    return total + 2 * 4 * padded(dims[0])
+            c = dims[i + 1]
+            per += (kernel_bytes(res, d)
+                    + kernel_bytes("prolong_add", d, c))
+            if params.mode == Mode.NONLINEAR:
+                per += (kernel_bytes("restrict", d, c, outputs=1)
+                        + kernel_bytes("restrict", d, c)
+                        + kernel_bytes("apply_fas", c)
+                        + kernel_bytes("subtract", c))
+            else:
+                per += kernel_bytes("restrict_zero", d, c)
+        total += visits[i] * per
+    return total + kernel_bytes(res, dims[0]) - 4 * inner(dims[0])
 
 
 def fused_cycle_bytes(params):
     """The least bytes a LINEAR cycle with each leg fused into one pass
-    moves (the TPU kernel's wavefront, ROADMAP's first perf item): per
-    visit of a non-coarsest level a down pass reads v and f and writes v
-    and the coarse f, an up pass reads v, f and the coarse v and writes v
-    (the finest norm folded in); the coarsest reads v and f and writes
-    v."""
+    moves (the TPU kernel's wavefront, ROADMAP's first perf item), counted
+    as kernel_bytes counts: per visit of a non-coarsest level a down pass
+    reads v (with halo) and f and writes v and the coarse f, an up pass
+    reads v (with halo), f and the coarse v (with halo) and writes v (the
+    finest norm folded in); the coarsest reads v and f and writes v."""
     from gpusolve_tpu_torch.ops.vcycle_batch import level_visits
 
     dims = params.level_dims()
     visits = level_visits(len(dims), params.cycle_type)
     total = 0
     for i, d in enumerate(dims):
-        dense = 4 * padded(d)
+        leg = padded(d) + 2 * inner(d)
         if i + 1 < len(dims):
-            cdense = 4 * padded(dims[i + 1])
-            total += visits[i] * (6 * dense + 2 * cdense)
+            c = dims[i + 1]
+            total += visits[i] * (2 * leg + inner(c) + padded(c))
         else:
-            total += visits[i] * 3 * dense
-    return total
+            total += visits[i] * leg
+    return 4 * total
 
 
 def time_cycles(params, state, rate, label):
@@ -837,50 +873,62 @@ def time_cycles(params, state, rate, label):
 
 
 def time_newton_steps(params, steps=3):
-    """Device and wall ms per outer Newton step from a fresh 511³ state
-    (CUDA events around ``steps`` steps after the initial F), in two runs
-    for the spread, then a profiler breakdown of a third."""
+    """Device and wall ms per outer Newton step: gt.newton_solve from a
+    fresh 511³ state with maxiter ``steps``, between CUDA events (so the
+    initial F is in the total), in two runs for the spread, then a
+    profiler breakdown of a third.  The inner cycles each step ran are
+    the lengths of find_error's histories, which a wrapper records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import gpusolve_tpu_torch as gt
     from gpusolve_tpu_torch.solver import newton
 
+    p = params.replace(maxiter=steps, print_progress=False)
+    inner = []
+    find_error = newton.find_error
+
+    def counted(*args, **kwargs):
+        hist = find_error(*args, **kwargs)
+        inner.append(len(hist))
+        return hist
+
     def run(window=contextlib.nullcontext()):
-        state = gt.build_grid(params)
-        fn = newton.comp_f(state, params)
+        state = gt.build_grid(p)
         torch.cuda.synchronize()
+        inner.clear()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        hist, inner = [fn], []
         with window:
             t0 = time.perf_counter()
             a.record()
-            for _ in range(steps):
-                inner.append(len(newton.find_error(state, params,
-                                                   f_norm=fn)))
-                fn = newton.comp_f(state, params)
-                hist.append(fn)
+            _, hist = gt.newton_solve(state, p)
             b.record()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        return a.elapsed_time(b), wall, hist, inner
+        check(len(hist) == steps + 1, f"newton timing ran {hist}")
+        return a.elapsed_time(b), wall, hist, list(inner)
 
-    run()  # warm
-    for n in range(2):
-        dev, wall, hist, inner = run()
-        print(f"newton step 511^3 (run {n + 1}): {dev / steps:.3f} ms/step "
-              f"device (CUDA events over {steps} steps), "
-              f"{wall / steps:.3f} ms/step wall; inner cycles per step "
-              f"{inner}; history {hist}")
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, wall_p, _, _ = run(prof)
+    newton.find_error = counted
+    try:
+        run()  # warm
+        for n in range(2):
+            dev, wall, hist, steps_inner = run()
+            print(f"newton step 511^3 (run {n + 1}): {dev / steps:.3f} "
+                  f"ms/step device (CUDA events around newton_solve, "
+                  f"{steps} steps, the initial F included), "
+                  f"{wall / steps:.3f} ms/step wall; inner cycles per step "
+                  f"{steps_inner}; history {hist}")
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, wall_p, _, _ = run(prof)
+    finally:
+        newton.find_error = find_error
     busy, any_rows = profile_rows(prof, steps, "step")
     if any_rows:
         print(f"profile newton busy {busy / steps:.3f} ms/step of "
               f"{wall_p / steps:.3f} wall -> idle share "
               f"{1 - busy / wall_p:.3f}")
-    return dev / steps
 
 
 def main() -> int:

@@ -145,9 +145,10 @@ def test_prepare_restricts_to_all_but_the_coarsest():
 
 def test_newton_batch_matches_pallas_vcycle2_interpret():
     """Two inner NEWTON cycles in one batch, with a nonzero ũ on every
-    level, against _vcycle2_call in interpret mode at 24³
-    (tests/test_vcycle2.py:118), both from the same state."""
-    dims = (24, 24, 24)
+    level, against _vcycle2_call in interpret mode at 15³, the smallest
+    size tests/test_vcycle2.py runs it at (the cost is the kernel's trace,
+    which grows with the levels), both from the same state."""
+    dims = (15, 15, 15)
     pj, pt = params_pair(dims)
     rng = np.random.default_rng(7)
     jstate = gs.build_grid(pj)
