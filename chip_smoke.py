@@ -4,29 +4,41 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line is printed):
-  1. the card (nvidia-smi name and power limit), versions, kernel build,
-     and ptxas's registers and spills for every kernel instantiation;
+  1. the card (nvidia-smi name and power limit), versions, kernel build
+     (one nvcc per source, started together), and ptxas's registers and
+     spills for every kernel instantiation;
   2. every CUDA kernel, in each mode it has (LINEAR, FAS, NEWTON with ũ
      random at scale 0.3), against its plain PyTorch version on CUDA
      tensors at 15³, 16³, (31,15,63), 127³ and the 511³ level-0 shape:
      fields to rtol 1e-5 with atol 1e-5·max|plain|, Σr² to rel 1e-5,
      each printed with whether it is bit-identical; a set ``done`` flag
-     must leave every output untouched;
+     must leave every output untouched.  Then the v1 whole-cycle kernel
+     (``vcycle_fused``) against ``vcycle_fused_plain`` at 15³, 16³, 31³,
+     (31,15,63), 127³ and 511³, V(3,3) and V(6,6), in the three modes
+     (every field of every level and Σr², same tolerances), and one v1
+     cycle against one batch-engine cycle at 511³ V(6,6);
   3. the main paths, each with the launch counters zeroed just before it
-     and read just after; the counts must equal what the schedule
-     implies, and the same run on the plain ops (backend="ref") on the
-     card must give the same history (rel 2e-4 while the residual is
-     >= 1e-4·initial, a factor 1.5 nearer the float32 floor, a stop at
-     most one cycle apart):
+     and read just after; the counts must equal what the engine's
+     schedule implies, and the same run on the plain ops (backend="ref")
+     on the card must give the same history (V(3,3): rel 2e-4 while the
+     residual is >= 1e-4·initial, a factor 1.5 nearer the float32 floor,
+     a stop at most one cycle apart; V(6,6): identical):
        * examples/linear_127.conf at grid_dim 511³ (9 levels) through
          build_grid + solve(check_every=10), then W and F at 127³;
        * examples/nonlinear_127.conf (FAS) likewise at 511³, W and F at
          127³;
        * examples/newton_127.conf at 511³ through newton_solve (the plain
          run takes 3 outer steps and is compared on those);
-  4. the CLI on the three example configs as they are (--validate on the
+       * the three at 511³ V(6,6), where solve (and newton_solve's inner
+         solve) runs the v1 kernel: one vcycle_fused launch per cycle and
+         no per-op cycle launch;
+  4. the CLI: the three example configs as they are (--validate on the
      nonlinear and Newton ones: the mode line, the progress lines, and a
-     max-abs error against the analytic solution under 5e-4);
+     max-abs error against the analytic solution under 5e-4) with
+     --explain-backend; a V(6,6) config (the v1 engine and its note);
+     --save-state/--load-state resuming to the uninterrupted history;
+     --refine at 127³ to tol 1e-10 (LINEAR and Newton); --dtype float64
+     at 127³ on the card (the plain ops, no kernel launch); --profile;
   5. times at 511³ with CUDA events: device ms per LINEAR and FAS cycle
      over a 10-cycle batch and per Newton step of newton_solve, a
      profiler breakdown by kernel for each, each kernel's time beside its
@@ -34,7 +46,10 @@ Phases (any failure exits non-zero before the last line is printed):
      operations over its float32 rate), its plain
      version's time and a PyTorch library call computing the same
      function where there is one, and a one-field copy as the stream
-     ceiling.
+     ceiling; the v1 kernel's ms per cycle at V(3,3) and V(6,6) in the
+     three modes beside the batch engine's at the same configuration,
+     their bytes and bounds, the wall per cycle of a V(6,6) solve with
+     its idle share, and the cost of one op and its grid barrier.
 
 The line before the last is the JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -50,6 +65,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,8 +74,12 @@ CONFS = {
     for mode in ("linear", "nonlinear", "newton")
 }
 SRC = "gpusolve_tpu_torch/ops/csrc/multigrid.cu"
+V1_SRC = "gpusolve_tpu_torch/ops/csrc/vcycle_fused.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
+V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
+             (127, 127, 127), (511, 511, 511)]
+V1_SWEEPS = [(3, 3), (6, 6)]
 BIG = (511, 511, 511)
 RTOL = 1e-5
 DEVICE = "cuda"
@@ -80,6 +100,7 @@ REPLACES = {
     "prolong_add": "gpusolve_tpu/ops/pallas_vcycle2.py:499",
     "apply_fas": "gpusolve_tpu/ops/pallas_vcycle2.py:1338",
     "subtract": "gpusolve_tpu/ops/pallas_vcycle2.py:527",
+    "vcycle_fused": "gpusolve_tpu/ops/pallas_vcycle.py:112",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # Operations counted for one e^x (a range reduction, a polynomial and a
@@ -238,6 +259,22 @@ class Record:
         return (f"{what}: max_abs_err={err:.3e} (atol {atol:.3e}) "
                 f"bit-identical={same}")
 
+    def fields(self, got, want, what, key):
+        """Every pair of fields agrees as in close(); one line for all."""
+        import torch
+
+        err, ok, same = 0.0, True, True
+        for g, w in zip(got, want):
+            diff = (g - w).abs()
+            atol = RTOL * float(w.abs().max())
+            err = max(err, float(diff.max()))
+            ok = ok and bool((diff <= atol + RTOL * w.abs()).all())
+            same = same and bool(torch.equal(g, w))
+        self.errs[key] = max(self.errs.get(key, 0.0), err)
+        self.same[key] = self.same.get(key, True) and same
+        check(ok, f"{what}: max_abs_err {err:.3e}")
+        return f"{what}: max_abs_err={err:.3e} bit-identical={same}"
+
     def scalar(self, got, want, what, key):
         err = abs(got - want)
         check(err <= RTOL * abs(want), f"{what}: {got} vs {want}")
@@ -377,9 +414,143 @@ def check_kernels(base, rec):
     print(f"check bit-identical over all shapes: {rec.same}")
 
 
+def seeded_state(params, seed):
+    """A state with seeded level-0 v (scale 0.05) and, in NEWTON, ũ
+    (scale 0.3)."""
+    import numpy as np
+    import torch
+
+    import gpusolve_tpu_torch as gt
+
+    state = gt.build_grid(params)
+    rng = np.random.default_rng(seed)
+    d = params.grid_dim
+
+    def fill(t, scale):
+        t[1:-1, 1:-1, 1:-1] = torch.from_numpy(
+            rng.standard_normal(d, dtype=np.float32) * np.float32(scale)
+        ).to(DEVICE)
+
+    fill(state.levels[0].v, 0.05)
+    if params.mode == gt.Mode.NEWTON:
+        fill(state.levels[0].newton_v, 0.3)
+    return state
+
+
+def clone_state(state):
+    import dataclasses
+
+    import gpusolve_tpu_torch as gt
+
+    def cl(t):
+        return None if t is None else t.clone()
+
+    levels = tuple(
+        dataclasses.replace(lvl, v=cl(lvl.v), f=cl(lvl.f), r=cl(lvl.r),
+                            rest_v=cl(lvl.rest_v),
+                            newton_v=cl(lvl.newton_v))
+        for lvl in state.levels
+    )
+    return gt.GridState(levels=levels, newton_f=cl(state.newton_f))
+
+
+def level_fields(state):
+    out = []
+    for lvl in state.levels:
+        out += [t for t in (lvl.v, lvl.r, lvl.f, lvl.rest_v, lvl.newton_v)
+                if t is not None]
+    return out
+
+
+def check_vcycle_fused(base, rec):
+    """The v1 kernel against its plain version: two cycles (one at 511³)
+    from the same seeded state, every field of every level (the plain
+    version runs the same schedule on the same buffers) and Σr²; then one
+    v1 cycle against one batch-engine cycle at 511³ V(6,6), compared as
+    tests/test_torch_vcycle_fused.py compares them (FAS coarse v as
+    v − rest_v)."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import vcycle_batch
+    from gpusolve_tpu_torch.ops import vcycle_fused as vf
+
+    for n, dims in enumerate(V1_SHAPES):
+        for pre, post in V1_SWEEPS:
+            for mode in Mode:
+                p = base.replace(grid_dim=dims, mode=mode,
+                                 pre_smoothing=pre, post_smoothing=post,
+                                 print_progress=False)
+                a = seeded_state(p, 200 + n)
+                b = clone_state(a)
+                for _ in range(1 if dims == BIG else 2):
+                    ss_k = vf.vcycle_fused(a.levels, p)
+                    ss_p = vf.vcycle_fused_plain(b.levels, p)
+                torch.cuda.synchronize()
+                tag = (f"vcycle_fused {'x'.join(map(str, dims))} "
+                       f"V({pre},{post}) {mode.name}")
+                fields = rec.fields(level_fields(a), level_fields(b), tag,
+                                    "vcycle_fused")
+                norm = rec.scalar(float(ss_k), float(ss_p), "sum r^2",
+                                  "vcycle_fused")
+                print(f"check {fields}; {norm}")
+                del a, b
+                torch.cuda.empty_cache()
+    for mode in Mode:
+        p = base.replace(grid_dim=BIG, mode=mode, pre_smoothing=6,
+                         post_smoothing=6, print_progress=False)
+        a = seeded_state(p, 300)
+        b = clone_state(a)
+        ss_k = float(vf.vcycle_fused(a.levels, p)[0])
+        ss_b = float(vcycle_batch.run(b, p, maxk=1)[0])
+        got, want = [], []
+        for i, (la, lb) in enumerate(zip(a.levels, b.levels)):
+            got.append(la.f)
+            want.append(lb.f)
+            if mode == Mode.NONLINEAR:
+                got += [la.rest_v, la.v - la.rest_v if i else la.v]
+                want += [lb.rest_v, lb.v]
+            else:
+                got.append(la.v)
+                want.append(lb.v)
+        check(ss_k == ss_b,
+              f"v1 vs batch 511^3 {mode.name}: sum r^2 {ss_k} != {ss_b}")
+        line = rec.fields(got, want,
+                          f"v1 vs batch cycle 511^3 V(6,6) {mode.name}",
+                          "v1_vs_batch")
+        print(f"check {line}; sum r^2 {ss_k} == {ss_b}")
+        del a, b, got, want
+        torch.cuda.empty_cache()
+    grids = {mode.name: vf.grid_blocks(mode) for mode in Mode}
+    print(f"check v1 bit-identical: to its plain version "
+          f"{rec.same['vcycle_fused']}, to the batch engine's cycle "
+          f"{rec.same['v1_vs_batch']}; cooperative grid {grids} blocks")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main paths
 # ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def counting_inner():
+    """Records the inner cycles of each Newton step (the lengths of
+    find_error's histories) in the list it yields."""
+    from gpusolve_tpu_torch.solver import newton
+
+    inner_cycles = []
+    find_error = newton.find_error
+
+    def counted(*args, **kwargs):
+        hist = find_error(*args, **kwargs)
+        inner_cycles.append(len(hist))
+        return hist
+
+    newton.find_error = counted
+    try:
+        yield inner_cycles
+    finally:
+        newton.find_error = find_error
 
 
 def histories_agree(got, want, what):
@@ -419,23 +590,28 @@ def nonzero(counts):
     return {k: n for k, n in counts.items() if n}
 
 
-def expected_counts(params, hist, k):
-    """Launches of a solve: whole batches of ``k`` cycles (the cycles after
-    an early stop are enqueued and skip on the device), plus the initial
-    residual norm.  A Newton solve: the initial F, and per outer step R(ũ)
-    into levels 1..L−2, one inner batch of 10 cycles and F again."""
+def expected_counts(params, hist, k, inner_cycles=()):
+    """Launches of a solve.  The batch engine: whole batches of ``k``
+    cycles (the cycles after an early stop are enqueued and skip on the
+    device); the v1 engine: one vcycle_fused launch per executed cycle.
+    Plus the initial residual norm.  A Newton solve: the initial F, and
+    per outer step R(ũ) into levels 1..L−2, the inner solve (batch: one
+    batch of 10 cycles; v1: the cycles each step ran) and F again."""
     from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
+    from gpusolve_tpu_torch.solver import vcycle as tvc
 
-    per = launches_per_cycle(params)
+    v1 = tvc.engine(params, DEVICE) == "v1"
+    per = {"vcycle_fused": 1} if v1 else launches_per_cycle(params)
     executed = len(hist) - 1
     if params.mode == Mode.NEWTON:
-        cycles = 10 * executed
+        cycles = sum(inner_cycles) if v1 else 10 * executed
         norms = executed + 1
         first = "residual_fas"
     else:
-        cycles = min(params.maxiter, k * math.ceil(executed / k))
+        cycles = executed if v1 else \
+            min(params.maxiter, k * math.ceil(executed / k))
         norms = 1
         first = K.variant("residual", params.mode)
     want = {name: 0 for name in K.KERNELS}
@@ -448,23 +624,31 @@ def expected_counts(params, hist, k):
     return nonzero(want)
 
 
-def main_path(params, label, k=10, plain_maxiter=None):
-    """One main path: launch counts, the stop, the fall of the residual,
-    and the plain ops on the card.  Returns the state and the counts."""
+def main_path(params, label, k=10, plain_maxiter=None, identical=False,
+              floor=None):
+    """One main path: launch counts, the stop, the fall of the residual
+    down to ``floor``·initial, and the plain ops on the card
+    (``identical``: the same history, else histories_agree).  Returns the
+    state and the counts."""
     import torch
 
     from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.solver import vcycle as tvc
 
     K.reset_launches()
-    state, hist, secs = run_solve(params, k)
+    with counting_inner() as inner_cycles:
+        state, hist, secs = run_solve(params, k)
     counts = nonzero(K.launches)
     steps = len(hist) - 1
-    print(f"main path {label}: {steps} steps in {secs:.3f} s wall "
+    print(f"main path {label}: engine {tvc.engine(params, DEVICE)}, "
+          f"{steps} steps in {secs:.3f} s wall "
           f"({1e3 * secs / steps:.2f} ms per step, initial residual "
           f"included), history {hist}")
+    if inner_cycles:
+        print(f"main path {label}: inner cycles per step {inner_cycles}")
     print(f"main path {label} launches: {counts}")
-    want = expected_counts(params, hist, k)
+    want = expected_counts(params, hist, k, inner_cycles)
     check(counts == want, f"{label}: launch counts {counts} != schedule "
           f"{want}")
     initial = hist[0]
@@ -472,9 +656,12 @@ def main_path(params, label, k=10, plain_maxiter=None):
             if r <= initial / (1.0 / params.tol)]
     check(stop == [] and steps == params.maxiter or stop == [steps - 1],
           f"{label}: the loop did not end by the stop test or maxiter")
-    # LINEAR falls every step down to 1e-4·initial; FAS and Newton reach
-    # their float32 floor sooner, so they are held to falling above 1e-2.
-    floor = 1e-4 if params.mode == Mode.LINEAR else 1e-2
+    # At V(3,3) LINEAR falls every step down to 1e-4·initial; FAS and
+    # Newton reach their float32 floor sooner, so they are held to falling
+    # above 1e-2, as is every V(6,6) path (LINEAR's floor at 511³ lies at
+    # ~8.6e-4·initial).
+    if floor is None:
+        floor = 1e-4 if params.mode == Mode.LINEAR else 1e-2
     above = [r for r in hist if r >= floor * initial]
     check(all(b < a for a, b in zip(above, above[1:])),
           f"{label}: the residual did not fall every step")
@@ -488,9 +675,15 @@ def main_path(params, label, k=10, plain_maxiter=None):
     print(f"plain path {label}: {ref_secs:.3f} s wall "
           f"({1e3 * ref_secs / (len(ref_hist) - 1):.2f} ms per step), "
           f"history {ref_hist}")
-    worst = histories_agree(hist[:len(ref_hist)] if plain_maxiter
-                            else hist, ref_hist, f"{label} kernels vs plain")
-    line = f"kernels vs plain {label}: worst history rel diff {worst:.3e}"
+    mine = hist[:len(ref_hist)] if plain_maxiter else hist
+    if identical:
+        check(mine == ref_hist,
+              f"{label}: kernel and plain histories differ")
+        worst = 0.0
+    else:
+        worst = histories_agree(mine, ref_hist, f"{label} kernels vs plain")
+    line = (f"kernels vs plain {label}: worst history rel diff {worst:.3e}"
+            f" (identical: {mine == ref_hist})")
     if plain_maxiter is None:
         field = "newton_v" if params.mode == Mode.NEWTON else "v"
         v = getattr(state.levels[0], field)
@@ -499,6 +692,8 @@ def main_path(params, label, k=10, plain_maxiter=None):
         scale = float(vr.abs().max())
         check(vdiff <= 2e-5 * scale + 2e-4 * scale,
               f"{label}: final v differs by {vdiff:.3e}")
+        if identical:
+            check(torch.equal(v, vr), f"{label}: final {field} differs")
         line += (f", final {field} max_abs_diff {vdiff:.3e} "
                  f"(bit-identical: {torch.equal(v, vr)})")
     print(line)
@@ -527,30 +722,50 @@ def other_cycles(params127, label):
               f"worst rel diff vs plain {worst:.3e}, launches {counts}")
 
 
-def cli_path(conf, mode_line, newton=False):
+def run_cli(args):
+    """cli.main on ``args``; returns (rc, stdout, stderr), echoing both."""
     from gpusolve_tpu_torch import cli
-    from gpusolve_tpu_torch.ops import kernels as K
 
-    K.reset_launches()
-    validate = mode_line != "Solving linear problem"
-    args = [conf, "--devices"] + (["--validate"] if validate else [])
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(args)
-    out = buf.getvalue()
-    sys.stdout.write(out)
-    check(rc == 0, f"cli exited {rc}")
-    lines = out.splitlines()
-    check(lines[0] == f"Using config file {conf}", "cli: config line")
-    check(mode_line in lines, f"cli: mode line {mode_line!r}")
+    sys.stdout.write(out.getvalue())
+    for ln in err.getvalue().splitlines():
+        print(f"[stderr] {ln}")
+    return rc, out.getvalue(), err.getvalue()
+
+
+def progress(lines, newton=False):
+    """The initial residual and the per-iteration residuals of a run's
+    progress lines, checked for form and numbering."""
     word = "newton iter" if newton else "iter"
     first = "Inital newton residual: " if newton else "Inital residual: "
-    init = [ln for ln in lines if ln.startswith(first)]
+    init = [float(ln[len(first):]) for ln in lines if ln.startswith(first)]
     iters = [re.match(rf"^{word}: (\d+) residual: (\S+) Took (\d+)ms", ln)
              for ln in lines if ln.startswith(f"{word}: ")]
     check(len(init) == 1 and iters and all(iters), "cli: progress lines")
     check([int(m.group(1)) for m in iters] == list(range(len(iters))),
           "cli: iteration numbers")
+    return init[0], [float(m.group(2)) for m in iters]
+
+
+def cli_path(conf, mode_line, newton=False, extra=(), engine="batch of"):
+    """One CLI run with --devices and --explain-backend: the reference's
+    lines, --validate's error in modes 1 and 2, the engine line."""
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    validate = mode_line != "Solving linear problem"
+    args = [conf, "--devices", "--explain-backend", *extra]
+    args += ["--validate"] if validate else []
+    rc, out, err = run_cli(args)
+    check(rc == 0, f"cli exited {rc}")
+    lines = out.splitlines()
+    check(lines[0] == f"Using config file {conf}", "cli: config line")
+    check(mode_line in lines, f"cli: mode line {mode_line!r}")
+    progress(lines, newton)
+    check(f"backend: single device: {engine}" in err,
+          f"cli: engine line {engine!r} missing")
     if validate:
         m = [re.match(r"^max-abs error vs analytic solution: (\S+)$", ln)
              for ln in lines if ln.startswith("max-abs error")]
@@ -560,6 +775,102 @@ def cli_path(conf, mode_line, newton=False):
               f"cli: max-abs error {err} vs the analytic solution")
     check(K.launches["finalize"] > 0, f"cli: no kernel ran {K.launches}")
     print(f"cli launches: {nonzero(K.launches)}")
+    return lines
+
+
+def conf_with(tmp, src, name, **changes):
+    """A copy of a config file with tokens changed: maxiter, tol, pre,
+    post."""
+    toks = open(src).read().split()
+    where = {"maxiter": 0, "tol": 1, "pre": 6, "post": 7}
+    for key, val in changes.items():
+        toks[where[key]] = str(val)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write(" ".join(toks))
+    return path
+
+
+def cli_flags(tmp):
+    """The flags this port gained with the v1 engine, each on the card."""
+    import numpy as np
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    # A V(6,6) config runs the v1 kernel, one launch per cycle, and says
+    # why it left the batch engine.
+    v66 = conf_with(tmp, CONFS["linear"], "v66.conf", pre=6, post=6)
+    K.reset_launches()
+    lines = cli_path(v66, "Solving linear problem",
+                     engine="v1 whole-cycle kernel")
+    _, res = progress(lines)
+    check(nonzero(K.launches) == {"residual": 1, "finalize": 1,
+                                  "vcycle_fused": len(res)},
+          f"cli V(6,6): launches {K.launches}")
+
+    # --save-state / --load-state: 4 cycles, then 6 resumed, against 10
+    # straight, on the v1 engine (tol far below the float32 floor, so
+    # maxiter ends each run).
+    ck = {n: os.path.join(tmp, f"{n}.npz") for n in ("head", "tail", "all")}
+    confs = {n: conf_with(tmp, v66, f"v66_{n}.conf", maxiter=n, tol=1e-12)
+             for n in (4, 6, 10)}
+    rc_a, _, _ = run_cli([confs[4], "--quiet", "--save-state", ck["head"]])
+    rc_b, out_b, _ = run_cli([confs[6], "--quiet", "--load-state",
+                              ck["head"], "--save-state", ck["tail"]])
+    rc_c, _, _ = run_cli([confs[10], "--quiet", "--save-state", ck["all"]])
+    check(rc_a == rc_b == rc_c == 0, "cli checkpoint runs")
+    check(f"Resumed from {ck['head']} (iteration 4)" in out_b.splitlines(),
+          "cli: the Resumed line")
+    with np.load(ck["tail"]) as t, np.load(ck["all"]) as a:
+        check(int(t["__iteration__"]) == int(a["__iteration__"]) == 10,
+              "cli checkpoint iterations")
+        check(np.array_equal(t["__history__"], a["__history__"]),
+              f"cli: resumed history {t['__history__']} != "
+              f"{a['__history__']}")
+        hist = [float(x) for x in a["__history__"]]
+    print(f"cli checkpoint: 4 + 6 resumed cycles give the 10-cycle "
+          f"history exactly: {hist}")
+
+    # --refine to tol 1e-10: float64 outer defect, float32 inner solves on
+    # the kernels.
+    for label in ("linear", "newton"):
+        conf = conf_with(tmp, CONFS[label], f"refine_{label}.conf",
+                         tol=1e-10)
+        K.reset_launches()
+        rc, out, _ = run_cli([conf, "--refine", "--explain-backend"])
+        check(rc == 0, f"cli --refine {label} exited {rc}")
+        initial, res = progress(out.splitlines(), newton=label == "newton")
+        check(res[-1] <= initial * 1e-10,
+              f"cli --refine {label}: {res[-1]} vs initial {initial}")
+        check(K.launches[K.variant("jacobi_sweep", 0 if label == "linear"
+                                   else 2)] > 0,
+              f"cli --refine {label}: the inner solves ran no kernel")
+        print(f"cli --refine {label}: {initial:.6g} -> {res[-1]:.6g} in "
+              f"{len(res)} outer steps ({res[-1] / initial:.3e} of the "
+              f"initial); launches {nonzero(K.launches)}")
+
+    # --dtype float64: the plain ops on the card, no kernel launch.
+    K.reset_launches()
+    rc, out, err = run_cli([CONFS["linear"], "--dtype", "float64",
+                            "--explain-backend"])
+    check(rc == 0, f"cli --dtype float64 exited {rc}")
+    check("backend: single device: plain PyTorch ops (float64;" in err,
+          "cli --dtype float64: engine line")
+    check(all(n == 0 for n in K.launches.values()),
+          f"cli --dtype float64 launched {K.launches}")
+    initial, res = progress(out.splitlines())
+    check(all(b < a for a, b in zip(res, res[1:])),
+          "cli --dtype float64: the residual did not fall every cycle")
+    print(f"cli --dtype float64: {initial:.10g} -> {res[-1]:.10g}, no "
+          "kernel launched")
+
+    # --profile DIR: a Chrome trace of the solve.
+    prof = os.path.join(tmp, "prof")
+    rc, out, _ = run_cli([CONFS["linear"], "--quiet", "--profile", prof])
+    trace = os.path.join(prof, "trace.json")
+    check(rc == 0 and f"Wrote profiler trace to {prof}" in out
+          and os.path.getsize(trace) > 0, "cli --profile")
+    print(f"cli --profile: {os.path.getsize(trace)} bytes of trace")
 
 
 # ---------------------------------------------------------------------------
@@ -882,16 +1193,8 @@ def time_newton_steps(params, steps=3):
     from torch.profiler import ProfilerActivity, profile
 
     import gpusolve_tpu_torch as gt
-    from gpusolve_tpu_torch.solver import newton
 
     p = params.replace(maxiter=steps, print_progress=False)
-    inner = []
-    find_error = newton.find_error
-
-    def counted(*args, **kwargs):
-        hist = find_error(*args, **kwargs)
-        inner.append(len(hist))
-        return hist
 
     def run(window=contextlib.nullcontext()):
         state = gt.build_grid(p)
@@ -909,8 +1212,7 @@ def time_newton_steps(params, steps=3):
         check(len(hist) == steps + 1, f"newton timing ran {hist}")
         return a.elapsed_time(b), wall, hist, list(inner)
 
-    newton.find_error = counted
-    try:
+    with counting_inner() as inner:
         run()  # warm
         for n in range(2):
             dev, wall, hist, steps_inner = run()
@@ -922,13 +1224,184 @@ def time_newton_steps(params, steps=3):
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         _, wall_p, _, _ = run(prof)
-    finally:
-        newton.find_error = find_error
     busy, any_rows = profile_rows(prof, steps, "step")
     if any_rows:
         print(f"profile newton busy {busy / steps:.3f} ms/step of "
               f"{wall_p / steps:.3f} wall -> idle share "
               f"{1 - busy / wall_p:.3f}")
+
+
+def v1_cycle_bytes(params):
+    """Bytes one v1 cycle must move, op by op of its schedule, counted as
+    kernel_bytes counts: a zero-start sweep reads f (and ũ) and writes v;
+    RESTRICT_V writes two coarse fields; FAS_F reads the fine box and
+    rest_v with its halo and writes f; the FAS prolongation reads rest_v
+    with its halo as well; ZERO writes one field; the final residual
+    writes no r.  The 8-byte partial of each level-0 tile is left out, as
+    cycle_bytes leaves it out."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import vcycle_fused as vf
+
+    dims = params.level_dims()
+    res = K.variant("residual", params.mode)
+    jac = K.variant("jacobi_sweep", params.mode)
+    fields = 3 if params.mode == Mode.NEWTON else 2
+    ops, _ = vf.schedule(len(dims), params.mode, params.pre_smoothing,
+                         params.post_smoothing)
+    total = 0
+    for kind, lvl, _, _ in ops:
+        d = dims[lvl]
+        n = inner(d)
+        if kind == vf.ZERO:
+            total += 4 * n
+        elif kind == vf.SMOOTH0:
+            total += 4 * fields * n
+        elif kind == vf.SMOOTH:
+            total += kernel_bytes(jac, d)
+        elif kind == vf.RESIDUAL:
+            total += kernel_bytes(res, d)
+        elif kind in (vf.RESTRICT, vf.RESTRICT_V, vf.FAS_F):
+            c = dims[lvl + 1]
+            total += kernel_bytes("restrict", d, c,
+                                  outputs=2 if kind == vf.RESTRICT_V else 1)
+            if kind == vf.FAS_F:
+                total += 4 * padded(c)
+        elif kind == vf.PROLONG:
+            total += kernel_bytes("prolong_add", dims[lvl - 1], d)
+            if params.mode == Mode.NONLINEAR:
+                total += 4 * padded(d)
+        elif kind == vf.NORM:
+            total += kernel_bytes(res, d) - 4 * n
+    return total
+
+
+def v1_op_times(p, state, rows):
+    """Inside the cooperative kernel at 511³ LINEAR: ms per op of each
+    kind on level 0 (ten of one kind in one launch, a grid barrier after
+    each), beside the per-op kernel's time for the same op, and the cost
+    of a bare op and barrier (a hundred ZERO ops on the 1³ coarsest
+    level, one tile each)."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import vcycle_fused as vf
+
+    def per(ops_list):
+        ops = torch.tensor(ops_list, dtype=torch.int32, device=DEVICE)
+        return cuda_ms(lambda: vf.launch(state.levels, p, ops),
+                       reps=3) / len(ops_list)
+
+    kinds = {
+        "sweep": ([(vf.SMOOTH, 0, k % 2, 1 - k % 2) for k in range(10)],
+                  "jacobi_sweep"),
+        "residual": ([(vf.RESIDUAL, 0, 0, 1)] * 10, "residual"),
+        "norm-only residual": ([(vf.NORM, 0, 0, 0)] * 10, None),
+        "restriction": ([(vf.RESTRICT, 0, 1, 0)] * 10, "restrict_zero"),
+        "prolongation": ([(vf.PROLONG, 1, 0, k % 2) for k in range(10)],
+                         "prolong_add"),
+    }
+    parts = []
+    for label, (ops_list, kernel) in kinds.items():
+        ms = per(ops_list)
+        alone = f" (per-op kernel {rows[kernel]['ms']:.4f})" if kernel \
+            else ""
+        parts.append(f"{label} {ms:.4f}{alone}")
+    barrier = per([(vf.ZERO, p.num_levels - 1, 0, 0)] * 100)
+    print(f"v1 ops at 511^3 LINEAR, ms per level-0 op with its barrier: "
+          f"{'; '.join(parts)}; a bare op and barrier "
+          f"{barrier * 1e3:.2f} us")
+
+
+def time_v1(base, rate, rows):
+    """The v1 kernel's device ms per cycle at 511³, V(3,3) and V(6,6) in
+    the three modes (10 back-to-back launches between CUDA events), beside
+    the batch engine's at the same configuration (a 10-cycle batch); the
+    bytes and bounds of both; a V(6,6) LINEAR solve's wall per cycle (one
+    host sync a cycle) with its profiler idle share; one op with its grid
+    barrier (a 15³ V(6,6) cycle over its ops); the plain version's time.
+    Fills rows["vcycle_fused"] from the V(6,6) LINEAR numbers, the main
+    path's configuration."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import vcycle_batch
+    from gpusolve_tpu_torch.ops import vcycle_fused as vf
+    from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
+
+    k = 10
+    for pre in (3, 6):
+        for mode in Mode:
+            p = base.replace(grid_dim=BIG, mode=mode, pre_smoothing=pre,
+                             post_smoothing=pre, print_progress=False)
+            state = seeded_state(p, 400)
+            v1_ms = cuda_ms(lambda: vf.vcycle_fused(state.levels, p),
+                            reps=k)
+            batch_ms = cuda_ms(
+                lambda: vcycle_batch.run(state, p, maxk=k), reps=1) / k
+            b1, bb = v1_cycle_bytes(p), cycle_bytes(p)
+            nops = len(vf.schedule(p.num_levels, mode, pre, pre)[0])
+            launches = sum(launches_per_cycle(p).values())
+            print(f"cycle v1 511^3 V({pre},{pre}) {mode.name}: "
+                  f"{v1_ms:.3f} ms/cycle device, 1 launch, {nops} ops, "
+                  f"{b1 / 1e9:.3f} GB -> per-op schedule bound "
+                  f"{b1 / rate * 1e3:.3f} ms "
+                  f"({100 * b1 / rate * 1e3 / v1_ms:.1f}%); batch engine "
+                  f"{batch_ms:.3f} ms/cycle, {launches} launches, "
+                  f"{bb / 1e9:.3f} GB -> bound {bb / rate * 1e3:.3f} ms; "
+                  f"v1/batch {v1_ms / batch_ms:.3f}")
+            if pre == 6 and mode == Mode.LINEAR:
+                v1_op_times(p, state, rows)
+                plain_ms = cuda_ms(
+                    lambda: vf.vcycle_fused_plain(state.levels, p), reps=1)
+                # The function is one whole V-cycle: its bound is the
+                # least bytes such a cycle moves (each leg one pass), not
+                # the sum over the per-op schedule v1 runs.
+                bf = fused_cycle_bytes(p)
+                rows["vcycle_fused"] = dict(
+                    ms=v1_ms, plain_ms=plain_ms, library_ms=None,
+                    bound_ms=bf / rate * 1e3, bound_by="bytes",
+                )
+                print(f"time vcycle_fused 511^3 V(6,6) LINEAR: {v1_ms:.4f} "
+                      f"ms, bound {bf / rate * 1e3:.4f} ms (bytes, "
+                      f"{bf / 1e9:.3f} GB, a fused-leg cycle; "
+                      f"{100 * bf / rate * 1e3 / v1_ms:.1f}%), per-op "
+                      f"schedule bound {b1 / rate * 1e3:.4f} ms "
+                      f"({b1 / 1e9:.3f} GB); plain {plain_ms:.3f} ms; "
+                      f"library —")
+            del state
+            torch.cuda.empty_cache()
+
+    p = base.replace(grid_dim=BIG, pre_smoothing=6, post_smoothing=6,
+                     maxiter=k, tol=1e-12, print_progress=False)
+    state = gt.build_grid(p)
+    gt.solve(state, p.replace(maxiter=1))  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = gt.solve(state, p)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    check(len(hist) == k + 1, f"v1 solve ran {hist}")
+    busy, any_rows = profile_rows(prof, k, "cycle")
+    idle = f"idle share {1 - busy / wall:.3f}" if any_rows else \
+        "idle share not measured"
+    print(f"solve v1 511^3 V(6,6) LINEAR: {wall / k:.3f} ms/cycle wall "
+          f"under the profiler (the initial residual included), busy "
+          f"{busy / k:.3f} ms/cycle -> {idle}")
+    del state
+    torch.cuda.empty_cache()
+
+    p = base.replace(grid_dim=(15, 15, 15), pre_smoothing=6,
+                     post_smoothing=6, print_progress=False)
+    state = gt.build_grid(p)
+    nops = len(vf.schedule(p.num_levels, Mode.LINEAR, 6, 6)[0])
+    ms = cuda_ms(lambda: vf.vcycle_fused(state.levels, p), reps=50)
+    print(f"barrier: a 15^3 V(6,6) v1 cycle takes {ms * 1e3:.1f} us for "
+          f"{nops} ops -> {ms * 1e3 / (nops - 1):.2f} us per op and grid "
+          f"barrier (grid {vf.grid_blocks(p.mode)} blocks)")
 
 
 def main() -> int:
@@ -942,6 +1415,7 @@ def main() -> int:
     try:
         import gpusolve_tpu_torch as gt
         from gpusolve_tpu_torch.ops import kernels as K
+        from gpusolve_tpu_torch.solver import vcycle as tvc
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -967,6 +1441,7 @@ def main() -> int:
     base = gt.parse_config(CONFS["linear"])
     rec = Record()
     check_kernels(base, rec)
+    check_vcycle_fused(base, rec)
 
     # Phase 3: each main path with its own counts.
     launched = {kname: 0 for kname in K.KERNELS}
@@ -981,6 +1456,20 @@ def main() -> int:
             launched[kname] += n
         if label != "newton":
             other_cycles(gt.parse_config(CONFS[label]), label)
+    # V(6,6): past the batch engine's sweep cap, solve (and newton_solve's
+    # inner solve) runs the v1 kernel.
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG,
+                                 pre_smoothing=6, post_smoothing=6)
+        check(tvc.engine(params, DEVICE) == "v1",
+              f"V(6,6) {label} does not run the v1 engine")
+        plain_maxiter = NEWTON_PLAIN_STEPS if label == "newton" else None
+        _, counts = main_path(params, f"511^3 V(6,6) {label}",
+                              plain_maxiter=plain_maxiter, identical=True,
+                              floor=1e-2)
+        for kname, n in counts.items():
+            launched[kname] += n
+        torch.cuda.empty_cache()
     missing = [kname for kname, n in launched.items() if n == 0]
     check(not missing, f"kernels no main path launched: {missing}")
 
@@ -988,6 +1477,8 @@ def main() -> int:
     cli_path(CONFS["linear"], "Solving linear problem")
     cli_path(CONFS["nonlinear"], "Solving nonlinear problem")
     cli_path(CONFS["newton"], "Solving newton problem", newton=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_flags(tmp)
 
     # Phase 5: times.
     rows = {}
@@ -1005,12 +1496,14 @@ def main() -> int:
     states.clear()
     torch.cuda.empty_cache()
     time_newton_steps(newt)
+    time_v1(base, rate, rows)
 
     kernels_line = []
     for kname in K.KERNELS:
         row = rows[kname]
         kernels_line.append({
-            "name": kname, "route": "cuda", "source": SRC,
+            "name": kname, "route": "cuda",
+            "source": V1_SRC if kname == "vcycle_fused" else SRC,
             "replaces": REPLACES[kname], "launches": launched[kname],
             "max_abs_err": rec.errs[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -9,8 +9,12 @@ imports neither it nor jax.
 It runs the single-device solve in all three modes (LINEAR multigrid,
 NONLINEAR FAS multigrid, and the NEWTON outer loop with its inner
 multigrid solve; V, W and F cycles) on hand-written CUDA kernels
-(``ops/csrc/multigrid.cu``), with a plain PyTorch version of every op
-(``ops/ref.py``) that runs on the CPU and serves as the kernels' oracle.
+(``ops/csrc/``: per-op kernels batched with an early stop on the device,
+and a whole V-cycle in one cooperative launch for more than 5 sweeps),
+with a plain PyTorch version of every op (``ops/ref.py``) that runs on the
+CPU, runs float64 on the card, and serves as the kernels' oracle; and
+mixed-precision refinement (``solver/refine.py``) and checkpoints
+(``utils/checkpoint.py``).
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``, or ``--platform cpu`` on the CLI).
 

@@ -9,11 +9,12 @@ reference's experiment harness parses.  Modes 0 and 1 run ``solve``;
 mode 2 runs ``newton_solve``, whose solution is level 0's ``newton_v``.
 
 Flags:
-  --dtype {float32,float64}  float32 on the card; float64 runs the plain
-                             ops on the CPU only (``--platform cpu``)
+  --dtype {float32,float64}  float32 runs the CUDA kernels; float64 runs
+                             the plain ops (on the card, or the CPU)
   --backend {auto,ref,cuda}  CUDA kernels, plain PyTorch ops, or kernels
                              only (see config.py)
-  --check-every K            cycles per batch (one host sync per batch)
+  --check-every K            cycles per batch (one host sync per batch) on
+                             the batch engine
   --cycle {V,W,F}            cycling schedule
   --quiet                    no progress lines
   --platform P               ``cpu`` runs on the host; default CUDA
@@ -22,24 +23,33 @@ Flags:
                              Vector3::dump text format
   --validate                 print the max-abs error against the analytic
                              solution (modes 1 and 2)
+  --explain-backend          print (stderr) which engine runs: the batch
+                             of per-op kernels, the v1 whole-cycle kernel,
+                             or the plain ops
+  --profile DIR              trace the solve with torch.profiler and write
+                             a Chrome trace into DIR
+  --save-state PATH          write a resumable checkpoint (.npz) after the
+                             solve (utils/checkpoint.py)
+  --load-state PATH          resume from a checkpoint, of this package or
+                             of the JAX package
+  --refine                   mixed-precision iterative refinement: float64
+                             outer defect, float32 inner solves on the
+                             kernels (solver/refine.py)
+  --refine-inner-tol T       the inner solves' relative tolerance
 
-The flags of later slices (``--mesh``, ``--refine``, ``--save-state``,
-``--load-state``, ``--profile``) exit 1 with a message saying they are not
-ported yet.
+``--mesh`` (the distributed engines) exits 1 with a message saying it is
+not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
 _NOT_PORTED = {
     "mesh": "ROADMAP Queue 1 item 13",
-    "refine": "ROADMAP Queue 1 item 9",
-    "save_state": "ROADMAP Queue 1 item 8",
-    "load_state": "ROADMAP Queue 1 item 8",
-    "profile": "ROADMAP Queue 1 item 5",
 }
 
 
@@ -91,18 +101,111 @@ def build_argparser() -> argparse.ArgumentParser:
         "--validate", action="store_true",
         help="print the max-abs error vs the analytic solution (modes 1, 2)",
     )
-    for flag in ("--mesh", "--save-state", "--load-state", "--profile"):
-        ap.add_argument(flag, default=None, help="not ported yet")
-    ap.add_argument("--refine", action="store_true", help="not ported yet")
+    ap.add_argument(
+        "--explain-backend", action="store_true",
+        help="print (stderr) which engine and kernel path this "
+        "configuration runs",
+    )
+    ap.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="trace the solve with torch.profiler into DIR (a Chrome "
+        "trace, trace.json)",
+    )
+    ap.add_argument(
+        "--save-state", default=None, metavar="PATH",
+        help="write a resumable checkpoint (.npz) after solving",
+    )
+    ap.add_argument(
+        "--load-state", default=None, metavar="PATH",
+        help="resume from a checkpoint written by --save-state (this "
+        "package's or the JAX package's)",
+    )
+    ap.add_argument(
+        "--refine", action="store_true",
+        help="mixed-precision iterative refinement: float64-accurate "
+        "solves at float32 multigrid speed (float64 outer defect + float32 "
+        "cycle corrections; see solver/refine.py). tol is the float64 "
+        "relative-residual target, maxiter the outer-step limit",
+    )
+    ap.add_argument(
+        "--refine-inner-tol", type=float, default=1e-3, metavar="T",
+        help="relative tolerance of each inner float32 multigrid solve "
+        "under --refine",
+    )
+    ap.add_argument("--mesh", default=None, help="not ported yet")
     return ap
 
 
 def _device(platform):
     if platform in (None, "cuda", "gpu"):
-        return None  # build_grid's default: CUDA, raising without one
+        return None  # resolve_device's default: CUDA, raising without one
     if platform == "cpu":
         return "cpu"
     raise ValueError(f"unknown --platform {platform!r} (use cpu or cuda)")
+
+
+_ENGINE_LINES = {
+    "batch": "single device: batch of per-op CUDA kernels, early stop on "
+             "the device (ops/vcycle_batch; the v2 whole-batch kernel's "
+             "counterpart, of whose gates only the sweep cap applies: "
+             "its TPU layout gates are not ported)",
+    "v1": "single device: v1 whole-cycle kernel, one cooperative launch "
+          "per V-cycle (ops/vcycle_fused)",
+    "plain": "single device: plain PyTorch ops",
+}
+
+
+def _single_device_notes(params, device, _explain) -> None:
+    """The engine the solve runs (under --explain-backend) and, on stderr,
+    why it runs without the fused fast path (the JAX package's
+    ``_single_device_notes``, gpusolve_tpu/cli.py:221-261)."""
+    from gpusolve_tpu_torch.ops.dispatch import plain_reason
+    from gpusolve_tpu_torch.solver import vcycle as vc
+
+    reason = vc.engine_note(params, device)
+    if reason is not None:
+        print(
+            f"note: running without the fused mega-kernel: {reason}",
+            file=sys.stderr,
+        )
+    kind = vc.engine(params, device)
+    line = _ENGINE_LINES[kind]
+    if kind == "plain":
+        why = plain_reason(params, device, params.dtype)
+        line += f" ({why}; ops/ref.py)"
+    _explain([line])
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str, device):
+    """torch.profiler around the solve; the Chrome trace goes into
+    ``out_dir/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def _report(solution, params, args) -> None:
+    """--dump and --validate on the final solution (a padded numpy
+    array)."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.utils.dump import compare_analytic, dump_field
+
+    if args.dump:
+        dump_field(solution, args.dump)
+        print(f"Dumped solution to {args.dump}")
+    if args.validate:
+        if params.mode == Mode.LINEAR:
+            print("--validate only applies to nonlinear/newton modes")
+        else:
+            err = compare_analytic(solution, params.h)
+            print(f"max-abs error vs analytic solution: {err:.6g}")
 
 
 def main(argv=None) -> int:
@@ -121,26 +224,33 @@ def main(argv=None) -> int:
                 file=sys.stderr,
             )
             return 1
-    try:
-        device = _device(args.platform)
-    except ValueError as e:
-        print(str(e), file=sys.stderr)
-        return 1
-    if args.dtype == "float64" and device != "cpu":
-        print(
-            "--dtype float64 runs the plain ops on the CPU only (add "
-            "--platform cpu); the CUDA kernels are float32",
-            file=sys.stderr,
-        )
-        return 1
+    if args.refine:
+        incompat = [
+            ("--dtype float64", args.dtype == "float64"),
+            ("--save-state/--load-state",
+             bool(args.save_state or args.load_state)),
+        ]
+        bad = [name for name, hit in incompat if hit]
+        if bad:
+            print(
+                f"--refine is incompatible with {', '.join(bad)} "
+                "(f32 inner solves with an f64 outer defect)",
+                file=sys.stderr,
+            )
+            return 1
 
     import torch
 
     from gpusolve_tpu_torch.config import Mode, parse_config
-    from gpusolve_tpu_torch.grid import build_grid
+    from gpusolve_tpu_torch.grid import build_grid, resolve_device
     from gpusolve_tpu_torch.solver.newton import newton_solve
     from gpusolve_tpu_torch.solver.vcycle import solve
-    from gpusolve_tpu_torch.utils.dump import compare_analytic, dump_field
+
+    try:
+        device = resolve_device(_device(args.platform))
+    except (ValueError, RuntimeError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
 
     print(f"Using config file {args.config}")
     try:
@@ -162,35 +272,94 @@ def main(argv=None) -> int:
             "guaranteed (this matches the reference's behavior)",
             file=sys.stderr,
         )
-    try:
-        state = build_grid(params, device=device)
-    except RuntimeError as e:
-        print(str(e), file=sys.stderr)
-        return 1
     if args.devices:
-        if state.device.type == "cuda":
-            name = torch.cuda.get_device_name(state.device)
+        if device.type == "cuda":
+            name = torch.cuda.get_device_name(device)
             print(f"Device [0]: {name} (cuda)")
         else:
             print("Device [0]: cpu")
         print("Using device [0]")
-    if params.mode == Mode.NEWTON:
-        state, _ = newton_solve(state, params, check_every=args.check_every)
-        solution = state.levels[0].newton_v
-    else:
-        state, _ = solve(state, params, check_every=args.check_every)
-        solution = state.levels[0].v
-    if args.dump or args.validate:
-        solution = solution.cpu().numpy()
-    if args.dump:
-        dump_field(solution, args.dump)
-        print(f"Dumped solution to {args.dump}")
-    if args.validate:
-        if params.mode == Mode.LINEAR:
-            print("--validate only applies to nonlinear/newton modes")
+
+    def _explain(lines):
+        if args.explain_backend:
+            for ln in lines:
+                print(f"backend: {ln}", file=sys.stderr)
+
+    profile_cm = contextlib.nullcontext()
+    if args.profile:
+        profile_cm = _profiled(args.profile, device)
+
+    if args.refine:
+        from gpusolve_tpu_torch.solver.refine import solve_refine
+
+        _explain([
+            "refine: float64 outer defect on the plain ops; inner float32 "
+            "solves:"
+        ])
+        _single_device_notes(
+            params.replace(mode=Mode.LINEAR if params.mode == Mode.LINEAR
+                           else Mode.NEWTON),
+            device, _explain,
+        )
+        with profile_cm:
+            u, _ = solve_refine(
+                params, inner_tol=args.refine_inner_tol, device=device
+            )
+        if args.profile:
+            print(f"Wrote profiler trace to {args.profile}")
+        _report(u.cpu().numpy(), params, args)
+        return 0
+
+    _single_device_notes(params, device, _explain)
+    state = build_grid(params, device=device)
+    history0 = []
+    initial_residual = None
+    if args.load_state:
+        from gpusolve_tpu_torch.utils.checkpoint import load_state
+
+        if not os.path.isfile(args.load_state):
+            print(
+                f"{args.load_state} does not exist or is not a file",
+                file=sys.stderr,
+            )
+            return 1
+        try:
+            state, it0, history0 = load_state(
+                args.load_state, params, device=device
+            )
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        print(f"Resumed from {args.load_state} (iteration {it0})")
+        # The stop threshold keeps the original run's initial residual.
+        if history0:
+            initial_residual = history0[0]
+    with profile_cm:
+        if params.mode == Mode.NEWTON:
+            state, history = newton_solve(
+                state, params, initial_residual=initial_residual,
+                check_every=args.check_every,
+            )
+            solution = state.levels[0].newton_v
         else:
-            err = compare_analytic(solution, params.h)
-            print(f"max-abs error vs analytic solution: {err:.6g}")
+            state, history = solve(
+                state, params, initial_residual=initial_residual,
+                check_every=args.check_every,
+            )
+            solution = state.levels[0].v
+    if args.profile:
+        print(f"Wrote profiler trace to {args.profile}")
+    if args.save_state:
+        from gpusolve_tpu_torch.utils.checkpoint import save_state
+
+        combined = history0 + history
+        save_state(
+            args.save_state, state, params, iteration=len(combined) - 1,
+            history=combined,
+        )
+        print(f"Saved state to {args.save_state}")
+    if args.dump or args.validate:
+        _report(solution.cpu().numpy(), params, args)
     return 0
 
 

@@ -1,0 +1,365 @@
+// Device arithmetic shared by the per-op multigrid kernels (multigrid.cu)
+// and the whole-V-cycle cooperative kernel (vcycle_fused.cu).
+//
+// Each point function rounds every product, sum and quotient as its own
+// operation (__fmul_rn / __fadd_rn / __fdiv_rn keep nvcc from contracting
+// them into FMAs), in the operation order of the plain PyTorch version
+// (ops/ref.py, itself the order of gpusolve_tpu/ops/xla.py), with the
+// accurate expf, never __expf; never build with --use_fast_math.  Both
+// kernels call the same functions, so a V-cycle of the cooperative kernel
+// equals the per-op kernels' V-cycle bit for bit.
+//
+// Loads go through a policy:
+//   LdNC     stencil and transfer taps through the read-only cache (__ldg):
+//            the per-op kernels, whose inputs no launch writes;
+//   LdPlain  plain loads: the cooperative kernel, which writes every buffer
+//            it reads at some point of the cycle (the read-only cache is
+//            not coherent with writes made during the same launch);
+//   LdZero   every v value is 0 without a load: the first sweep of a level
+//            that starts from v = 0.
+//
+// A tile is the box one block of the per-op kernels covers: a 32(z) x 8(y)
+// column of threads walking kXCH = 8 x-planes; (bx, by, bz) is that block's
+// index and (tz, ty) the thread's.  The per-op kernels pass blockIdx and
+// threadIdx; the cooperative kernel walks the same tiles in a grid-stride
+// loop.
+//
+// Array model: a level is a dense (nx+2, ny+2, nz+2) float32 array, z
+// contiguous, with a zero halo that no kernel ever writes.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxTaps = 7;   // the config format's 7-point stencil
+constexpr int kBZ = 32;       // threads along z (contiguous)
+constexpr int kBY = 8;        // threads along y
+constexpr int kXCH = 8;       // x-planes walked by one block
+constexpr int kThreads = kBZ * kBY;
+constexpr int kFinThreads = 1024;
+
+// Solver modes, as config.Mode numbers them.
+constexpr int kLinear = 0;
+constexpr int kNonlinear = 1;
+constexpr int kNewton = 2;
+
+struct Taps {
+  float val[kMaxTaps];
+  // Linear element offset of each tap: |off| <= sx + sy + 1, which fits an
+  // int for any plane a card can hold.
+  int off[kMaxTaps];
+  int n;
+};
+
+struct Geom {  // interior dims and strides of one padded level
+  int nx, ny, nz;
+  long long sx, sy;
+};
+
+// The mode's scalars, each rounded once to float32 on the host as the
+// plain version's tensor-scalar ops round them.
+struct ModeArgs {
+  float gamma;
+  float pre_fac;  // values[0] / h^2 (the FAS and Newton Jacobi denominator)
+};
+
+__host__ __device__ inline Geom make_geom(int nx, int ny, int nz) {
+  Geom g;
+  g.nx = nx;
+  g.ny = ny;
+  g.nz = nz;
+  g.sy = nz + 2;
+  g.sx = (long long)(ny + 2) * (nz + 2);
+  return g;
+}
+
+// Blocks (tiles) of a stencil or restriction pass over a level.
+__host__ __device__ inline dim3 grid_for(const Geom& g) {
+  return dim3((g.nz + kBZ - 1) / kBZ, (g.ny + kBY - 1) / kBY,
+              (g.nx + kXCH - 1) / kXCH);
+}
+
+// Blocks of a prolongation onto fine level fg: one thread per coarse z
+// column 0..fnz/2 (see prolong_tile).
+__host__ __device__ inline dim3 prolong_grid_for(const Geom& fg) {
+  return dim3((fg.nz / 2 + kBZ) / kBZ, (fg.ny + kBY - 1) / kBY,
+              (fg.nx + kXCH - 1) / kXCH);
+}
+
+inline Taps make_taps(const float* val, const int* off3, int ntaps,
+                      const Geom& g) {
+  Taps t;
+  t.n = ntaps;
+  for (int q = 0; q < kMaxTaps; ++q) {
+    t.val[q] = q < ntaps ? val[q] : 0.0f;
+    t.off[q] = q < ntaps ? (int)(off3[3 * q] * g.sx + off3[3 * q + 1] * g.sy +
+                                 off3[3 * q + 2])
+                         : 0;
+  }
+  return t;
+}
+
+struct LdNC {
+  static __device__ __forceinline__ float tap(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float at(const float* p) { return *p; }
+};
+
+struct LdPlain {
+  static __device__ __forceinline__ float tap(const float* p) { return *p; }
+  static __device__ __forceinline__ float at(const float* p) { return *p; }
+};
+
+struct LdZero {
+  static __device__ __forceinline__ float tap(const float*) { return 0.0f; }
+  static __device__ __forceinline__ float at(const float*) { return 0.0f; }
+};
+
+template <class Ld>
+__device__ __forceinline__ float stencil_at(const float* v, long long idx,
+                                            const Taps& t, float inv_h2) {
+  float acc = __fmul_rn(t.val[0], Ld::tap(v + idx + t.off[0]));
+#pragma unroll
+  for (int k = 1; k < kMaxTaps; ++k) {
+    if (k < t.n) {
+      acc = __fadd_rn(acc, __fmul_rn(t.val[k], Ld::tap(v + idx + t.off[k])));
+    }
+  }
+  return __fmul_rn(acc, inv_h2);
+}
+
+// FAS term gamma * v * e^v, as (gamma * v) * e^v.
+__device__ __forceinline__ float fas_term(float v, float ex, float gamma) {
+  return __fmul_rn(__fmul_rn(gamma, v), ex);
+}
+
+// A v / h^2 plus the mode's nonlinear term, in the plain version's order:
+//   NONLINEAR  av + (gamma v) e^v
+//   NEWTON     av + ((gamma (1 + nv)) v) e^nv
+template <int M, class Ld>
+__device__ __forceinline__ float operator_at(const float* v, const float* nv,
+                                             long long idx, const Taps& t,
+                                             float inv_h2, float gamma) {
+  const float av = stencil_at<Ld>(v, idx, t, inv_h2);
+  if constexpr (M == kNonlinear) {
+    const float vc = Ld::at(v + idx);
+    return __fadd_rn(av, fas_term(vc, expf(vc), gamma));
+  } else if constexpr (M == kNewton) {
+    const float n = nv[idx];
+    const float lin0 = __fmul_rn(gamma, __fadd_rn(1.0f, n));
+    return __fadd_rn(av, __fmul_rn(__fmul_rn(lin0, Ld::at(v + idx)),
+                                   expf(n)));
+  } else {
+    return av;
+  }
+}
+
+// Fixed-order block sum of one double per thread; the result is valid in
+// thread 0.  A block that calls it again must __syncthreads() first.
+__device__ double block_sum(double x) {
+  __shared__ double warp_sums[32];
+  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+  const int warp = (threadIdx.y * blockDim.x + threadIdx.x) >> 5;
+  const int nwarps = (blockDim.x * blockDim.y + 31) >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  if (lane == 0) warp_sums[warp] = x;
+  __syncthreads();
+  double total = 0.0;
+  if (warp == 0 && lane == 0) {
+    for (int w = 0; w < nwarps; ++w) total += warp_sums[w];
+  }
+  return total;
+}
+
+// The fixed-order float64 sum of the residual's per-tile partials, as
+// kFinThreads slots: slot q sums partials q, q + kFinThreads, ... in order,
+// then a halving tree adds the slots.  Any block size walks the same
+// slots, so the sum is the same bits whichever kernel takes it.  `s` is
+// kFinThreads doubles of shared memory; the result is valid in thread 0.
+__device__ __forceinline__ double finalize_sum(const double* partials,
+                                               long long n, double* s) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int q = tid; q < kFinThreads; q += nt) {
+    double acc = 0.0;
+    for (long long t = q; t < n; t += kFinThreads) acc += partials[t];
+    s[q] = acc;
+  }
+  __syncthreads();
+  for (int w = kFinThreads / 2; w > 0; w >>= 1) {
+    for (int q = tid; q < w; q += nt) s[q] += s[q + w];
+    __syncthreads();
+  }
+  return s[0];
+}
+
+// One tile of the residual r = f - (A v / h^2 + mode term), written into r
+// when write_r; returns this thread's sum of r^2 over its column, in x
+// order (0 outside the interior).
+template <int M, class Ld>
+__device__ __forceinline__ double residual_tile(
+    int bx, int by, int bz, int tz, int ty, const float* v, const float* f,
+    const float* nv, float* r, const Geom& g, const Taps& taps,
+    float inv_h2, float gamma, bool write_r) {
+  const int k = bx * kBZ + tz + 1;
+  const int j = by * kBY + ty + 1;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, g.nx + 1);
+  double ss = 0.0;
+  if (k <= g.nz && j <= g.ny) {
+    long long idx = i0 * g.sx + j * g.sy + k;
+    for (int i = i0; i < i1; ++i, idx += g.sx) {
+      const float res = __fsub_rn(
+          f[idx], operator_at<M, Ld>(v, nv, idx, taps, inv_h2, gamma));
+      if (write_r) r[idx] = res;
+      ss += (double)res * (double)res;
+    }
+  }
+  return ss;
+}
+
+// One tile of a damped-Jacobi sweep, in the order of ops/ref.py::jacobi:
+//   LINEAR     v + omega (alpha r),  r = f - av
+//   NONLINEAR  ex = e^v; r = f - (av + (gamma v) ex);
+//              v + omega (r / (pre_fac + (gamma (1 + v)) ex))
+//   NEWTON     ex = e^nv; lin = (gamma (1 + nv)) ex; r = f - (av + lin v);
+//              v + omega (r / (pre_fac + lin))
+// Newton's lin * v is ordered otherwise than the Newton residual's term.
+// With Ld = LdZero every v value is 0, which is what a sweep over a zeroed
+// v reads (+0 everywhere), so the result is that sweep's bit for bit.
+template <int M, class Ld>
+__device__ __forceinline__ void jacobi_tile(
+    int bx, int by, int bz, int tz, int ty, float* v_out, const float* v,
+    const float* f, const float* nv, const Geom& g, const Taps& taps,
+    float inv_h2, float alpha, float omega, const ModeArgs& ma) {
+  const int k = bx * kBZ + tz + 1;
+  const int j = by * kBY + ty + 1;
+  if (k > g.nz || j > g.ny) return;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, g.nx + 1);
+  long long idx = i0 * g.sx + j * g.sy + k;
+  for (int i = i0; i < i1; ++i, idx += g.sx) {
+    const float av = stencil_at<Ld>(v, idx, taps, inv_h2);
+    if constexpr (M == kLinear) {
+      const float res = __fsub_rn(f[idx], av);
+      v_out[idx] =
+          __fadd_rn(Ld::at(v + idx), __fmul_rn(omega, __fmul_rn(alpha, res)));
+    } else {
+      const float vc = Ld::at(v + idx);
+      float ex, term, lin;
+      if constexpr (M == kNonlinear) {
+        ex = expf(vc);
+        term = fas_term(vc, ex, ma.gamma);
+        lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, vc)), ex);
+      } else {
+        const float n = nv[idx];
+        ex = expf(n);
+        lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, n)), ex);
+        term = __fmul_rn(lin, vc);
+      }
+      const float res = __fsub_rn(f[idx], __fadd_rn(av, term));
+      const float denom = __fadd_rn(ma.pre_fac, lin);
+      v_out[idx] = __fadd_rn(vc, __fmul_rn(omega, __fdiv_rn(res, denom)));
+    }
+  }
+}
+
+// Full weighting at one coarse point, whose fine centre is `center`: fine
+// points (2ci+a, 2cj+b, 2ck+c), a, b, c in {-1, 0, 1}, with weight
+// 0.125 * w(a) * w(b) * w(c), w(0) = 1, w(+-1) = 0.5, summed in (a, b, c)
+// lexicographic order.
+template <class Ld>
+__device__ __forceinline__ float restrict_at(const float* in,
+                                             long long center,
+                                             const Geom& fg) {
+  const float w1[3] = {0.5f, 1.0f, 0.5f};
+  float acc = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+#pragma unroll
+      for (int cc = 0; cc < 3; ++cc) {
+        const float w = 0.125f * w1[a] * w1[b] * w1[cc];
+        const float term = __fmul_rn(
+            w, Ld::tap(in + center + (a - 1) * fg.sx + (b - 1) * fg.sy +
+                       (cc - 1)));
+        acc = (a == 0 && b == 0 && cc == 0) ? term : __fadd_rn(acc, term);
+      }
+    }
+  }
+  return acc;
+}
+
+// One tile of a restriction onto coarse level c: calls
+// out(coarse index, fine centre) for every coarse point of the tile.
+template <class Out>
+__device__ __forceinline__ void restrict_tile(int bx, int by, int bz, int tz,
+                                              int ty, const Geom& c,
+                                              const Geom& fg, Out out) {
+  const int ck = bx * kBZ + tz + 1;
+  const int cj = by * kBY + ty + 1;
+  if (ck > c.nz || cj > c.ny) return;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, c.nx + 1);
+  for (int ci = i0; ci < i1; ++ci) {
+    const long long center = 2LL * ci * fg.sx + 2LL * cj * fg.sy + 2 * ck;
+    out(ci * c.sx + cj * c.sy + ck, center);
+  }
+}
+
+__device__ __forceinline__ float mid(float a, float b) {
+  return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b));
+}
+
+// One tile of the prolongation onto fine level fg from coarse level c:
+// out(idx, e) receives the correction e at fine index idx.  Fine point
+// (i, j, k) gets the reference's 4-pass interpolation in closed form: along
+// each axis an even index takes coarse index i/2 and an odd one the
+// midpoint of (i-1)/2 and (i+1)/2; the x midpoints are taken first, then
+// y, then z, as the passes do.  An odd index next to the upper halo reads
+// the coarse halo, which is zero, as the passes' unwritten sites are.  A
+// thread owns coarse z column kc and writes fine z points 2kc and 2kc+1,
+// which share column kc: half the coarse loads per fine point, and no
+// branch on the parity of z.  The parities of i and j are uniform across a
+// warp.  cv(q) is the coarse value at linear index q.
+template <class CV, class Out>
+__device__ __forceinline__ void prolong_tile(int bx, int by, int bz, int tz,
+                                             int ty, const Geom& fg,
+                                             const Geom& c, CV cv, Out out) {
+  const int kc = bx * kBZ + tz;
+  const int j = by * kBY + ty + 1;
+  if (kc > fg.nz / 2 || j > fg.ny) return;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, fg.nx + 1);
+  const int jc = j >> 1;
+  const bool jo = j & 1;
+  const bool even_ok = kc >= 1, odd_ok = 2 * kc + 1 <= fg.nz;
+  long long idx = i0 * fg.sx + j * fg.sy + 2 * kc;
+  for (int i = i0; i < i1; ++i, idx += fg.sx) {
+    const bool io = i & 1;
+    const long long col = (i >> 1) * c.sx + jc * c.sy + kc;
+    float yv[2];
+#pragma unroll
+    for (int dk = 0; dk < 2; ++dk) {
+      // x midpoints at coarse rows jc and jc+1 (the second only when j is
+      // odd), then the y midpoint.
+      const float a = cv(col + dk);
+      const float xa = io ? mid(a, cv(col + c.sx + dk)) : a;
+      float yk = xa;
+      if (jo) {
+        const float b = cv(col + c.sy + dk);
+        const float xb = io ? mid(b, cv(col + c.sx + c.sy + dk)) : b;
+        yk = mid(xa, xb);
+      }
+      yv[dk] = yk;
+    }
+    if (even_ok) out(idx, yv[0]);
+    if (odd_ok) out(idx + 1, mid(yv[0], yv[1]));
+  }
+}
+
+}  // namespace

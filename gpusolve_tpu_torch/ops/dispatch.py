@@ -1,13 +1,17 @@
 """Per-op choice between the CUDA kernels and their plain versions.
 
 The counterpart of ``gpusolve_tpu/ops/dispatch.py``.  ``GridParams.backend``
-and the tensors' device decide:
-  * a CPU tensor runs the plain PyTorch version (the kernel wrapper itself
-    routes it there); ``backend="cuda"`` on a CPU tensor raises;
-  * a CUDA tensor launches the CUDA kernel (float32 only; the wrapper
-    raises on anything else), or runs the plain version when
-    ``backend="ref"`` was asked for.
-No failure of a kernel falls back to the plain version.
+and the tensors' device and dtype decide:
+  * a CPU tensor runs the plain PyTorch version (as the kernel wrapper
+    itself would); ``backend="cuda"`` on a CPU tensor raises;
+  * a float32 CUDA tensor launches the CUDA kernel, or runs the plain
+    version when ``backend="ref"`` was asked for;
+  * a float64 CUDA tensor runs the plain version on the card under
+    ``backend="auto"`` (the card has native float64; the kernels are
+    float32), as the JAX package sends float64 to its XLA ops
+    (gpusolve_tpu/solver/vcycle.py:184-187); ``backend="cuda"`` raises.
+The choice reads the dtype; no failure of a kernel falls back to the plain
+version.
 
 The ops keep the kernels' buffer protocol (``ops/kernels.py``): outputs are
 written in place into buffers the caller passes, interiors only, and every
@@ -27,16 +31,37 @@ from gpusolve_tpu_torch.ops import kernels
 Dims = Tuple[int, int, int]
 
 
-def _pick(params: GridParams, t: torch.Tensor, kernel, plain):
-    """The kernel wrapper, which runs its plain version itself for a CPU
-    tensor, or the plain version when ``backend="ref"``."""
+def plain_reason(params: GridParams, device, dtype) -> Optional[str]:
+    """Why tensors of ``dtype`` (a ``torch.dtype`` or its name) on
+    ``device`` run the plain ops, or None when they launch the CUDA
+    kernels.  The one policy that both the per-op choice here and the
+    solver's engine choice read.  ``backend="cuda"`` raises where it cannot
+    launch the kernels."""
+    device = torch.device(device)
     if params.backend == "ref":
-        return plain
-    if params.backend == "cuda" and t.device.type != "cuda":
+        return "--backend ref"
+    if params.backend == "cuda" and device.type != "cuda":
         raise ValueError(
-            f"backend='cuda' needs CUDA tensors, got a tensor on {t.device}"
+            f"backend='cuda' needs CUDA tensors, got a tensor on {device}"
         )
-    return kernel
+    if str(dtype).removeprefix("torch.") == "float64":
+        if params.backend == "cuda":
+            raise TypeError(
+                "backend='cuda' runs the float32 CUDA kernels; float64 runs "
+                "the plain ops (backend='auto' or 'ref')"
+            )
+        return "float64"
+    if device.type != "cuda":
+        return f"on {device.type}"
+    return None
+
+
+def _pick(params: GridParams, t: torch.Tensor, kernel, plain):
+    """The kernel wrapper, or its plain version where ``plain_reason``
+    gives a reason."""
+    if plain_reason(params, t.device, t.dtype) is None:
+        return kernel
+    return plain
 
 
 def smooth(

@@ -1,10 +1,14 @@
 """The CUDA kernels of the multigrid cycle (LINEAR, FAS and NEWTON): build,
 binding, wrappers, and the plain PyTorch version beside each.
 
-The kernels live in ``csrc/multigrid.cu``.  On first use they are compiled
-with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
-with a plain C interface under ``gpusolve_tpu_torch/build/`` and loaded with
-``ctypes``; nothing is built when this module is imported.
+The kernels live in ``csrc/``: the per-op kernels in ``multigrid.cu``, the
+whole-V-cycle cooperative kernel in ``vcycle_fused.cu`` (its wrapper is
+``ops/vcycle_fused.py``), their shared point arithmetic in
+``mg_device.cuh``.  On first use each source is compiled with ``nvcc
+-gencode arch=compute_90a,code=sm_90a``, the sources in parallel, and
+linked into one shared library with a plain C interface under
+``gpusolve_tpu_torch/build/``, loaded with ``ctypes``; nothing is built
+when this module is imported.
 
 Every wrapper:
   * takes the output buffers from the caller and writes them in place (the
@@ -47,11 +51,13 @@ from gpusolve_tpu_torch.ops import ref
 
 Dims = Tuple[int, int, int]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "multigrid.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "multigrid.cu", CSRC / "vcycle_fused.cu")
+HEADERS = (CSRC / "mg_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _SUFFIX = {Mode.LINEAR: "", Mode.NONLINEAR: "_fas", Mode.NEWTON: "_newton"}
@@ -59,6 +65,7 @@ KERNELS = (
     "residual", "residual_fas", "residual_newton", "finalize",
     "jacobi_sweep", "jacobi_sweep_fas", "jacobi_sweep_newton",
     "restrict_zero", "restrict", "prolong_add", "apply_fas", "subtract",
+    "vcycle_fused",
 )
 # Launches of each kernel since the last reset_launches(): only the CUDA
 # launches count, never the plain versions.
@@ -100,32 +107,60 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    """The built library's path, keyed by a hash of the source and flags so
-    an edited source builds anew."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libmultigrid-{digest}.so"
+    """The built library's path, keyed by a hash of the sources and flags
+    so an edited source builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (*SOURCES, *HEADERS):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmultigrid-{h.hexdigest()[:16]}.so"
+
+
+def _run(procs) -> str:
+    """Wait for every compiler process; raise on the first failure.
+    Returns their messages."""
+    log = []
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    return "".join(log)
 
 
 def build() -> Tuple[Path, str]:
-    """Compile the kernels if they are not built yet.  Returns the library
-    path and the compiler's messages (ptxas register and spill counts), or
-    an empty string when the library was already there."""
+    """Compile the kernels if they are not built yet: one nvcc per source,
+    all started together, then one link.  Returns the library path and the
+    compiler's messages (ptxas register and spill counts), or an empty
+    string when the library was already there."""
     out = _library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    stem = f"{out.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in SOURCES]
+    nvcc = _nvcc()
+    procs = []
+    for src, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    try:
+        log = _run(procs)
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out, proc.stdout + proc.stderr
+    return out, log
 
 
 def _bind(path: Path):
@@ -147,6 +182,10 @@ def _bind(path: Path):
         "mg_restrict": ([p, p, p, p, i, i, i, i, i, i, p], i),
         "mg_prolong_add": ([p, p, p, i, i, i, i, i, i, p], i),
         "mg_subtract": ([p, p, p, i, i, i, p], i),
+        "mg_vcycle_fused": (
+            [p, i, i, i, p, p, p, p, p, i, f, f, p, p, p], i
+        ),
+        "mg_vcycle_fused_grid": ([i, p], i),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)

@@ -1,15 +1,31 @@
-"""Multigrid cycle, residual norm and the solve loop (LINEAR and FAS; the
-inner solve of NEWTON).
+"""Multigrid cycle, residual norm, the engine choice and the solve loop
+(LINEAR and FAS; the inner solve of NEWTON).
 
-The counterpart of ``gpusolve_tpu/solver/vcycle.py``.  ``solve`` always
-runs the batched loop of the JAX package's ``_solve_fused2``: batches of up
-to ``check_every`` cycles (``ops/vcycle_batch.run``), each with an early
-stop on the device and one host sync, followed by a host re-check of every
-returned norm with the reference's stop test, written verbatim as
-``res <= initial / (1.0 / tol)``.  The device threshold is that test
-squared, biased up by 2 ulps, so the device stops whenever the host would;
-batching changes neither the residual history nor the final state, only
-how many cycles share a sync.
+The counterpart of ``gpusolve_tpu/solver/vcycle.py``.  ``solve`` picks one
+of the JAX package's engines, by its gates (``use_fused2``,
+``use_fused``):
+
+  * the batch engine, the counterpart of the TPU's v2 whole-batch kernel
+    (``_solve_fused2``): batches of up to ``check_every`` cycles
+    (``ops/vcycle_batch.run``), each with an early stop on the device and
+    one host sync, followed by a host re-check of every returned norm with
+    the reference's stop test, written verbatim as
+    ``res <= initial / (1.0 / tol)``.  The device threshold is that test
+    squared, biased up by 2 ulps, so the device stops whenever the host
+    would; batching changes neither the residual history nor the final
+    state, only how many cycles share a sync;
+  * the v1 whole-cycle kernel (``ops/vcycle_fused``), one cooperative
+    launch per V-cycle, for the V-cycles the batch engine's sweep cap
+    refuses (pre or post > 5): the JAX package's per-cycle loop, one host
+    sync a cycle and the same stop test; ``check_every`` does not apply.
+
+Off the kernels (CPU tensors, ``backend="ref"``, float64, grids under
+48³, W/F cycles past the sweep cap) the batch engine runs: on the plain
+ops, or on the per-op kernels where the JAX package would run its per-op
+path.  The TPU layout gates of the v2 kernel (the 8-chunkable x extent,
+the Mosaic pass cap, the VMEM budget, the coarsest level's residency) are
+not ported: a configuration the JAX package sends to v1 only for one of
+them runs the batch engine here (``--explain-backend`` says so).
 
 The cycle (V, W or F) is the recursion ``cycle_at`` in
 ``ops/vcycle_batch.py``: the coarsest level is smoothed only (pre + post
@@ -20,20 +36,105 @@ runs this solve as its inner linear solve, is ``solver/newton.py``.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from gpusolve_tpu_torch.config import GridParams
 from gpusolve_tpu_torch.grid import GridState
 from gpusolve_tpu_torch.ops import dispatch as ops
 from gpusolve_tpu_torch.ops import vcycle_batch
+from gpusolve_tpu_torch.ops import vcycle_fused as v1
 from gpusolve_tpu_torch.utils.timer import Timer
+
+# The JAX package's gates (gpusolve_tpu/solver/vcycle.py:191,
+# gpusolve_tpu/ops/pallas_vcycle2.py:241-245).
+FUSED_MIN_POINTS = 48 ** 3
+V2_SWEEP_CAP = 5
 
 
 def _np_dtype(state: GridState):
     return np.dtype(str(state.levels[0].v.dtype).removeprefix("torch."))
+
+
+def _fused_capable(params: GridParams, device) -> bool:
+    """The JAX package's gates on its fused kernels that are about the
+    algorithm or the engine: the kernels run (``ops.plain_reason``: not
+    ``backend="ref"``, float32, on a CUDA device, the JAX package's "on
+    TPU") and the grid has at least 48³ points.  Its shardings gate waits
+    for the distributed engines: the port has no sharded state yet."""
+    if ops.plain_reason(params, device, params.dtype) is not None:
+        return False
+    return math.prod(params.grid_dim) >= FUSED_MIN_POINTS
+
+
+def v2_unsupported_reason(params: GridParams) -> Optional[str]:
+    """None when the batch engine (the v2 kernel's counterpart) takes the
+    configuration, else the gate, worded as the JAX package words it: v2's
+    per-leg sweep cap is ported, its TPU layout gates are not."""
+    if params.pre_smoothing > V2_SWEEP_CAP or \
+            params.post_smoothing > V2_SWEEP_CAP:
+        return (
+            f"pre/post smoothing {params.pre_smoothing}/"
+            f"{params.post_smoothing} exceeds the per-leg sweep cap "
+            f"({V2_SWEEP_CAP})"
+        )
+    return None
+
+
+def use_fused2(params: GridParams, device) -> bool:
+    """The batch engine on the kernels, in the place of the JAX package's
+    wavefront whole-batch kernel."""
+    return (
+        _fused_capable(params, device)
+        and v2_unsupported_reason(params) is None
+    )
+
+
+def use_fused(params: GridParams, device) -> bool:
+    """The v1 whole-cycle kernel: where the batch engine's sweep cap
+    refuses a V-cycle."""
+    return _fused_capable(params, device) and v1.supported(params)
+
+
+def engine(params: GridParams, device) -> str:
+    """The engine ``solve`` runs: ``"batch"`` on the per-op kernels,
+    ``"v1"`` (one cooperative launch per V-cycle), or ``"plain"`` (the
+    batch engine on the plain ops: CPU tensors, ``backend="ref"`` or
+    float64)."""
+    if use_fused2(params, device):
+        return "batch"
+    if use_fused(params, device):
+        return "v1"
+    if ops.plain_reason(params, device, params.dtype) is not None:
+        return "plain"
+    return "batch"
+
+
+def engine_note(params: GridParams, device) -> Optional[str]:
+    """Why a configuration runs without the fused engines' fast path (the
+    JAX package's stderr note), or None."""
+    if use_fused2(params, device):
+        return None
+    if _fused_capable(params, device):
+        return v2_unsupported_reason(params)
+    if ops.plain_reason(params, device, params.dtype) == "float64":
+        return (
+            f"dtype {params.dtype} (the CUDA kernels are float32; float64 "
+            "runs the plain ops on the card)"
+        )
+    return None
+
+
+def vcycle_fused(
+    state: GridState, params: GridParams
+) -> Tuple[GridState, torch.Tensor]:
+    """One V-cycle as one launch of the whole-cycle kernel; returns the
+    state (updated in place) and the finest-level Σr² on the device."""
+    return state, v1.vcycle_fused(state.levels, params)
 
 
 def vcycle(state: GridState, params: GridParams) -> Tuple[GridState, float]:
@@ -102,6 +203,37 @@ def _solve_batched(
     return state, history
 
 
+def _solve_per_cycle(
+    state: GridState,
+    params: GridParams,
+    timer: Optional[Timer],
+    initial: float,
+    history: List[float],
+) -> Tuple[GridState, List[float]]:
+    """The JAX package's per-cycle loop on the v1 kernel: one launch and
+    one host sync a cycle, the verbatim stop test."""
+    dt = _np_dtype(state)
+    for i in range(params.maxiter):
+        t0 = time.perf_counter()
+        state, sumsq = vcycle_fused(state, params)
+        if timer is not None:
+            with timer.section("sumBuffer"):
+                ss = sumsq.cpu().numpy()[0]
+        else:
+            ss = sumsq.cpu().numpy()[0]
+        res = float(np.sqrt(dt.type(ss)))
+        history.append(res)
+        if params.print_progress:
+            ms = int((time.perf_counter() - t0) * 1000)
+            line = f"iter: {i} residual: {res:.6g} Took {ms}ms"
+            if timer is not None:
+                line += timer.suffix()
+            print(line)
+        if res <= initial / (1.0 / params.tol):
+            break
+    return state, history
+
+
 def solve(
     state: GridState,
     params: GridParams,
@@ -118,6 +250,9 @@ def solve(
     uses it instead of recomputing one from the state, so the resumed solve
     stops exactly where the uninterrupted run would, and the history omits
     the leading initial entry.
+
+    ``check_every``: cycles per host sync on the batch engine; the v1
+    engine syncs once a cycle (see the module note).
     """
     if timer is None and params.print_progress:
         timer = Timer()
@@ -129,4 +264,6 @@ def solve(
     else:
         initial = float(initial_residual)
         history = []
+    if engine(params, state.device) == "v1":
+        return _solve_per_cycle(state, params, timer, initial, history)
     return _solve_batched(state, params, timer, initial, history, check_every)

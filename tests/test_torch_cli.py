@@ -1,5 +1,6 @@
 """The port's CLI on the CPU: the reference's output lines in every mode,
-and a clear exit for every flag not ported yet."""
+the flags of the JAX CLI's single-device surface, --explain-backend's
+engine lines, and a clear exit for --mesh, which is not ported yet."""
 
 import os
 import re
@@ -64,16 +65,80 @@ def test_cli_float64_and_devices(small_conf, capsys):
 def test_cli_not_ported_flags_exit_1(
     small_conf, capsys, tmp_path, monkeypatch, args
 ):
-    """The flags of later slices exit 1 with "not ported"; --dump, ported
-    since, writes the solution and exits 0."""
+    """--mesh exits 1 with "not ported"; the flags ported since run: the
+    refinement, a checkpoint written and resumed, the dump, a profiler
+    trace."""
     monkeypatch.chdir(tmp_path)
-    rc = cli.main([small_conf(), "--platform", "cpu", *args])
-    if args[0] == "--dump":
-        assert rc == 0 and (tmp_path / args[1]).is_file()
-        assert f"Dumped solution to {args[1]}" in capsys.readouterr().out
+    path = small_conf()
+    if args[0] == "--load-state":
+        assert cli.main([path, "--platform", "cpu", "--quiet",
+                         "--save-state", args[1]]) == 0
+        capsys.readouterr()
+    rc = cli.main([path, "--platform", "cpu", *args])
+    out, err = capsys.readouterr()
+    if args[0] == "--mesh":
+        assert rc == 1 and "not ported" in err
         return
-    assert rc == 1
-    assert "not ported" in capsys.readouterr().err
+    assert rc == 0
+    lines = out.splitlines()
+    if args[0] == "--refine":
+        res = [float(LINE.match(ln).group(2)) for ln in lines
+               if LINE.match(ln)]
+        initial = float(lines[2].split(": ")[1])
+        assert res and res[-1] <= initial * 1e-5  # the config's tol
+    elif args[0] == "--save-state":
+        assert (tmp_path / args[1]).is_file()
+        assert f"Saved state to {args[1]}" in lines
+    elif args[0] == "--load-state":
+        assert f"Resumed from {args[1]} (iteration 4)" in lines
+        assert not any(ln.startswith("Inital") for ln in lines)
+    elif args[0] == "--dump":
+        assert (tmp_path / args[1]).is_file()
+        assert f"Dumped solution to {args[1]}" in lines
+    else:
+        assert f"Wrote profiler trace to {args[1]}" in lines
+        assert (tmp_path / args[1] / "trace.json").is_file()
+
+
+def test_cli_explain_backend(small_conf, capsys, monkeypatch):
+    """The engine line for the plain ops on the CPU, and, with the device
+    gate opened for CPU tensors, the batch engine at V(3,3) and the v1
+    kernel at V(6,6), with the JAX package's note for leaving the fast
+    path."""
+    path = small_conf()
+    assert cli.main([path, "--platform", "cpu", "--quiet",
+                     "--explain-backend"]) == 0
+    err = capsys.readouterr().err
+    assert "backend: single device: plain PyTorch ops" in err
+    from gpusolve_tpu_torch.solver import vcycle as tvc
+
+    monkeypatch.setattr(
+        tvc, "_fused_capable",
+        lambda p, device: p.backend != "ref" and p.dtype == "float32",
+    )
+    assert cli.main([path, "--platform", "cpu", "--quiet",
+                     "--explain-backend"]) == 0
+    err = capsys.readouterr().err
+    assert "backend: single device: batch of per-op CUDA kernels" in err
+    assert "note:" not in err
+    toks = open(path).read().split()
+    toks[6:8] = ["6", "6"]
+    v66 = path + ".v66"
+    with open(v66, "w") as f:
+        f.write(" ".join(toks))
+    assert cli.main([v66, "--platform", "cpu", "--explain-backend"]) == 0
+    out, err = capsys.readouterr()
+    assert "backend: single device: v1 whole-cycle kernel" in err
+    assert ("note: running without the fused mega-kernel: pre/post "
+            "smoothing 6/6 exceeds the per-leg sweep cap (5)") in err
+    assert LINE.match(out.splitlines()[3])
+
+
+def test_cli_refine_incompatible_flags(small_conf, capsys):
+    path = small_conf()
+    for extra in (["--dtype", "float64"], ["--save-state", "x.npz"]):
+        assert cli.main([path, "--platform", "cpu", "--refine", *extra]) == 1
+        assert "--refine is incompatible with" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("mode", [1, 2])
@@ -93,9 +158,13 @@ def test_cli_other_modes_exit_1(small_conf, capsys, mode):
 
 
 def test_cli_errors(small_conf, capsys, monkeypatch):
+    """float64 is no longer refused (it runs the plain ops, and says so);
+    a missing config and a missing CUDA device exit 1."""
     path = small_conf()
-    assert cli.main([path, "--dtype", "float64"]) == 1
-    assert "float64" in capsys.readouterr().err
+    assert cli.main([path, "--dtype", "float64", "--platform", "cpu",
+                     "--explain-backend", "--quiet"]) == 0
+    err = capsys.readouterr().err
+    assert "backend: single device: plain PyTorch ops (float64;" in err
     assert cli.main([path + ".missing"]) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main([path]) == 1
