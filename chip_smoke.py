@@ -51,6 +51,26 @@ Phases (any failure exits non-zero before the last line is printed):
      their bytes and bounds, the wall per cycle of a V(6,6) solve with
      its idle share, and the cost of one op and its grid barrier.
 
+The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
+  2. its four shard-local kernels (ops/spmd_kernels.py), in each mode,
+     against their plain versions at the 511³ level-0 block (640³, the
+     box 511³) and at small odd blocks whose boxes touch every face (same
+     tolerances); then a 127³ field cut into the 4 blocks of a (2,2,1)
+     plan, each run with faces carved from its neighbours and put back
+     together, against the single-device kernels on the whole field;
+  3. solve_spmd (LINEAR and FAS V(3,3), check_every=10) and
+     newton_solve_spmd at 511³: launch counts equal to the engine's
+     schedule (dist/spmd.launches_per_cycle), the same history on the
+     plain ops on the card and on the single-device batch engine (rel
+     2e-4 while the residual is >= 1e-4·initial);
+  4. the CLI with --mesh 1,1,1 on the three example configs, and the
+     engines and flags not ported (exit 1);
+  5. each shard-local kernel's time, bound, plain and library time at the
+     511³ level-0 block; device ms per 511³ spmd cycle beside the batch
+     engine's, a profiler split into the shard-local kernels, the
+     replicated levels' kernels and the torch glue, the idle share and
+     peak memory.
+
 The line before the last is the JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -75,6 +95,7 @@ CONFS = {
 }
 SRC = "gpusolve_tpu_torch/ops/csrc/multigrid.cu"
 V1_SRC = "gpusolve_tpu_torch/ops/csrc/vcycle_fused.cu"
+SPMD_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_block.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
 V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
@@ -101,6 +122,16 @@ REPLACES = {
     "apply_fas": "gpusolve_tpu/ops/pallas_vcycle2.py:1338",
     "subtract": "gpusolve_tpu/ops/pallas_vcycle2.py:527",
     "vcycle_fused": "gpusolve_tpu/ops/pallas_vcycle.py:112",
+    "sweep_block": "gpusolve_tpu/ops/pallas_spmd.py:284",
+    "sweep_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:284",
+    "sweep_block_newton": "gpusolve_tpu/ops/pallas_spmd.py:284",
+    "residual_block": "gpusolve_tpu/ops/pallas_spmd.py:370",
+    "residual_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:370",
+    "residual_block_newton": "gpusolve_tpu/ops/pallas_spmd.py:370",
+    "residual_restrict_block": "gpusolve_tpu/ops/pallas_spmd.py:628",
+    "residual_restrict_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:628",
+    "residual_restrict_block_newton": "gpusolve_tpu/ops/pallas_spmd.py:628",
+    "prolong_add_block": "gpusolve_tpu/ops/pallas_spmd.py:850",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # Operations counted for one e^x (a range reduction, a polynomial and a
@@ -191,10 +222,11 @@ def print_ptxas(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d+([A-Za-z_]+_kernel)(?:IL[ib](\d)E)?",
-                          m.group(1))
-            name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "") \
-                if k else m.group(1)
+            k = re.search(r"\d+([A-Za-z_]+_kernel)"
+                          r"(?:IL[ib](\d)E(?:L[ib](\d)E)?)?", m.group(1))
+            args = [a for a in (k.groups()[1:] if k else ()) if a]
+            name = (k.group(1) + (f"<{','.join(args)}>" if args else "")
+                    if k else m.group(1))
             continue
         if name and "spill" in line:
             spills[name] = line.strip()
@@ -553,15 +585,15 @@ def counting_inner():
         newton.find_error = find_error
 
 
-def histories_agree(got, want, what):
-    """rel 2e-4 where the residual is >= 1e-4·initial; a factor 1.5 below
+def histories_agree(got, want, what, floor=1e-4):
+    """rel 2e-4 where the residual is >= floor·initial; a factor 1.5 below
     (the float32 floor, where summation orders legitimately differ); the
     stop at most one cycle apart."""
     check(abs(len(got) - len(want)) <= 1,
           f"{what}: {len(got)} vs {len(want)} entries")
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
-        if w >= 1e-4 * want[0]:
+        if w >= floor * want[0]:
             rel = abs(g - w) / w
             worst = max(worst, rel)
             check(rel <= 2e-4, f"{what}: entry {i} {g} vs {w}")
@@ -699,7 +731,7 @@ def main_path(params, label, k=10, plain_maxiter=None, identical=False,
     print(line)
     del ref_state
     torch.cuda.empty_cache()
-    return state, counts
+    return state, counts, hist
 
 
 def other_cycles(params127, label):
@@ -1072,14 +1104,24 @@ def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
     time_cases(cases, rate, rows)
 
 
-def profile_rows(prof, per, what):
-    rows = []
+def device_events(prof):
+    """(event, device µs) of each kernel or copy on the card, by name; the
+    host ops that launched them (aten::…) carry the same device time and
+    are left out, so nothing is counted twice."""
+    from torch.autograd import DeviceType
+
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.count, ev.key[:70]))
+        if dev_us > 0 and getattr(ev, "device_type", None) != DeviceType.CPU:
+            yield ev, dev_us
+
+
+def profile_rows(prof, per, what):
+    rows = []
+    for ev, dev_us in device_events(prof):
+        rows.append((dev_us, ev.count, ev.key[:70]))
     rows.sort(reverse=True)
     for dev_us, count, key in rows:
         print(f"profile {what} {key}: {dev_us / 1e3 / per:.3f} ms/{what} "
@@ -1403,6 +1445,596 @@ def time_v1(base, rate, rows):
           f"{nops} ops -> {ms * 1e3 / (nops - 1):.2f} us per op and grid "
           f"barrier (grid {vf.grid_blocks(p.mode)} blocks)")
 
+# ---------------------------------------------------------------------------
+# The distributed engine's shard-local kernels (ops/spmd_kernels.py)
+# ---------------------------------------------------------------------------
+
+def block_inputs(block, box, seed):
+    """Seeded block fields on the card, zero outside the box (v at 0.05,
+    f at 100, ũ at 0.3), and four random non-zero ghost faces."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    rng = np.random.default_rng(seed)
+    sl = SK.box_slices(box)
+
+    def field(scale):
+        a = torch.zeros(block, device=DEVICE)
+        n = SK.box_dims(box)
+        a[sl] = torch.from_numpy(
+            rng.standard_normal(n, dtype=np.float32) * np.float32(scale)
+        ).to(DEVICE)
+        return a
+
+    bx, by, bz = block
+    faces = [
+        torch.from_numpy(
+            rng.standard_normal(s, dtype=np.float32) * np.float32(0.05)
+        ).to(DEVICE)
+        for s in ((by, bz), (by, bz), (bx, bz), (bx, bz))
+    ]
+    return field(0.05), field(100.0), field(0.3), faces
+
+
+def check_block_kernels(base, rec):
+    """Each shard-local kernel in each mode against its plain version on
+    CUDA tensors: at the (1,1,1)-mesh 511³ level-0 block (640³, the box
+    511³), the largest shape the main path gives them, and at small odd
+    blocks whose boxes touch every x and y face, so the ghost faces are
+    read.  Fields to rtol 1e-5 / atol 1e-5·max|plain|, Σr² to rel 1e-5."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    plan = SpmdPlan(base.replace(grid_dim=BIG), (1, 1, 1))
+    cases = [
+        ("511^3 level-0 block", plan.block[0], plan.box(0, (0, 0, 0)),
+         plan.block[1][2], plan.dims[1][2]),
+        ("odd block", (17, 13, 21), (0, 16, 0, 12, 1, 19), None, None),
+        ("even-x block", (18, 13, 21), (0, 17, 0, 12, 1, 19), 11, 9),
+    ]
+    h = base.level_h(0)
+    for n, (what, block, box, cbz, cnz) in enumerate(cases):
+        v, f, nv, faces = block_inputs(block, box, 500 + n)
+        tag = f"{'x'.join(map(str, block))} ({what})"
+        lines = []
+        for mode in Mode:
+            p = base.replace(mode=mode, print_progress=False)
+            nvm = nv if mode == Mode.NEWTON else None
+            name = K.variant("sweep_block", mode)
+            o_k, o_p = torch.zeros_like(v), torch.zeros_like(v)
+            SK.sweep_block(o_k, v, f, faces, box, p, h, nvm)
+            SK.sweep_block_plain(o_p, v, f, faces, box, p, h, nvm)
+            lines.append(rec.close(o_k, o_p, f"{name} {tag}", name))
+            name = K.variant("residual_block", mode)
+            r_k, r_p = torch.zeros_like(v), torch.zeros_like(v)
+            pk = SK.residual_block(r_k, v, f, faces, box, p, h,
+                                   with_norm=True, newton_v=nvm)
+            pp = SK.residual_block_plain(r_p, v, f, faces, box, p, h,
+                                         with_norm=True, newton_v=nvm)
+            ss_k, ss_p = v.new_empty(1), v.new_empty(1)
+            K.finalize(pk, ss_k)
+            K.finalize_plain(pp, ss_p)
+            lines.append(rec.close(r_k, r_p, f"{name} {tag}", name))
+            lines.append(rec.scalar(float(ss_k), float(ss_p),
+                                    f"{name} sum r^2 {tag}", name))
+            pn = SK.residual_block(None, v, f, faces, box, p, h,
+                                   write_r=False, with_norm=True,
+                                   newton_v=nvm)
+            check(torch.equal(pn, pk), f"{name} norm-only partials {tag}")
+            if cbz is None:
+                continue
+            name = K.variant("residual_restrict_block", mode)
+            cs = (block[0] // 2, block[1], cbz)
+            outs_k = [torch.zeros(cs, device=DEVICE),
+                      torch.zeros(cs[1:], device=DEVICE),
+                      torch.zeros(cs, device=DEVICE)
+                      if mode == Mode.NONLINEAR else None]
+            outs_p = [None if t is None else t.clone() for t in outs_k]
+            SK.residual_restrict_block(*outs_k, v, f, faces, box, p, h, cnz,
+                                       nvm)
+            SK.residual_restrict_block_plain(*outs_p, v, f, faces, box, p,
+                                             h, cnz, nvm)
+            lines.append(rec.fields(
+                [t for t in outs_k if t is not None],
+                [t for t in outs_p if t is not None],
+                f"{name} {tag} (xzr, r_last_z{', xzv' if outs_k[2] is not None else ''})",
+                name,
+            ))
+        rng = np.random.default_rng(600 + n)
+        czp = cbz if cbz else block[2] // 2 + 1
+        casm = torch.from_numpy(rng.standard_normal(
+            (block[0] // 2 + 2, block[1] // 2 + 2, czp), dtype=np.float32
+        ) * np.float32(0.05)).to(DEVICE)
+        v_k, v_p = v.clone(), v.clone()
+        SK.prolong_add_block(v_k, casm, box)
+        SK.prolong_add_block_plain(v_p, casm, box)
+        lines.append(rec.close(v_k, v_p, f"prolong_add_block {tag}",
+                               "prolong_add_block"))
+        for line in lines:
+            print(f"check {line}")
+        del v, f, nv, faces, o_k, o_p, r_k, r_p, v_k, v_p
+        torch.cuda.empty_cache()
+
+
+def check_ghosts(base, rec):
+    """The kernels with live neighbours: a 127³ field cut into the four
+    blocks of a (2, 2, 1) plan, each run with faces carved from its
+    neighbours, and the blocks put together again, against the
+    single-device kernels on the whole field: sweep_block and
+    residual_block against jacobi_sweep and residual, residual_restrict_block
+    with the engine's glue (lower-x fix-up, y restriction with the lower
+    y neighbour's row, the coarse mask) against residual + restrict,
+    prolong_add_block against prolong_add."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import spmd as tsp
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    dims = (127, 127, 127)
+    p0 = base.replace(grid_dim=dims, print_progress=False)
+    plan = tsp.SpmdPlan(p0, (2, 2, 1))
+    cdims = plan.dims[1]
+    (bx, by, bz), (cbx, cby, cbz) = plan.block[0], plan.block[1]
+    h = p0.level_h(0)
+    rng = np.random.default_rng(700)
+
+    def glob(d, alloc, scale):
+        g = torch.zeros(alloc, device=DEVICE)
+        g[1:d[0] + 1, 1:d[1] + 1, 1:d[2] + 1] = torch.from_numpy(
+            rng.standard_normal(d, dtype=np.float32) * np.float32(scale)
+        ).to(DEVICE)
+        return g
+
+    def full(g, d):
+        return g[:d[0] + 2, :d[1] + 2, :d[2] + 2].contiguous()
+
+    gv, gf, gnv = (glob(dims, plan.alloc[0], s) for s in (0.05, 100, 0.3))
+    gvc = glob(cdims, plan.alloc[1], 0.05)
+    shards = list(itertools.product(range(2), range(2)))
+
+    def blk(g, dx, dy, b=(bx, by)):
+        return g[dx * b[0]:(dx + 1) * b[0],
+                 dy * b[1]:(dy + 1) * b[1]].contiguous()
+
+    def faces_of(g, dx, dy):
+        z = torch.zeros
+        xs = slice(dx * bx, (dx + 1) * bx)
+        ys = slice(dy * by, (dy + 1) * by)
+        return [
+            g[dx * bx - 1, ys].contiguous() if dx else z((by, bz),
+                                                          device=DEVICE),
+            g[(dx + 1) * bx, ys].contiguous() if dx == 0 else
+            z((by, bz), device=DEVICE),
+            g[xs, dy * by - 1].contiguous() if dy else z((bx, bz),
+                                                          device=DEVICE),
+            g[xs, (dy + 1) * by].contiguous() if dy == 0 else
+            z((bx, bz), device=DEVICE),
+        ]
+
+    def put(parts, alloc, b):
+        g = torch.zeros(alloc, device=DEVICE)
+        for (dx, dy), t in parts.items():
+            g[dx * b[0]:(dx + 1) * b[0], dy * b[1]:(dy + 1) * b[1]] = t
+        return g
+
+    for mode in Mode:
+        p = p0.replace(mode=mode)
+        tag = f"127^3 on 4 carved (2,2,1) blocks {mode.name}"
+        nvf = full(gnv, dims) if mode == Mode.NEWTON else None
+        vf_, ff_ = full(gv, dims), full(gf, dims)
+        sw, rs, ss, xz, xv, last = {}, {}, [], {}, {}, {}
+        for dx, dy in shards:
+            box = plan.box(0, (dx, dy, 0))
+            v, f = blk(gv, dx, dy), blk(gf, dx, dy)
+            nv = blk(gnv, dx, dy) if mode == Mode.NEWTON else None
+            fc = faces_of(gv, dx, dy)
+            sw[dx, dy] = torch.zeros_like(v)
+            SK.sweep_block(sw[dx, dy], v, f, fc, box, p, h, nv)
+            rs[dx, dy] = torch.zeros_like(v)
+            part = SK.residual_block(rs[dx, dy], v, f, fc, box, p, h,
+                                     with_norm=True, newton_v=nv)
+            ss.append(v.new_empty(1))
+            K.finalize(part, ss[-1])
+            xz[dx, dy] = torch.zeros((cbx, by, cbz), device=DEVICE)
+            last[dx, dy] = torch.zeros((by, cbz), device=DEVICE)
+            xv[dx, dy] = torch.zeros_like(xz[dx, dy]) \
+                if mode == Mode.NONLINEAR else None
+            SK.residual_restrict_block(
+                xz[dx, dy], last[dx, dy], xv[dx, dy], v, f, fc, box, p, h,
+                cdims[2], nv,
+            )
+        want = torch.zeros_like(vf_)
+        K.jacobi_sweep(want, vf_, ff_, dims, p, h, newton_v=nvf)
+        got = full(put(sw, plan.alloc[0], (bx, by)), dims)
+        print(f"check ghosts {rec.close(got, want, f'sweep_block {tag}', 'ghosts')}")
+        r_want = torch.zeros_like(vf_)
+        parts = K.residual(r_want, vf_, ff_, dims, p, h, with_norm=True,
+                           newton_v=nvf)
+        ss_want = vf_.new_empty(1)
+        K.finalize(parts, ss_want)
+        got = full(put(rs, plan.alloc[0], (bx, by)), dims)
+        print(f"check ghosts {rec.close(got, r_want, f'residual_block {tag}', 'ghosts')}; "
+              + rec.scalar(float(sum(float(t) for t in ss)),
+                           float(ss_want), "sum r^2 over the 4 blocks",
+                           "ghosts_sum"))
+
+        def coarse(xzs, fix):
+            out = {}
+            for dx, dy in shards:
+                x2 = xzs[dx, dy]
+                if fix and dx:
+                    x2 = x2.clone()
+                    x2[0] += 0.25 * last[0, dy]
+                out[dx, dy] = x2
+            res = {}
+            for dx, dy in shards:
+                g = out[dx, 0][:, -1] if dy else torch.zeros_like(
+                    out[dx, dy][:, 0])
+                y = tsp._restrict_axis(
+                    torch.cat([g[:, None], out[dx, dy]], dim=1), 1, cby
+                )
+                box = plan.box(1, (dx, dy, 0))
+                res[dx, dy] = torch.zeros_like(y)
+                sl = SK.box_slices(box)
+                res[dx, dy][sl] = y[sl]
+            return full(put(res, plan.alloc[1], (cbx, cby)), cdims)
+
+        c_want = torch.zeros((cdims[0] + 2,) * 3, device=DEVICE)
+        K.restrict(c_want, r_want, dims, cdims)
+        print(f"check ghosts {rec.close(coarse(xz, True), c_want, f'residual_restrict_block + glue vs residual + restrict {tag}', 'ghosts_restrict')}")
+        if mode == Mode.NONLINEAR:
+            v_want = torch.zeros_like(c_want)
+            K.restrict(v_want, vf_, dims, cdims)
+            print(f"check ghosts {rec.close(coarse(xv, False), v_want, f'residual_restrict_block R(v) + glue vs restrict {tag}', 'ghosts_restrict')}")
+    pv = {}
+    for dx, dy in shards:
+        v = blk(gv, dx, dy)
+        casm = tsp._window(gvc, (dx * cbx - 1, dy * cby - 1, 0),
+                           (cbx + 2, cby + 2, cbz))
+        SK.prolong_add_block(v, casm, plan.box(0, (dx, dy, 0)))
+        pv[dx, dy] = v
+    want = full(gv, dims).clone()
+    K.prolong_add(want, full(gvc, cdims), dims, cdims)
+    got = full(put(pv, plan.alloc[0], (bx, by)), dims)
+    print(f"check ghosts {rec.close(got, want, 'prolong_add_block 127^3 on 4 carved blocks', 'ghosts')}")
+    print(f"check ghosts bit-identical: sweep/residual/prolong "
+          f"{rec.same['ghosts']}, restriction {rec.same['ghosts_restrict']}")
+
+
+@contextlib.contextmanager
+def counting_spmd_inner():
+    """Records the inner cycles of each distributed Newton step."""
+    from gpusolve_tpu_torch.dist import spmd as tsp
+
+    inner_cycles = []
+    solve = tsp.solve_spmd
+
+    def counted(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        inner_cycles.append(len(out[1]))
+        return out
+
+    tsp.solve_spmd = counted
+    try:
+        yield inner_cycles
+    finally:
+        tsp.solve_spmd = solve
+
+
+def run_spmd(params, check_every):
+    import torch
+
+    import gpusolve_tpu_torch as gt
+
+    mesh = gt.make_mesh((1, 1, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if params.mode == gt.Mode.NEWTON:
+        state, hist, plan = gt.newton_solve_spmd(params, mesh)
+    else:
+        state, hist, plan = gt.solve_spmd(params, mesh,
+                                          check_every=check_every)
+    torch.cuda.synchronize()
+    return state, hist, plan, time.perf_counter() - t0
+
+
+def spmd_expected(plan, hist, inner_cycles):
+    """Launches of a distributed solve: every executed cycle's (the
+    history records each), the initial norm; a Newton solve the initial
+    F, and per step the replicated R(ũ), the inner cycles and F."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.spmd import launches_per_cycle
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    params = plan.params
+    per = launches_per_cycle(plan)
+    steps = len(hist) - 1
+    newton = params.mode == Mode.NEWTON
+    cycles = sum(inner_cycles) if newton else steps
+    want = {name: 0 for name in K.KERNELS}
+    for name, n in per.items():
+        want[name] += n * cycles
+    norms = steps + 1 if newton else 1
+    first = "residual_block_fas" if newton else \
+        K.variant("residual_block", params.mode)
+    want[first] += norms
+    want["finalize"] += norms
+    if newton:
+        want["restrict"] += steps * max(0, plan.nlev - 2 - plan.n_dist)
+    return nonzero(want)
+
+
+def spmd_main_path(params, label, batch_hist, k=10):
+    """solve_spmd (Newton: newton_solve_spmd) on make_mesh((1,1,1)): the
+    launch counts, the same run on the plain ops on the card, and the
+    single-device batch engine's history at the same configuration."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    with counting_spmd_inner() as inner_cycles:
+        state, hist, plan, secs = run_spmd(params, k)
+    counts = nonzero(K.launches)
+    steps = len(hist) - 1
+    print(f"spmd path {label}: mesh (1,1,1), {plan.n_dist} distributed "
+          f"levels (level-0 block {plan.block[0]}), {steps} steps in "
+          f"{secs:.3f} s wall, history {hist}")
+    if inner_cycles:
+        print(f"spmd path {label}: inner cycles per step {inner_cycles}")
+    print(f"spmd path {label} launches: {counts}")
+    want = spmd_expected(plan, hist, inner_cycles)
+    check(counts == want,
+          f"spmd {label}: launch counts {counts} != schedule {want}")
+    newton = params.mode == Mode.NEWTON
+    K.reset_launches()
+    plain = params.replace(backend="ref",
+                           maxiter=NEWTON_PLAIN_STEPS if newton
+                           else params.maxiter)
+    _, ref_hist, _, ref_secs = run_spmd(plain, k)
+    check(all(n == 0 for n in K.launches.values()),
+          "the plain spmd path launched a kernel")
+    mine = hist[:len(ref_hist)]
+    worst = histories_agree(mine, ref_hist, f"spmd {label} kernels vs plain")
+    # The engines restrict in other orders (x, z, y weighted sums against
+    # 27 taps), so their histories part by ~eps·initial absolutely: held
+    # at rel 2e-4 down to 1e-2·initial, above the float32 floor; a
+    # check_every batch may run past the batch engine's stop.
+    worst_b = histories_agree(hist[:len(batch_hist)], batch_hist,
+                              f"spmd {label} vs the batch engine",
+                              floor=1e-2)
+    print(f"spmd kernels vs plain {label}: worst rel diff {worst:.3e} "
+          f"(plain run {ref_secs:.3f} s, {len(ref_hist) - 1} steps); vs "
+          f"the single-device batch engine {worst_b:.3e} (identical: "
+          f"{hist == batch_hist})")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def spmd_cli():
+    """--mesh 1,1,1 on the example configs, and the not-ported engines."""
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    for label, line in (("linear", "Solving linear problem"),
+                        ("nonlinear", "Solving nonlinear problem"),
+                        ("newton", "Solving newton problem")):
+        K.reset_launches()
+        args = [CONFS[label], "--mesh", "1,1,1", "--explain-backend",
+                "--check-every", "10"]
+        args += ["--validate"] if label != "linear" else []
+        rc, out, err = run_cli(args)
+        check(rc == 0, f"cli --mesh 1,1,1 {label} exited {rc}")
+        lines = out.splitlines()
+        check(line in lines, f"cli --mesh: mode line {line!r}")
+        progress(lines, newton=label == "newton")
+        check("backend: level 0: CUDA shard-local kernels" in err,
+              "cli --mesh: the kernel line")
+        if label != "linear":
+            m = [ln for ln in lines if ln.startswith("max-abs error")]
+            err_v = float(m[0].split(": ")[1])
+            check(math.isfinite(err_v) and err_v < 5e-4,
+                  f"cli --mesh: max-abs error {err_v}")
+        check(K.launches[K.variant("sweep_block", {"linear": 0,
+                                                   "nonlinear": 1,
+                                                   "newton": 2}[label])],
+              "cli --mesh ran no shard-local kernel")
+        print(f"cli --mesh 1,1,1 {label}: launches {nonzero(K.launches)}")
+    for extra in (["--fuse", "pod"], ["--halo", "rdma"],
+                  ["--dist-engine", "gspmd"]):
+        rc, _, err = run_cli([CONFS["linear"], "--mesh", "1,1,1", *extra])
+        check(rc == 1 and "not ported" in err,
+              f"cli --mesh {' '.join(extra)}: rc {rc}")
+    rc, _, err = run_cli([CONFS["linear"], "--mesh", "2,2,1"])
+    check(rc == 1 and "torchrun" in err, f"cli --mesh 2,2,1: rc {rc}")
+    print("cli --mesh: --fuse pod, --halo rdma, --dist-engine gspmd and a "
+          "mesh larger than the world exit 1")
+
+
+def spmd_kernel_bytes(name, box, cnz=None):
+    """Bytes one launch over ``box`` must move, as kernel_bytes counts
+    them: v with the halo its taps read, f (and ũ) over the box, the
+    outputs over what the kernel writes."""
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    d = SK.box_dims(box)
+    n = inner(d)
+    ins = 2 if name.endswith("_newton") else 1  # f; ũ
+    if name.startswith("sweep_block") or name.startswith("residual_block"):
+        return 4 * (padded(d) + (ins + 1) * n)
+    if name.startswith("residual_restrict_block"):
+        cx = (box[1] + 1) // 2 - box[0] // 2 + 1  # coarse planes written
+        fields = 2 if name.endswith("_fas") else 1  # R(r); FAS R(v)
+        return 4 * (padded(d) + ins * n + (fields * cx + 1) * d[1] * cnz)
+    if name == "prolong_add_block":
+        c = tuple((hi + 3) // 2 - (lo + 2) // 2 + 1
+                  for lo, hi in zip(box[0::2], box[1::2]))
+        return 4 * (2 * n + inner(c))
+    raise ValueError(name)
+
+
+def time_block_kernels(base, rate, rows):
+    """Each shard-local kernel at the (1,1,1)-mesh 511³ level-0 block, its
+    bound, plain version and a PyTorch library call computing the same
+    function (the stencil as conv3d; the restriction as stride-2 conv3d;
+    the prolongation as conv_transpose3d)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    torch.backends.cudnn.allow_tf32 = False
+    plan = SpmdPlan(base.replace(grid_dim=BIG), (1, 1, 1))
+    block, box = plan.block[0], plan.box(0, (0, 0, 0))
+    cnz, cbz = plan.dims[1][2], plan.block[1][2]
+    v, f, nv, faces = block_inputs(block, box, 800)
+    h = base.level_h(0)
+    n = inner(SK.box_dims(box))
+    out = torch.zeros_like(v)
+    cs = (block[0] // 2, block[1], cbz)
+    xzr, rlast, xzv = (torch.zeros(cs, device=DEVICE),
+                       torch.zeros(cs[1:], device=DEVICE),
+                       torch.zeros(cs, device=DEVICE))
+    casm = torch.zeros((block[0] // 2 + 2, block[1] // 2 + 2, cbz),
+                       device=DEVICE)
+    casm[1:-1, 1:-1] = v[::2, ::2, ::2]
+    sub = v[0:box[1] + 2, 0:box[3] + 2, 0:box[5] + 2][None, None]
+    taps = 2 * len(base.stencil.values)
+    s = "511^3 box of a 640^3 block"
+    lib_st = lambda: F.conv3d(sub, stencil_filter(base, 1.0 / (h * h)))
+    cases = {}
+    for mode in Mode:
+        p = base.replace(mode=mode, print_progress=False)
+        nvm = nv if mode == Mode.NEWTON else None
+        extra = {Mode.LINEAR: 0, Mode.NONLINEAR: 4 + EXP_OPS,
+                 Mode.NEWTON: 5 + EXP_OPS}[mode]
+        lib = lib_st if mode == Mode.LINEAR else None
+        sw = K.variant("sweep_block", mode)
+        cases[sw] = (
+            lambda p=p, nvm=nvm: SK.sweep_block(out, v, f, faces, box, p, h,
+                                                nvm),
+            lambda p=p, nvm=nvm: SK.sweep_block_plain(out, v, f, faces, box,
+                                                      p, h, nvm),
+            lib, spmd_kernel_bytes(sw, box), (taps + 4 + extra) * n, s,
+        )
+        rs = K.variant("residual_block", mode)
+        cases[rs] = (
+            lambda p=p, nvm=nvm: SK.residual_block(out, v, f, faces, box, p,
+                                                   h, newton_v=nvm),
+            lambda p=p, nvm=nvm: SK.residual_block_plain(
+                out, v, f, faces, box, p, h, newton_v=nvm),
+            lib, spmd_kernel_bytes(rs, box), (taps + 1 + extra) * n, s,
+        )
+        rr = K.variant("residual_restrict_block", mode)
+        xv = xzv if mode == Mode.NONLINEAR else None
+        cases[rr] = (
+            lambda p=p, nvm=nvm, xv=xv: SK.residual_restrict_block(
+                xzr, rlast, xv, v, f, faces, box, p, h, cnz, nvm),
+            lambda p=p, nvm=nvm, xv=xv: SK.residual_restrict_block_plain(
+                xzr, rlast, xv, v, f, faces, box, p, h, cnz, nvm),
+            (lambda: F.conv3d(sub, trilinear_filter(0.125), stride=2))
+            if mode == Mode.LINEAR else None,
+            spmd_kernel_bytes(rr, box, cnz), (taps + 1 + extra + 12) * n, s,
+        )
+    cases["prolong_add_block"] = (
+        lambda: SK.prolong_add_block(out, casm, box),
+        lambda: SK.prolong_add_block_plain(out, casm, box),
+        lambda: F.conv_transpose3d(casm[None, None], trilinear_filter(1.0),
+                                   stride=2),
+        spmd_kernel_bytes("prolong_add_block", box), 11.5 * n, s,
+    )
+    time_cases(cases, rate, rows)
+
+
+def glue_class(key):
+    """The part of the distributed cycle a profiler row belongs to."""
+    if re.search(r"sweep_block_kernel|residual_block_kernel|"
+                 r"residual_restrict_kernel|prolong_add_block_kernel", key):
+        return "shard-local kernels"
+    if re.search(r"jacobi_kernel|residual_kernel|restrict_kernel|"
+                 r"prolong_add_kernel|apply_fas_kernel|subtract_kernel|"
+                 r"finalize_kernel", key):
+        return "replicated-level and norm kernels"
+    return "torch glue"
+
+
+def time_spmd_cycles(params, label, batch_ms, rate):
+    """Device ms per distributed cycle at 511³ on the (1,1,1) mesh (CUDA
+    events over 10 cycles), beside the batch engine's from the same call;
+    a profiler breakdown into the shard-local kernels, the replicated
+    levels' kernels and the torch glue; the idle share; peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.spmd import build_spmd_solver
+
+    k = 10
+    torch.cuda.synchronize()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    eng = build_spmd_solver(params, gt.make_mesh((1, 1, 1)))
+    state = eng.init_state()
+    sums = torch.empty(k, device=DEVICE)
+    eng.run_cycles(state, 2)  # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for i in range(k):
+        eng.cycle(state, sums[i:i + 1])
+    b.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / k
+    dev = a.elapsed_time(b) / k
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base_gib
+    print(f"spmd cycle {label}: {dev:.3f} ms/cycle device (CUDA events "
+          f"over {k} cycles), {wall:.3f} ms/cycle wall; the batch engine "
+          f"{batch_ms:.3f} ms/cycle in this call (spmd/batch "
+          f"{dev / batch_ms:.3f}); peak memory of the engine {peak:.2f} GiB "
+          f"(state, buffers and temporaries)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for i in range(k):
+            eng.cycle(state, sums[i:i + 1])
+        torch.cuda.synchronize()
+        wall_p = (time.perf_counter() - t0) * 1e3
+    busy, any_rows = profile_rows(prof, k, "spmd-cycle")
+    parts = {}
+    for ev, us in device_events(prof):
+        c = glue_class(ev.key)
+        parts[c] = parts.get(c, 0.0) + us / 1e3 / k
+    if any_rows:
+        split = "; ".join(f"{c} {ms:.3f} ms ({100 * ms * k / busy:.1f}%)"
+                          for c, ms in sorted(parts.items()))
+        print(f"profile spmd {label}: {split}; busy {busy / k:.3f} ms/cycle "
+              f"-> idle share {1 - busy / (k * dev):.3f} of the event time "
+              f"({dev:.3f} ms), {1 - busy / wall_p:.3f} of the profiled "
+              f"wall ({wall_p / k:.3f} ms)")
+    else:
+        print("profile spmd: no device time recorded (not measured)")
+    del state, eng
+    torch.cuda.empty_cache()
+
+
 
 def main() -> int:
     import torch
@@ -1442,14 +2074,16 @@ def main() -> int:
     rec = Record()
     check_kernels(base, rec)
     check_vcycle_fused(base, rec)
+    check_block_kernels(base, rec)
+    check_ghosts(base, rec)
 
     # Phase 3: each main path with its own counts.
     launched = {kname: 0 for kname in K.KERNELS}
-    states = {}
+    states, batch_hist = {}, {}
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG)
         plain_maxiter = NEWTON_PLAIN_STEPS if label == "newton" else None
-        states[label], counts = main_path(
+        states[label], counts, batch_hist[label] = main_path(
             params, f"511^3 {label}", plain_maxiter=plain_maxiter
         )
         for kname, n in counts.items():
@@ -1464,12 +2098,18 @@ def main() -> int:
         check(tvc.engine(params, DEVICE) == "v1",
               f"V(6,6) {label} does not run the v1 engine")
         plain_maxiter = NEWTON_PLAIN_STEPS if label == "newton" else None
-        _, counts = main_path(params, f"511^3 V(6,6) {label}",
+        _, counts, _ = main_path(params, f"511^3 V(6,6) {label}",
                               plain_maxiter=plain_maxiter, identical=True,
                               floor=1e-2)
         for kname, n in counts.items():
             launched[kname] += n
         torch.cuda.empty_cache()
+    # The distributed engine on the one-rank mesh, each mode.
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG)
+        counts = spmd_main_path(params, f"511^3 {label}", batch_hist[label])
+        for kname, n in counts.items():
+            launched[kname] += n
     missing = [kname for kname, n in launched.items() if n == 0]
     check(not missing, f"kernels no main path launched: {missing}")
 
@@ -1479,6 +2119,7 @@ def main() -> int:
     cli_path(CONFS["newton"], "Solving newton problem", newton=True)
     with tempfile.TemporaryDirectory() as tmp:
         cli_flags(tmp)
+    spmd_cli()
 
     # Phase 5: times.
     rows = {}
@@ -1491,19 +2132,25 @@ def main() -> int:
     time_kernels(lin, states["linear"], rate, rows)
     time_mode_kernels(fas, states["nonlinear"], newt, states["newton"],
                       rate, rows)
-    time_cycles(lin, states.pop("linear"), rate, "511^3 LINEAR V(3,3)")
-    time_cycles(fas, states.pop("nonlinear"), rate, "511^3 FAS V(3,3)")
+    lin_ms = time_cycles(lin, states.pop("linear"), rate,
+                         "511^3 LINEAR V(3,3)")
+    fas_ms = time_cycles(fas, states.pop("nonlinear"), rate,
+                         "511^3 FAS V(3,3)")
     states.clear()
     torch.cuda.empty_cache()
     time_newton_steps(newt)
     time_v1(base, rate, rows)
+    time_block_kernels(base, rate, rows)
+    time_spmd_cycles(lin, "511^3 LINEAR V(3,3)", lin_ms, rate)
+    time_spmd_cycles(fas, "511^3 FAS V(3,3)", fas_ms, rate)
 
     kernels_line = []
     for kname in K.KERNELS:
         row = rows[kname]
         kernels_line.append({
             "name": kname, "route": "cuda",
-            "source": V1_SRC if kname == "vcycle_fused" else SRC,
+            "source": (V1_SRC if kname == "vcycle_fused" else
+                       SPMD_SRC if "_block" in kname else SRC),
             "replaces": REPLACES[kname], "launches": launched[kname],
             "max_abs_err": rec.errs[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

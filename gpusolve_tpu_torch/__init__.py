@@ -14,7 +14,10 @@ and a whole V-cycle in one cooperative launch for more than 5 sweeps),
 with a plain PyTorch version of every op (``ops/ref.py``) that runs on the
 CPU, runs float64 on the card, and serves as the kernels' oracle; and
 mixed-precision refinement (``solver/refine.py``) and checkpoints
-(``utils/checkpoint.py``).
+(``utils/checkpoint.py``).  The distributed engine (``dist/``: the
+per-leg explicit-halo engine on ``torch.distributed``, four shard-local
+CUDA kernels) runs the same three modes on a process mesh; on one card
+as the ``(1, 1, 1)`` mesh, ``solve_spmd(params, make_mesh((1, 1, 1)))``.
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``, or ``--platform cpu`` on the CLI).
 
@@ -35,6 +38,12 @@ from gpusolve_tpu_torch.config import (
     parse_config,
     parse_config_text,
 )
+from gpusolve_tpu_torch.dist import (
+    SpmdPlan,
+    make_mesh,
+    newton_solve_spmd,
+    solve_spmd,
+)
 from gpusolve_tpu_torch.grid import GridLevel, GridState, build_grid
 from gpusolve_tpu_torch.solver.newton import newton_solve
 from gpusolve_tpu_torch.solver.vcycle import solve, vcycle
@@ -44,11 +53,15 @@ __all__ = [
     "GridParams",
     "GridState",
     "Mode",
+    "SpmdPlan",
     "Stencil",
     "build_grid",
+    "make_mesh",
     "newton_solve",
+    "newton_solve_spmd",
     "parse_config",
     "parse_config_text",
     "solve",
+    "solve_spmd",
     "vcycle",
 ]

@@ -37,8 +37,20 @@ Flags:
                              kernels (solver/refine.py)
   --refine-inner-tol T       the inner solves' relative tolerance
 
-``--mesh`` (the distributed engines) exits 1 with a message saying it is
-not ported yet.
+Distributed (the per-leg spmd engine, dist/spmd.py):
+  --mesh X,Y,Z               the process mesh; 1,1,1 runs in one process
+                             (on the card, or --platform cpu), larger
+                             meshes one process per shard under
+                             ``torchrun --nproc-per-node N -m
+                             gpusolve_tpu_torch.cli ... --mesh ...`` (gloo
+                             with --platform cpu, else NCCL, one card per
+                             rank); only rank 0 prints
+  --dist-engine {auto,spmd,gspmd}, --fuse {auto,leg,pod},
+  --halo {ppermute,rdma}     the JAX CLI's engine flags: spmd, leg and
+                             ppermute run; gspmd, pod and rdma exit 1 (not
+                             ported yet), and --fuse auto takes leg
+With --mesh, --save-state, --load-state and --refine exit 1 (their
+distributed forms are not ported yet).
 """
 
 from __future__ import annotations
@@ -48,8 +60,15 @@ import contextlib
 import os
 import sys
 
-_NOT_PORTED = {
-    "mesh": "ROADMAP Queue 1 item 13",
+# Distributed engines and options not ported yet, with --mesh.
+_MESH_NOT_PORTED = {
+    ("dist_engine", "gspmd"): "ROADMAP Queue 1 item 13, sharding.py",
+    ("fuse", "pod"): "ROADMAP Queue 2 items 13-14",
+    ("halo", "rdma"): "ROADMAP Queue 2 item 12",
+}
+_MESH_NOT_PORTED_FLAGS = {
+    "save_state": "save_state_spmd", "load_state": "load_state_spmd",
+    "refine": "solve_refine_spmd",
 }
 
 
@@ -132,7 +151,26 @@ def build_argparser() -> argparse.ArgumentParser:
         help="relative tolerance of each inner float32 multigrid solve "
         "under --refine",
     )
-    ap.add_argument("--mesh", default=None, help="not ported yet")
+    ap.add_argument(
+        "--mesh", default=None,
+        help="comma-separated 3-D process mesh, e.g. 2,2,1 (default: one "
+        "device); more than one process runs under torchrun",
+    )
+    ap.add_argument(
+        "--dist-engine", choices=["auto", "spmd", "gspmd"], default="auto",
+        help="with --mesh: spmd (explicit halo exchange on "
+        "torch.distributed, shard-local CUDA kernels); gspmd is not ported",
+    )
+    ap.add_argument(
+        "--fuse", choices=["auto", "leg", "pod"], default="auto",
+        help="with --mesh: one kernel per op of each leg (leg); the pod "
+        "engine is not ported, so auto takes leg",
+    )
+    ap.add_argument(
+        "--halo", choices=["ppermute", "rdma"], default="ppermute",
+        help="with --mesh: face exchange by point-to-point messages "
+        "(ppermute); in-kernel remote copies (rdma) are not ported",
+    )
     return ap
 
 
@@ -191,6 +229,116 @@ def _profiled(out_dir: str, device):
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 
+def _spmd_notes(params, eng, args, _explain) -> None:
+    """The distributed engine's plan and kernel path (under
+    --explain-backend) and, on stderr, why it runs without the kernels
+    (the JAX package's ``_spmd_notes``, gpusolve_tpu/cli.py:154-200)."""
+    plan = eng.plan
+    if eng.plain_reason == "float64":
+        print(
+            "note: shard-local compute runs the plain ops: dtype float64 "
+            "(the CUDA kernels are float32)", file=sys.stderr,
+        )
+    nd = plan.n_dist
+    fold = (
+        f" (z mesh axis folded into y: data mesh {plan.mesh_shape})"
+        if plan.device_mesh != plan.mesh_shape else ""
+    )
+    kind = (
+        "CUDA shard-local kernels (ops/spmd_kernels)"
+        if eng.plain_reason is None
+        else f"plain shard-local ops ({eng.plain_reason})"
+    )
+    lines = [
+        f"dist-engine=spmd fuse={args.fuse} halo={args.halo} "
+        f"({nd} distributed levels, {plan.nlev - nd} replicated){fold}",
+    ]
+    lines += [f"level {l}: {kind}" for l in range(nd)]
+    lines.append(
+        f"levels {nd}..{plan.nlev - 1}: replicated on every rank, the "
+        "single-device per-op ops (ops/dispatch)"
+    )
+    _explain(lines)
+
+
+def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
+    """--mesh: the per-leg spmd engine on this process's shard."""
+    import torch.distributed as dist
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import make_mesh
+    from gpusolve_tpu_torch.dist.spmd import (
+        build_spmd_solver,
+        gather_solution,
+        newton_solve_spmd,
+        solve_spmd,
+        spmd_eligible,
+    )
+
+    why = spmd_eligible(params, mesh_shape)
+    if why is not None:
+        print(
+            f"the spmd engine cannot run this configuration ({why}); the "
+            "gspmd engine is not ported to gpusolve_tpu_torch yet",
+            file=sys.stderr,
+        )
+        return 1
+    if args.fuse == "auto":
+        args.fuse = "leg"
+        print("note: --fuse auto runs the per-leg engine: the pod engine is "
+              "not ported yet (ROADMAP Queue 2 items 13-14)", file=sys.stderr)
+        _explain(["fuse=auto -> leg"])
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
+        started = True
+    try:
+        try:
+            multi = dist.is_initialized()
+            mesh = make_mesh(
+                mesh_shape,
+                device=None if multi and device.type == "cuda" else device,
+            )
+            eng = build_spmd_solver(params, mesh)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        _spmd_notes(params, eng, args, _explain)
+        with profile_cm:
+            if params.mode == Mode.NEWTON:
+                state, _, plan = newton_solve_spmd(
+                    params, mesh, check_every=args.check_every,
+                )
+                which = 2
+            else:
+                state, _, plan = solve_spmd(
+                    params, mesh, plan=eng.plan,
+                    check_every=args.check_every,
+                )
+                which = 0
+        if args.profile:
+            print(f"Wrote profiler trace to {args.profile}")
+        if args.dump or args.validate:
+            solution = gather_solution(state, plan, mesh, which=which)
+            if args.dump:
+                from gpusolve_tpu_torch.utils.dump import dump_field
+
+                dump_field(solution, args.dump)
+                print(f"Dumped solution to {args.dump}")
+            if args.validate:
+                from gpusolve_tpu_torch.utils.dump import compare_analytic
+
+                err = compare_analytic(solution, params.h)
+                print(f"max-abs error vs analytic solution: {err:.6g}")
+        if started:
+            # No rank tears its connections down while a peer still reads.
+            dist.barrier()
+        return 0
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def _report(solution, params, args) -> None:
     """--dump and --validate on the final solution (a padded numpy
     array)."""
@@ -208,21 +356,48 @@ def _report(solution, params, args) -> None:
             print(f"max-abs error vs analytic solution: {err:.6g}")
 
 
+def _mesh_shape(args):
+    """The --mesh shape, or a message: why the mesh run cannot start."""
+    try:
+        shape = tuple(int(t) for t in args.mesh.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 3 or any(m < 1 for m in shape):
+        return None, f"invalid --mesh {args.mesh!r}"
+    for (name, value), item in _MESH_NOT_PORTED.items():
+        if getattr(args, name) == value:
+            flag = "--" + name.replace("_", "-")
+            return None, (f"{flag} {value} is not ported to "
+                          f"gpusolve_tpu_torch yet ({item})")
+    for name, func in _MESH_NOT_PORTED_FLAGS.items():
+        if getattr(args, name):
+            flag = "--" + name.replace("_", "-")
+            return None, (f"{flag} with --mesh is not ported to "
+                          f"gpusolve_tpu_torch yet ({func}, ROADMAP Queue 1 "
+                          "item 13)")
+    return shape, None
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
+    if args.mesh and int(os.environ.get("RANK", "0")) != 0:
+        # Only rank 0 of a multi-process mesh prints.
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+            return _main(args)
+    return _main(args)
 
+
+def _main(args) -> int:
     if not os.path.isfile(args.config):
         print(
             f"{args.config} does not exist or is not a file", file=sys.stderr
         )
         return 1
-    for name, item in _NOT_PORTED.items():
-        if getattr(args, name):
-            flag = "--" + name.replace("_", "-")
-            print(
-                f"{flag} is not ported to gpusolve_tpu_torch yet ({item})",
-                file=sys.stderr,
-            )
+    mesh_shape = None
+    if args.mesh:
+        mesh_shape, why = _mesh_shape(args)
+        if why:
+            print(why, file=sys.stderr)
             return 1
     if args.refine:
         incompat = [
@@ -288,6 +463,10 @@ def main(argv=None) -> int:
     profile_cm = contextlib.nullcontext()
     if args.profile:
         profile_cm = _profiled(args.profile, device)
+
+    if mesh_shape is not None:
+        return _run_mesh(args, params, mesh_shape, device, profile_cm,
+                         _explain)
 
     if args.refine:
         from gpusolve_tpu_torch.solver.refine import solve_refine

@@ -139,42 +139,45 @@ def nonlinear_rhs(
     return out
 
 
-def _device_rhs(params: GridParams, dtype, device) -> torch.Tensor:
-    """The finest RHS computed on the device in the working dtype, with the
-    formula and operation order of ``gpusolve_tpu.grid._device_rhs``; a
-    grid-sized host array never crosses to the card."""
-    nx, ny, nz = params.grid_dim
-    h = params.h
-    linear = params.mode == Mode.LINEAR
-    off = -1.0 if linear else 0.0
-
-    def coord(n):
-        return (torch.arange(1, n + 1, dtype=dtype, device=device) + off) * h
-
-    x = coord(nx)[:, None, None]
-    y = coord(ny)[None, :, None]
-    z = coord(nz)[None, None, :]
-    if linear:
+def rhs_values(params: GridParams, x, y, z) -> torch.Tensor:
+    """The analytic RHS at broadcastable coordinate tensors ``x, y, z``,
+    with the formula and operation order of
+    ``gpusolve_tpu.grid._device_rhs``."""
+    if params.mode == Mode.LINEAR:
         def f0(t):
             # (s·s)·(s·s): the order XLA gives an integer power of 4.
             s = t * (t - 1.0)
             s2 = s * s
             return 100.0 * (s2 * s2)
 
-        interior = -(
+        return -(
             _f2(x) * f0(y) * f0(z)
             + f0(x) * _f2(y) * f0(z)
             + f0(x) * f0(y) * _f2(z)
         )
-    else:
-        gx, gy, gz = x - x * x, y - y * y, z - z * z
-        prod = gx * gy * gz
-        interior = (
-            2.0 * (gy * gz + gx * gz + gx * gy)
-            + params.gamma * prod * torch.exp(prod)
-        )
+    gx, gy, gz = x - x * x, y - y * y, z - z * z
+    prod = gx * gy * gz
+    return (
+        2.0 * (gy * gz + gx * gz + gx * gy)
+        + params.gamma * prod * torch.exp(prod)
+    )
+
+
+def _device_rhs(params: GridParams, dtype, device) -> torch.Tensor:
+    """The finest RHS computed on the device in the working dtype; a
+    grid-sized host array never crosses to the card."""
+    nx, ny, nz = params.grid_dim
+    h = params.h
+    off = -1.0 if params.mode == Mode.LINEAR else 0.0
+
+    def coord(n):
+        return (torch.arange(1, n + 1, dtype=dtype, device=device) + off) * h
+
     out = torch.zeros((nx + 2, ny + 2, nz + 2), dtype=dtype, device=device)
-    out[1:-1, 1:-1, 1:-1] = interior
+    out[1:-1, 1:-1, 1:-1] = rhs_values(
+        params, coord(nx)[:, None, None], coord(ny)[None, :, None],
+        coord(nz)[None, None, :],
+    )
     return out
 
 

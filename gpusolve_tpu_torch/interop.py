@@ -4,7 +4,10 @@ The JAX package allocates each level as ``(8, 8, 128)``-rounded arrays
 (its ``grid.alloc_shape``) whose cells outside the padded region
 ``(n+2)³`` are zero; the port allocates exactly ``(n+2)³``.  These helpers
 take the JAX fields as numpy arrays (``np.asarray`` of the JAX arrays; this
-module imports no JAX), crop them, and back.
+module imports no JAX), crop them, and back.  ``spmd_state_from_numpy``
+and ``spmd_state_to_numpy`` do the same for the distributed engines'
+states: each distributed level's global array is cut into this rank's
+block.
 """
 
 from __future__ import annotations
@@ -105,6 +108,88 @@ def _to_torch(arr, dims: Dims, device, dtype) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(crop(np.asarray(arr), dims))
     ).to(device=device, dtype=dtype)
+
+
+def _third(params: GridParams) -> Optional[str]:
+    return {Mode.NONLINEAR: "rest_v", Mode.NEWTON: "newton_v"}.get(
+        params.mode
+    )
+
+
+def _block_of(arr: np.ndarray, plan, l: int, coords) -> np.ndarray:
+    """This rank's block of a distributed level's global array."""
+    dc = plan.data_coords(coords) + (0,)
+    b = plan.block[l]
+    if tuple(arr.shape) != tuple(plan.alloc[l]):
+        raise ValueError(
+            f"level {l} array of shape {arr.shape}, the plan allocates "
+            f"{plan.alloc[l]}"
+        )
+    return arr[tuple(slice(c * n, (c + 1) * n) for c, n in zip(dc, b))]
+
+
+def spmd_state_from_numpy(
+    params: GridParams,
+    plan,
+    arrays: Sequence[np.ndarray],
+    mesh,
+    newton_f: Optional[np.ndarray] = None,
+) -> GridState:
+    """A state of the port's distributed engine for this rank of ``mesh``
+    from the JAX spmd engine's flat state (``np.asarray`` of each array):
+    per level ``v, f`` and the mode's third field (FAS rest_v, Newton ũ).
+    A distributed level's global array (the plan's ``alloc``) is sliced
+    into this rank's block; a replicated level is cropped from the JAX
+    allocation to ``(n+2)³``.  NEWTON takes the JAX ``plan.newton_f``."""
+    dtype = torch_dtype(params.dtype)
+    names = ("v", "f") + ((_third(params),) if _third(params) else ())
+    if len(arrays) != len(names) * plan.nlev:
+        raise ValueError(
+            f"{len(arrays)} arrays given, the plan has {plan.nlev} levels "
+            f"of {len(names)}"
+        )
+
+    def conv(arr, l):
+        arr = np.asarray(arr)
+        if l < plan.n_dist:
+            a = _block_of(arr, plan, l, mesh.coords)
+        else:
+            a = crop(arr, plan.dims[l])
+        return torch.from_numpy(np.array(a)).to(
+            device=mesh.device, dtype=dtype
+        )
+
+    levels = []
+    for l in range(plan.nlev):
+        fields = {name: conv(arrays[len(names) * l + i], l)
+                  for i, name in enumerate(names)}
+        fields["r"] = torch.zeros_like(fields["v"])
+        levels.append(GridLevel(**fields))
+    nf = None
+    if params.mode == Mode.NEWTON:
+        if newton_f is None:
+            raise ValueError("NEWTON mode needs the JAX plan's newton_f")
+        nf = conv(newton_f, 0)
+    return GridState(levels=tuple(levels), newton_f=nf)
+
+
+def spmd_state_to_numpy(state: GridState, params: GridParams,
+                        plan) -> List[np.ndarray]:
+    """The flat per-level ``v, f`` (and third field) of a distributed
+    state: this rank's blocks of the distributed levels, the replicated
+    levels in the JAX package's allocation, zero beyond the padded
+    region."""
+    names = ("v", "f") + ((_third(params),) if _third(params) else ())
+    out = []
+    for l, lvl in enumerate(state.levels):
+        for name in names:
+            a = getattr(lvl, name).detach().cpu().numpy()
+            if l >= plan.n_dist:
+                full = np.zeros(jax_alloc_shape(plan.dims[l]), dtype=a.dtype)
+                full[: a.shape[0], : a.shape[1], : a.shape[2]] = a
+                a = full
+            out.append(a)
+    return out
 
 
 def state_to_numpy(

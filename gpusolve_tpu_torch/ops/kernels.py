@@ -3,8 +3,10 @@ binding, wrappers, and the plain PyTorch version beside each.
 
 The kernels live in ``csrc/``: the per-op kernels in ``multigrid.cu``, the
 whole-V-cycle cooperative kernel in ``vcycle_fused.cu`` (its wrapper is
-``ops/vcycle_fused.py``), their shared point arithmetic in
-``mg_device.cuh``.  On first use each source is compiled with ``nvcc
+``ops/vcycle_fused.py``), the distributed engine's shard-local kernels in
+``spmd_block.cu`` (their wrappers are ``ops/spmd_kernels.py``), their
+shared point arithmetic in ``mg_device.cuh``.  On first use each source is
+compiled with ``nvcc
 -gencode arch=compute_90a,code=sm_90a``, the sources in parallel, and
 linked into one shared library with a plain C interface under
 ``gpusolve_tpu_torch/build/``, loaded with ``ctypes``; nothing is built
@@ -52,7 +54,9 @@ from gpusolve_tpu_torch.ops import ref
 Dims = Tuple[int, int, int]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "multigrid.cu", CSRC / "vcycle_fused.cu")
+SOURCES = (
+    CSRC / "multigrid.cu", CSRC / "vcycle_fused.cu", CSRC / "spmd_block.cu"
+)
 HEADERS = (CSRC / "mg_device.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
@@ -66,6 +70,10 @@ KERNELS = (
     "jacobi_sweep", "jacobi_sweep_fas", "jacobi_sweep_newton",
     "restrict_zero", "restrict", "prolong_add", "apply_fas", "subtract",
     "vcycle_fused",
+    "sweep_block", "sweep_block_fas", "sweep_block_newton",
+    "residual_block", "residual_block_fas", "residual_block_newton",
+    "residual_restrict_block", "residual_restrict_block_fas",
+    "residual_restrict_block_newton", "prolong_add_block",
 )
 # Launches of each kernel since the last reset_launches(): only the CUDA
 # launches count, never the plain versions.
@@ -186,6 +194,17 @@ def _bind(path: Path):
             [p, i, i, i, p, p, p, p, p, i, f, f, p, p, p], i
         ),
         "mg_vcycle_fused_grid": ([i, p], i),
+        "mg_box_blocks": ([i, i, i], ll),
+        "mg_sweep_block": (
+            [p] * 8 + [i] * 9 + [p, p, i, f, f, f, f, f, i, p], i
+        ),
+        "mg_residual_block": (
+            [p] * 9 + [i] * 9 + [p, p, i, f, f, i, i, p], i
+        ),
+        "mg_residual_restrict_block": (
+            [p] * 10 + [i] * 13 + [p, p, i, f, f, i, p], i
+        ),
+        "mg_prolong_add_block": ([p, p] + [i] * 11 + [p], i),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)

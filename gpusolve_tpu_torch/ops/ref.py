@@ -67,6 +67,20 @@ def _mode_residual_term(
     return None
 
 
+def residual_point(
+    params: GridParams,
+    av: torch.Tensor,
+    v_int: torch.Tensor,
+    f_int: torch.Tensor,
+    newton_v_int: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """``f − (A·v/h² + mode term)`` from ``av = A·v/h²`` and the points'
+    v, f and (NEWTON) ũ."""
+    if params.mode != Mode.LINEAR:
+        av = av + _mode_residual_term(params, v_int, newton_v_int)
+    return f_int - av
+
+
 def residual(
     v: torch.Tensor,
     f: torch.Tensor,
@@ -78,16 +92,40 @@ def residual(
     """``(r, Σr²)``: the residual ``f − (A·v/h² + mode term)``, zero outside
     the interior, and its squared L2 norm as a 0-d tensor."""
     inv_h2 = 1.0 / (h * h)
-    v_int = interior(v, dims)
     av = stencil_apply(v, dims, params.stencil, inv_h2)
-    if params.mode != Mode.LINEAR:
-        av = av + _mode_residual_term(
-            params,
-            v_int,
-            interior(newton_v, dims) if newton_v is not None else None,
-        )
-    r_int = interior(f, dims) - av
+    r_int = residual_point(
+        params, av, interior(v, dims), interior(f, dims),
+        interior(newton_v, dims) if newton_v is not None else None,
+    )
     return _padded(r_int, dims, v.shape), torch.sum(r_int * r_int)
+
+
+def sweep_point(
+    params: GridParams,
+    h: float,
+    av: torch.Tensor,
+    v_int: torch.Tensor,
+    f_int: torch.Tensor,
+    newton_v_int: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """One damped-Jacobi update of the points from ``av = A·v/h²``:
+      linear:    v + ω · (h²/s₀) · r
+      nonlinear: v + ω · r / (s₀/h² + γ(1+v)e^v)
+      Newton:    v + ω · r / (s₀/h² + γ(1+ṽ)e^ṽ), ṽ frozen
+    """
+    if params.mode == Mode.LINEAR:
+        alpha = (h * h) / params.stencil.diag
+        return v_int + params.omega * (alpha * (f_int - av))
+    pre_fac = params.stencil.diag / (h * h)
+    if params.mode == Mode.NONLINEAR:
+        ex = torch.exp(v_int)
+        r_int = f_int - (av + params.gamma * v_int * ex)
+        denom = pre_fac + params.gamma * (1.0 + v_int) * ex
+        return v_int + params.omega * (r_int / denom)
+    ex = torch.exp(newton_v_int)
+    lin = params.gamma * (1.0 + newton_v_int) * ex
+    r_int = f_int - (av + lin * v_int)
+    return v_int + params.omega * (r_int / (pre_fac + lin))
 
 
 def jacobi(
@@ -99,35 +137,15 @@ def jacobi(
     n_iter: int,
     newton_v: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``n_iter`` damped-Jacobi sweeps; returns the updated v.
-
-    Each sweep computes the residual with the current v everywhere
-    (simultaneous update), then
-      linear:    v += ω · (h²/s₀) · r
-      nonlinear: v += ω · r / (s₀/h² + γ(1+v)e^v)
-      Newton:    v += ω · r / (s₀/h² + γ(1+ṽ)e^ṽ), ṽ frozen
-    """
+    """``n_iter`` damped-Jacobi sweeps (``sweep_point``); returns the
+    updated v.  Each sweep computes the residual with the current v
+    everywhere (simultaneous update)."""
     inv_h2 = 1.0 / (h * h)
-    pre_fac = params.stencil.diag / (h * h)
-    alpha = (h * h) / params.stencil.diag
     nv_int = interior(newton_v, dims) if newton_v is not None else None
+    f_int = interior(f, dims)
     for _ in range(n_iter):
-        v_int = interior(v, dims)
         av = stencil_apply(v, dims, params.stencil, inv_h2)
-        if params.mode == Mode.LINEAR:
-            r_int = interior(f, dims) - av
-            new_v = v_int + params.omega * (alpha * r_int)
-        elif params.mode == Mode.NONLINEAR:
-            ex = torch.exp(v_int)
-            r_int = interior(f, dims) - (av + params.gamma * v_int * ex)
-            denom = pre_fac + params.gamma * (1.0 + v_int) * ex
-            new_v = v_int + params.omega * (r_int / denom)
-        else:  # NEWTON
-            ex = torch.exp(nv_int)
-            lin = params.gamma * (1.0 + nv_int) * ex
-            r_int = interior(f, dims) - (av + lin * v_int)
-            denom = pre_fac + lin
-            new_v = v_int + params.omega * (r_int / denom)
+        new_v = sweep_point(params, h, av, interior(v, dims), f_int, nv_int)
         v = _padded(new_v, dims, v.shape)
     return v
 

@@ -1,10 +1,13 @@
 """The port's CLI on the CPU: the reference's output lines in every mode,
 the flags of the JAX CLI's single-device surface, --explain-backend's
-engine lines, and a clear exit for --mesh, which is not ported yet."""
+engine lines, and --mesh: the per-leg spmd engine on the one-rank mesh
+with the JAX CLI's lines, and a clear exit 1 for the distributed engines
+and flags not ported yet and for a mesh larger than the world."""
 
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,9 +68,9 @@ def test_cli_float64_and_devices(small_conf, capsys):
 def test_cli_not_ported_flags_exit_1(
     small_conf, capsys, tmp_path, monkeypatch, args
 ):
-    """--mesh exits 1 with "not ported"; the flags ported since run: the
-    refinement, a checkpoint written and resumed, the dump, a profiler
-    trace."""
+    """The flags ported since they exited 1 run: --mesh 1,1,1 (the
+    distributed engine on one rank), the refinement, a checkpoint written
+    and resumed, the dump, a profiler trace."""
     monkeypatch.chdir(tmp_path)
     path = small_conf()
     if args[0] == "--load-state":
@@ -76,12 +79,12 @@ def test_cli_not_ported_flags_exit_1(
         capsys.readouterr()
     rc = cli.main([path, "--platform", "cpu", *args])
     out, err = capsys.readouterr()
-    if args[0] == "--mesh":
-        assert rc == 1 and "not ported" in err
-        return
     assert rc == 0
     lines = out.splitlines()
-    if args[0] == "--refine":
+    if args[0] == "--mesh":
+        assert [ln for ln in lines if LINE.match(ln)]
+        assert "note: --fuse auto runs the per-leg engine" in err
+    elif args[0] == "--refine":
         res = [float(LINE.match(ln).group(2)) for ln in lines
                if LINE.match(ln)]
         initial = float(lines[2].split(": ")[1])
@@ -169,3 +172,51 @@ def test_cli_errors(small_conf, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main([path]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", [1])
+def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
+    """--mesh 1,1,1 --platform cpu prints the lines the JAX CLI prints
+    with --mesh 1,1,1 --fuse leg, the same numbers to the printed digits
+    in float64 (--validate's error too), and the per-level engine
+    lines."""
+    from gpusolve_tpu import cli as jax_cli
+
+    path = small_conf(mode=mode, dims=(15, 15, 15))
+    extra = ["--validate"] if mode else []
+    assert cli.main([path, "--mesh", "1,1,1", "--platform", "cpu",
+                     "--explain-backend", "--check-every", "2",
+                     "--dtype", "float64", *extra]) == 0
+    out, err = capsys.readouterr()
+    assert "backend: dist-engine=spmd fuse=leg halo=ppermute" in err
+    assert "backend: level 0: plain shard-local ops (float64)" in err
+    # The JAX CLI in this process (the tests run JAX on the CPU
+    # with float64 enabled).
+    assert jax_cli.main([path, "--mesh", "1,1,1", "--fuse", "leg",
+                         "--check-every", "2", "--dtype", "float64",
+                         *extra]) == 0
+    ref_out = capsys.readouterr().out
+    num = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+
+    def shape(text):
+        lines = [re.sub(r"Took \d+ms.*", "", ln) for ln in text.splitlines()]
+        return ([num.sub("#", ln) for ln in lines],
+                [float(x) for ln in lines for x in num.findall(ln)])
+
+    got, want = shape(out), shape(ref_out)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--mesh", "1,1,1", "--fuse", "pod"], "not ported"),
+    (["--mesh", "1,1,1", "--halo", "rdma"], "not ported"),
+    (["--mesh", "1,1,1", "--dist-engine", "gspmd"], "not ported"),
+    (["--mesh", "1,1,1", "--refine"], "not ported"),
+    (["--mesh", "1,1,1", "--save-state", "x.npz"], "not ported"),
+    (["--mesh", "2,2,1"], "torchrun"),
+    (["--mesh", "2,2"], "invalid --mesh"),
+])
+def test_cli_mesh_exits_1(small_conf, capsys, args, message):
+    assert cli.main([small_conf(), "--platform", "cpu", *args]) == 1
+    assert message in capsys.readouterr().err

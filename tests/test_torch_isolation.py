@@ -32,7 +32,8 @@ def port_sources():
 def test_import_leaves_jax_out():
     code = (
         "import sys, gpusolve_tpu_torch, gpusolve_tpu_torch.cli, "
-        "gpusolve_tpu_torch.interop, gpusolve_tpu_torch.ops.vcycle_batch; "
+        "gpusolve_tpu_torch.interop, gpusolve_tpu_torch.ops.vcycle_batch, "
+        "gpusolve_tpu_torch.dist.spmd, gpusolve_tpu_torch.ops.spmd_kernels; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gpusolve_tpu' or m.startswith('gpusolve_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -93,3 +94,25 @@ def test_backend_cuda_on_cpu_raises():
         dispatch.smooth(
             lvl.v, lvl.f, lvl.r, params.grid_dim, params, params.h, 1
         )
+
+
+def test_cpu_spmd_solve_leaves_counters_at_zero():
+    """The distributed engine on CPU tensors runs the plain versions of its
+    kernels and of the replicated levels' ops: no counter moves."""
+    kernels.reset_launches()
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    for mode in range(3):
+        params = gt.parse_config(
+            CONF, grid_dim=(15, 15, 15), maxiter=2, print_progress=False,
+            mode=mode,
+        )
+        if mode == 2:
+            gt.newton_solve_spmd(params, mesh, cutoff=3)
+        else:
+            gt.solve_spmd(params, mesh, cutoff=3, check_every=2)
+    assert all(n == 0 for n in kernels.launches.values())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        import unittest.mock as um
+
+        with um.patch.object(torch.cuda, "is_available", lambda: False):
+            gt.make_mesh((1, 1, 1))

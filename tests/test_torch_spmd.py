@@ -1,0 +1,303 @@
+"""The port's distributed per-leg engine (gpusolve_tpu_torch/dist) against
+the JAX package's explicit spmd engine (gpusolve_tpu/dist/spmd.py, its
+XLA local path) on the same mesh, in float64 to rtol 1e-10:
+
+  * ``SpmdPlan`` field by field (pure Python);
+  * a (1, 1, 1) mesh in this process, LINEAR, FAS and Newton;
+  * (2, 2, 1) and (1, 2, 2) meshes (the latter folds z into y) on 4 gloo
+    ranks: one ``torch.multiprocessing`` spawn per mesh runs every case
+    (LINEAR, FAS, Newton, W and F cycles, ``check_every=3``) and returns
+    the histories and gathered solutions, which are held against the JAX
+    engine and the port's own single-device solve;
+  * the interop converters, and a port solve resumed from a JAX state.
+
+The JAX package is imported inside the functions that use it, so the
+spawned ranks import torch only.
+"""
+
+import functools
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import gpusolve_tpu_torch as gt
+from gpusolve_tpu_torch import interop
+from gpusolve_tpu_torch.dist import mesh as tmesh
+from gpusolve_tpu_torch.dist import spmd as tsp
+from gpusolve_tpu_torch.ops import kernels
+
+RTOL = 1e-10
+WORLD = 4
+# name -> (mode, dims, cycle, cutoff, check_every), per mesh.  Each case
+# distributes two levels or more, so the fused residual-restriction, the
+# junction and the replicated levels all run.
+CASES = {
+    (2, 2, 1): {
+        "linear": (0, (31, 31, 31), "V", 4, 1),
+        "linear_k3": (0, (31, 31, 31), "V", 4, 3),
+        "fas": (1, (15, 15, 15), "V", 3, 1),
+        "newton": (2, (15, 15, 15), "V", 3, 1),
+        "w": (0, (15, 15, 15), "W", 3, 1),
+        "f_fas": (1, (15, 15, 15), "F", 3, 1),
+    },
+    (1, 2, 2): {
+        "linear": (0, (15, 31, 15), "V", 4, 1),
+        "newton": (2, (15, 31, 15), "V", 3, 1),
+    },
+}
+
+
+def _kw(mode, dims, cycle="V", maxiter=4):
+    return dict(maxiter=maxiter, tol=1e-30, grid_dim=dims, mode=mode,
+                pre_smoothing=2, post_smoothing=2, omega=0.8, gamma=1.0,
+                print_progress=False, dtype="float64", cycle_type=cycle)
+
+
+def _tparams(mode, dims, cycle="V", maxiter=4):
+    return gt.GridParams(stencil=gt.Stencil.poisson_7pt(),
+                         **_kw(mode, dims, cycle, maxiter))
+
+
+def _port_solve(params, mesh, cutoff, check_every=1):
+    if params.mode == gt.Mode.NEWTON:
+        return gt.newton_solve_spmd(params, mesh, cutoff=cutoff,
+                                    check_every=check_every)
+    return gt.solve_spmd(params, mesh, cutoff=cutoff,
+                         check_every=check_every)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(mesh_shape, mode, dims, cycle, cutoff, maxiter=4):
+    """The JAX engine's history and gathered solution (cached per
+    module run: each configuration compiles once)."""
+    from gpusolve_tpu.config import GridParams, Stencil
+    from gpusolve_tpu.dist import spmd as jsp
+    from gpusolve_tpu.dist.mesh import make_mesh
+
+    params = GridParams(stencil=Stencil.poisson_7pt(),
+                        **_kw(mode, dims, cycle, maxiter))
+    mesh = make_mesh(mesh_shape)
+    run = jsp.newton_solve_spmd if mode == 2 else jsp.solve_spmd
+    state, hist, plan = run(params, mesh, cutoff=cutoff,
+                            local_backend="xla")
+    sol = jsp.gather_solution(state, plan, mesh, which=2 if mode == 2 else 0)
+    return np.asarray(hist), sol
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=RTOL,
+                               atol=RTOL * np.abs(want).max(), err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# The plan and the mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims,mesh_shape,cutoff", [
+    ((31, 31, 31), (2, 2, 1), 4), ((15, 15, 15), (2, 2, 1), 3),
+    ((15, 31, 15), (1, 2, 2), 4), ((511, 511, 511), (1, 1, 1), 4),
+    ((127, 63, 255), (2, 2, 2), 4), ((63, 63, 63), (4, 1, 1), 2),
+])
+def test_plan_matches_jax(dims, mesh_shape, cutoff):
+    from gpusolve_tpu.config import GridParams, Stencil
+    from gpusolve_tpu.dist.spmd import SpmdPlan
+
+    kw = _kw(0, dims)
+    jp = SpmdPlan(GridParams(stencil=Stencil.poisson_7pt(), **kw),
+                  mesh_shape, cutoff)
+    tp = gt.SpmdPlan(_tparams(0, dims), mesh_shape, cutoff)
+    assert tp.n_dist == jp.n_dist and tp.nlev == jp.nlev
+    assert tp.mesh_shape == jp.mesh_shape
+    assert tp.device_mesh == jp.device_mesh and tp.names == jp.names
+    assert tp.alloc[:tp.n_dist] == jp.alloc[:jp.n_dist]
+    assert tp.block == jp.block and tp.dims == jp.dims
+    # Replicated levels: the port's dense padded layout.
+    assert tp.alloc[tp.n_dist:] == [tuple(n + 2 for n in d)
+                                   for d in tp.dims[tp.n_dist:]]
+    assert tp.fused_down_levels == () and tp.fused_up_levels == ()
+
+
+def test_factor_devices_and_mesh_errors():
+    from gpusolve_tpu.dist.mesh import factor_devices
+
+    for n in (1, 2, 4, 6, 8, 12, 16):
+        assert tmesh.factor_devices(n) == factor_devices(n)
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    assert mesh.coords == (0, 0, 0) and mesh.group is None
+    with pytest.raises(ValueError, match="torchrun"):
+        gt.make_mesh((2, 1, 1), device="cpu")
+    assert tmesh.coords_of(5, (2, 2, 2)) == (1, 0, 1)
+    params = _tparams(0, (15, 15, 15))
+    corner = params.replace(stencil=gt.Stencil(
+        values=(6.0, -1.0), offsets=((0, 0, 0), (1, 1, 0))
+    ))
+    with pytest.raises(ValueError, match="corner and edge taps"):
+        gt.solve_spmd(corner, mesh)
+
+
+# ---------------------------------------------------------------------------
+# One rank
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode,dims", [
+    (1, (15, 15, 15)), (2, (15, 15, 15)), (0, (31, 31, 31)),
+], ids=["fas15", "newton15", "linear31"])
+def test_one_rank_matches_jax(mode, dims):
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    kernels.reset_launches()
+    state, hist, plan = _port_solve(_tparams(mode, dims), mesh, 3)
+    want_hist, want_sol = _jax_run((1, 1, 1), mode, dims, "V", 3)
+    _close(hist, want_hist, "history")
+    sol = tsp.gather_solution(state, plan, mesh, which=2 if mode == 2 else 0)
+    _close(sol, want_sol, "solution")
+    assert all(n == 0 for n in kernels.launches.values())
+
+
+def test_interop_round_trip_and_resume():
+    """A JAX state after two cycles goes into the port's blocks (on the
+    one-rank mesh, and each rank's block of a (2, 2, 1) mesh) and back to
+    the JAX arrays; the port then runs two more cycles from it and
+    matches the JAX engine's uninterrupted four."""
+    from gpusolve_tpu.config import GridParams, Stencil
+    from gpusolve_tpu.dist import spmd as jsp
+    from gpusolve_tpu.dist.mesh import make_mesh
+
+    dims, cutoff = (15, 15, 15), 3
+    jparams = GridParams(stencil=Stencil.poisson_7pt(),
+                         **_kw(1, dims, maxiter=2))
+    jstate, jhist, jplan = jsp.solve_spmd(
+        jparams, make_mesh((1, 1, 1)), cutoff=cutoff, local_backend="xla"
+    )
+    arrays = [np.asarray(a) for a in jstate]
+    params = _tparams(1, dims, maxiter=2)
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    plan = gt.SpmdPlan(params, (1, 1, 1), cutoff)
+    state = interop.spmd_state_from_numpy(params, plan, arrays, mesh)
+    back = interop.spmd_state_to_numpy(state, params, plan)
+    assert len(back) == len(arrays)
+    for a, b in zip(back, arrays):
+        assert a.shape == b.shape and np.array_equal(a, b)
+
+    # Each rank's block of a (2, 2, 1) mesh, from the same global arrays.
+    plan4 = gt.SpmdPlan(params, (2, 2, 1), cutoff)
+    jplan4 = jsp.SpmdPlan(jparams, (2, 2, 1), cutoff)
+    rng = np.random.default_rng(3)
+    glob = [rng.standard_normal(s) for s in jplan4.alloc[:plan4.n_dist]
+            for _ in "vfr"]
+    repl = [np.zeros(interop.jax_alloc_shape(d))
+            for d in plan4.dims[plan4.n_dist:] for _ in "vfr"]
+    for rank in range(WORLD):
+        m = tmesh.Mesh((2, 2, 1), tmesh.coords_of(rank, (2, 2, 1)), rank,
+                       None, torch.device("cpu"))
+        st = interop.spmd_state_from_numpy(params, plan4, glob + repl, m)
+        out = interop.spmd_state_to_numpy(st, params, plan4)
+        dx, dy = plan4.data_coords(m.coords)
+        for l in range(plan4.n_dist):
+            bx, by, _ = plan4.block[l]
+            for i in range(3):
+                want = glob[3 * l + i][dx * bx:(dx + 1) * bx,
+                                       dy * by:(dy + 1) * by]
+                assert np.array_equal(out[3 * l + i], want)
+
+    # Resume: two more cycles from the JAX state.
+    _, more, _ = gt.solve_spmd(params, mesh, cutoff=cutoff, state=state,
+                               plan=plan, initial_residual=jhist[0])
+    want_hist, _ = _jax_run((1, 1, 1), 1, dims, "V", cutoff)
+    _close(np.asarray(jhist[1:] + more), want_hist[1:], "resumed")
+
+
+# ---------------------------------------------------------------------------
+# Four gloo ranks
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(rank, mesh_shape, store_path, out_dir):
+    torch.set_num_threads(1)
+    store = torch.distributed.FileStore(store_path, WORLD)
+    torch.distributed.init_process_group(
+        "gloo", store=store, rank=rank, world_size=WORLD
+    )
+    try:
+        mesh = gt.make_mesh(mesh_shape, device="cpu")
+        for name, (mode, dims, cycle, cutoff, k) in CASES[mesh_shape].items():
+            state, hist, plan = _port_solve(
+                _tparams(mode, dims, cycle), mesh, cutoff, k
+            )
+            sol = tsp.gather_solution(state, plan, mesh,
+                                      which=2 if mode == 2 else 0)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"),
+                         hist=np.asarray(hist), sol=sol,
+                         launched=sum(kernels.launches.values()))
+        # No rank tears its connections down while a peer still reads.
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _spawn(mesh_shape, out):
+    """Every case of one mesh on 4 gloo ranks; rank 0's results."""
+    ctx = torch.multiprocessing.start_processes(
+        _rank_main, args=(mesh_shape, str(out / "store"), str(out)),
+        nprocs=WORLD, join=False, start_method="spawn",
+    )
+    deadline = time.monotonic() + 600
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            pytest.fail(f"the {mesh_shape} ranks did not finish")
+    results = {}
+    for name in CASES[mesh_shape]:
+        with np.load(out / f"{name}.npz") as f:
+            results[name] = (f["hist"], f["sol"], int(f["launched"]))
+    return results
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """``ranks(mesh_shape)``: the mesh's results, spawned once."""
+    cache = {}
+
+    def get(mesh_shape):
+        if mesh_shape not in cache:
+            cache[mesh_shape] = _spawn(
+                mesh_shape, tmp_path_factory.mktemp("spmd")
+            )
+        return cache[mesh_shape]
+
+    return get
+
+
+RANK_CASES = [(m, name) for m, cases in CASES.items() for name in cases]
+RANK_IDS = [f"{'x'.join(map(str, m))}-{name}" for m, name in RANK_CASES]
+
+
+@pytest.mark.parametrize("mesh_shape,name", RANK_CASES, ids=RANK_IDS)
+def test_ranks_match_jax(ranks, mesh_shape, name):
+    mode, dims, cycle, cutoff, _ = CASES[mesh_shape][name]
+    hist, sol, launched = ranks(mesh_shape)[name]
+    want_hist, want_sol = _jax_run(mesh_shape, mode, dims, cycle, cutoff)
+    _close(hist, want_hist, f"{name} history")
+    _close(sol, want_sol, f"{name} solution")
+    assert launched == 0  # CPU tensors run the plain versions
+
+
+@pytest.mark.parametrize("mesh_shape,name", RANK_CASES, ids=RANK_IDS)
+def test_ranks_match_single_device(ranks, mesh_shape, name):
+    """The same configuration on the port's single-device solve: the
+    distributed cycle is the single-device cycle, so the histories agree
+    to float64 rounding."""
+    mode, dims, cycle, _, _ = CASES[mesh_shape][name]
+    params = _tparams(mode, dims, cycle)
+    state = gt.build_grid(params, device="cpu")
+    if mode == 2:
+        _, want = gt.newton_solve(state, params)
+    else:
+        _, want = gt.solve(state, params)
+    _close(ranks(mesh_shape)[name][0], want, f"{name} vs single device")
