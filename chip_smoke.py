@@ -52,24 +52,37 @@ Phases (any failure exits non-zero before the last line is printed):
      its idle share, and the cost of one op and its grid barrier.
 
 The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
+  1. the dynamic shared memory of each leg launch at 511³ (S = 3);
   2. its four shard-local kernels (ops/spmd_kernels.py), in each mode,
      against their plain versions at the 511³ level-0 block (640³, the
      box 511³) and at small odd blocks whose boxes touch every face (same
      tolerances); then a 127³ field cut into the 4 blocks of a (2,2,1)
      plan, each run with faces carved from its neighbours and put back
-     together, against the single-device kernels on the whole field;
+     together, against the single-device kernels on the whole field.  The
+     trapezoid leg (ops/spmd_leg.py) against leg_block_plain, bit for bit,
+     in every mode and variant (no consumer, norm, restriction with the
+     FAS tau, from v = 0, corr-first) at the 511³ block and at the
+     one-rank blocks of 15³ and (33,17,9) grids, and against 3 launches of
+     sweep_block; then a 127³ field carved into the blocks of (2,1,1) and
+     (2,2,1) plans, each leg with slabs cut from the field, against the
+     same leg on the whole field;
   3. solve_spmd (LINEAR and FAS V(3,3), check_every=10) and
-     newton_solve_spmd at 511³: launch counts equal to the engine's
-     schedule (dist/spmd.launches_per_cycle), the same history on the
-     plain ops on the card and on the single-device batch engine (rel
-     2e-4 while the residual is >= 1e-4·initial);
+     newton_solve_spmd at 511³, on the legs: every level below the
+     junction fused both ways, no per-op down-leg glue, launch counts
+     equal to the engine's schedule (dist/spmd.launches_per_cycle), the
+     same history on the plain ops on the card, the per-op path
+     (local_backend="xla") and the single-device batch engine within rel
+     2e-4 above 1e-2·initial; at V(6,6), past the legs' sweep cap, the
+     per-op kernels with their counts, against the same run on the plain
+     ops within rel 2e-4 above 1e-4·initial and against the v1 engine
+     above 1e-2·initial (FAS 1e-1·initial);
   4. the CLI with --mesh 1,1,1 on the three example configs, and the
      engines and flags not ported (exit 1);
   5. each shard-local kernel's time, bound, plain and library time at the
-     511³ level-0 block; device ms per 511³ spmd cycle beside the batch
-     engine's, a profiler split into the shard-local kernels, the
-     replicated levels' kernels and the torch glue, the idle share and
-     peak memory.
+     511³ level-0 block, and each leg variant's; device ms per 511³ spmd
+     cycle beside the batch engine's, a profiler split into the
+     shard-local kernels, the replicated levels' kernels and the torch
+     glue (launches a cycle), the idle share and peak memory.
 
 The line before the last is the JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -96,6 +109,7 @@ CONFS = {
 SRC = "gpusolve_tpu_torch/ops/csrc/multigrid.cu"
 V1_SRC = "gpusolve_tpu_torch/ops/csrc/vcycle_fused.cu"
 SPMD_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_block.cu"
+LEG_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_leg.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
 V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
@@ -132,6 +146,9 @@ REPLACES = {
     "residual_restrict_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:628",
     "residual_restrict_block_newton": "gpusolve_tpu/ops/pallas_spmd.py:628",
     "prolong_add_block": "gpusolve_tpu/ops/pallas_spmd.py:850",
+    "leg_block": "gpusolve_tpu/ops/pallas_spmd.py:1847",
+    "leg_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:1847",
+    "leg_block_newton": "gpusolve_tpu/ops/pallas_spmd.py:1847",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # Operations counted for one e^x (a range reduction, a polynomial and a
@@ -222,9 +239,9 @@ def print_ptxas(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d+([A-Za-z_]+_kernel)"
-                          r"(?:IL[ib](\d)E(?:L[ib](\d)E)?)?", m.group(1))
-            args = [a for a in (k.groups()[1:] if k else ()) if a]
+            k = re.search(r"\d+([A-Za-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                          m.group(1))
+            args = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
             name = (k.group(1) + (f"<{','.join(args)}>" if args else "")
                     if k else m.group(1))
             continue
@@ -237,6 +254,29 @@ def print_ptxas(log):
         line = spills.get(lin, "")
         check(not re.search(r"[1-9]\d* bytes spill", line),
               f"{lin} spills: {line}")
+
+
+def print_leg_smem(base):
+    """The dynamic shared memory of each leg launch of the 511³ main path
+    (S = 3; ptxas reports only the static part) and how many blocks of it
+    an SM holds (228 KB, 1 KB reserved per block)."""
+    import ctypes
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    plan = SpmdPlan(base.replace(grid_dim=BIG), (1, 1, 1))
+    box = plan.box(0, (0, 0, 0))
+    for mode in Mode:
+        for c, cname in enumerate(("none", "norm", "restrict")):
+            ints = [int(mode), c, 0, 0, 3, 0, 0, *plan.block[0], *box,
+                    0, BIG[0], 0, BIG[1]] + [0] * 11
+            out = (ctypes.c_longlong * 4)()
+            K.lib().mg_leg_grid((ctypes.c_int * len(ints))(*ints), out)
+            print(f"leg smem: leg_kernel<{int(mode)},{c}> {cname} S=3: "
+                  f"{out[3]} bytes, {233472 // (out[3] + 1024)} blocks/SM by "
+                  f"shared memory; grid {out[0]}x{out[1]}x{out[2]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1713,6 +1753,242 @@ def check_ghosts(base, rec):
           f"{rec.same['ghosts']}, restriction {rec.same['ghosts_restrict']}")
 
 
+# ---------------------------------------------------------------------------
+# The trapezoid leg (ops/spmd_leg.py)
+# ---------------------------------------------------------------------------
+
+
+def leg_variants(mode):
+    """(label, kwargs) of every leg variant a mode has: no consumer, the
+    norm and the restriction (FAS: with the tau fold), each from v; from
+    v = 0 (LINEAR and NEWTON) with no consumer and with the restriction;
+    corr-first with no consumer and with the norm."""
+    from gpusolve_tpu_torch.config import Mode
+
+    out = [("none", {}), ("norm", {"consumer": "norm"}),
+           ("restrict", {"consumer": "restrict"})]
+    if mode != Mode.NONLINEAR:
+        out += [("zero", {"src_zero": True}),
+                ("zero+restrict", {"src_zero": True,
+                                   "consumer": "restrict"})]
+    out += [("corr", {"corr": True}),
+            ("corr+norm", {"corr": True, "consumer": "norm"})]
+    return out
+
+
+def leg_call(fn, p, plan, l, x, kw, slabs=None, cslabs=None, box=None,
+             glob=None, cbox=None, S=3):
+    """One leg of ``fn`` (leg_block or its plain version) on the inputs
+    ``x`` (v, f, ũ, coarse v) of level ``l``; returns the output fields
+    and the norm partials."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    v, f, nv, vc = x
+    fas = p.mode == Mode.NONLINEAR
+    out = torch.zeros_like(v)
+    kw = dict(kw)
+    corr = kw.pop("corr", False)
+    extra = {}
+    couts = []
+    if kw.get("consumer") == "restrict":
+        couts = [torch.zeros_like(vc) for _ in range(3 if fas else 1)]
+        extra = dict(
+            cout=tuple(couts) if fas else (couts[0], None, None),
+            cbox=cbox, cdims=plan.dims[l + 1],
+            tau_h=p.level_h(l + 1) if fas else 0.0,
+        )
+    if corr:
+        extra["coarse"] = (vc, cslabs)
+        S = min(S, SL.MAX_CORR_SWEEPS)
+    part = fn(out, v, f, slabs, box, glob, p, p.level_h(l), S,
+              newton_v=nv if p.mode == Mode.NEWTON else None, **kw, **extra)
+    return [out] + couts, part
+
+
+def leg_inputs(block, cblock, box, cbox, seed):
+    """Seeded block fields on the card, zero outside the box (v 0.05,
+    f 100, ũ 0.3), and a coarse v zero outside the coarse box."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    rng = np.random.default_rng(seed)
+
+    def field(shape, b, scale):
+        a = torch.zeros(shape, device=DEVICE)
+        a[SK.box_slices(b)] = torch.from_numpy(
+            rng.standard_normal(SK.box_dims(b), dtype=np.float32)
+            * np.float32(scale)
+        ).to(DEVICE)
+        return a
+
+    return (field(block, box, 0.05), field(block, box, 100.0),
+            field(block, box, 0.3), field(cblock, cbox, 0.05))
+
+
+def check_leg_kernels(base, rec):
+    """leg_block against leg_block_plain on CUDA tensors, every mode and
+    variant, at the (1,1,1)-mesh 511³ level-0 block (640³, the box 511³)
+    and at the one-rank blocks of 15³ and (33, 17, 9) grids; and the leg
+    with no consumer against S launches of sweep_block.  Bit for bit."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    for n, dims in enumerate((BIG, (15, 15, 15), (33, 17, 9))):
+        plan = SpmdPlan(base.replace(grid_dim=dims), (1, 1, 1))
+        box, cbox = plan.box(0, (0, 0, 0)), plan.box(1, (0, 0, 0))
+        glob = (0, dims[0], 0, dims[1])
+        x = leg_inputs(plan.block[0], plan.block[1], box, cbox, 800 + n)
+        tag = f"{'x'.join(map(str, plan.block[0]))} block, box {SK.box_dims(box)}"
+        lines = []
+        for mode in Mode:
+            p = base.replace(mode=mode, grid_dim=dims, print_progress=False)
+            name = K.variant("leg_block", mode)
+            for label, kw in leg_variants(mode):
+                args = (p, plan, 0, x, kw)
+                got, pk = leg_call(SL.leg_block, *args, box=box, glob=glob,
+                                   cbox=cbox)
+                want, pp = leg_call(SL.leg_block_plain, *args, box=box,
+                                    glob=glob, cbox=cbox)
+                lines.append(rec.fields(got, want,
+                                        f"{name} {label} {tag}", name))
+                check(rec.same[name], f"{name} {label} {tag} not bit-identical")
+                if pk is not None:
+                    ss_k, ss_p = x[0].new_empty(1), x[0].new_empty(1)
+                    K.finalize(pk, ss_k)
+                    K.finalize_plain(pp, ss_p)
+                    lines.append(rec.scalar(float(ss_k), float(ss_p),
+                                            f"{name} {label} sum r^2 {tag}",
+                                            name + "_norm"))
+            # The leg with no consumer equals 3 launches of sweep_block.
+            v, f, nv, _ = x
+            nvm = nv if mode == Mode.NEWTON else None
+            a, b = v.clone(), torch.zeros_like(v)
+            zero = [torch.zeros((plan.block[0][1], plan.block[0][2]),
+                                device=DEVICE)] * 2 + \
+                [torch.zeros((plan.block[0][0], plan.block[0][2]),
+                             device=DEVICE)] * 2
+            for _ in range(3):
+                SK.sweep_block(b, a, f, zero, box, p, p.level_h(0), nvm)
+                a, b = b, a
+            got, _ = leg_call(SL.leg_block, p, plan, 0, x, {}, box=box,
+                              glob=glob)
+            same = bool(torch.equal(got[0], a))
+            check(same, f"{name} vs 3 sweep_block launches {tag}")
+            lines.append(f"{name} vs 3 sweep_block launches {tag}: "
+                         f"bit-identical={same}")
+        for line in lines:
+            print(f"check {line}")
+        del x
+        torch.cuda.empty_cache()
+
+
+def check_leg_ghosts(base, rec):
+    """The leg with live neighbours: a 127³ field carved into the blocks
+    of a (2,1,1) plan (x slabs) and of a (2,2,1) plan (y slabs and
+    y-extended x slabs), each block's slabs cut from the field as the
+    exchange would deliver them, and the blocks' outputs put together,
+    against the same leg on the whole field as one block with no slab.
+    Every mode and variant; bit for bit (the norm: the float64 sums of
+    the blocks against the whole, to rel 1e-5 after float32 rounding)."""
+    import itertools
+
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import spmd as tsp
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    dims = (127, 127, 127)
+    for n, mesh in enumerate(((2, 1, 1), (2, 2, 1))):
+        p0 = base.replace(grid_dim=dims, print_progress=False)
+        plan = tsp.SpmdPlan(p0, mesh)
+        ys = mesh[1] > 1
+        whole = tsp.SpmdPlan(p0, (1, 1, 1))
+        (bx, by, bz), (cbx, cby, cbz) = plan.block[0], plan.block[1]
+        # The whole field as one block of the carved plan's allocation.
+        wbox = (1, dims[0], 1, dims[1], 1, dims[2])
+        cd = plan.dims[1]
+        wcbox = (1, cd[0], 1, cd[1], 1, cd[2])
+        gx = leg_inputs(plan.alloc[0], plan.alloc[1], wbox, wcbox, 900 + n)
+        shards = list(itertools.product(range(mesh[0]), range(mesh[1])))
+
+        def slabs_of(g, dx, dy, b, dep):
+            gy = dep if ys else 0
+            x0, y0 = dx * b[0], dy * b[1]
+            xs = (dep, b[1] + 2 * gy, b[2])
+            out = (tsp._window(g, (x0 - dep, y0 - gy, 0), xs),
+                   tsp._window(g, (x0 + b[0], y0 - gy, 0), xs))
+            if not ys:
+                return out + (None, None)
+            yss = (b[0], dep, b[2])
+            return out + (tsp._window(g, (x0, y0 - dep, 0), yss),
+                          tsp._window(g, (x0, y0 + b[1], 0), yss))
+
+        def blk(g, dx, dy, b):
+            return g[dx * b[0]:(dx + 1) * b[0],
+                     dy * b[1]:(dy + 1) * b[1]].contiguous()
+
+        def put(parts, alloc, b):
+            g = torch.zeros(alloc, device=DEVICE)
+            for (dx, dy), t in parts.items():
+                g[dx * b[0]:(dx + 1) * b[0], dy * b[1]:(dy + 1) * b[1]] = t
+            return g
+
+        lines = []
+        for mode in Mode:
+            p = p0.replace(mode=mode)
+            name = K.variant("leg_block", mode)
+            for label, kw in leg_variants(mode):
+                want, pw = leg_call(SL.leg_block, p, whole, 0, gx, kw,
+                                    box=wbox, glob=(0, dims[0], 0, dims[1]),
+                                    cbox=wcbox)
+                outs, ss = {}, 0.0
+                for dx, dy in shards:
+                    x = tuple(blk(g, dx, dy, b) for g, b in
+                              zip(gx, ((bx, by),) * 3 + ((cbx, cby),)))
+                    slabs = {k: slabs_of(g, dx, dy, (bx, by, bz), SL.G)
+                             for k, g in zip(("v", "f", "nv"), gx)}
+                    cslabs = slabs_of(gx[3], dx, dy, (cbx, cby, cbz), SL.GC)
+                    got, part = leg_call(
+                        SL.leg_block, p, plan, 0, x, kw, slabs=slabs,
+                        cslabs=cslabs, box=plan.box(0, (dx, dy, 0)),
+                        glob=(dx * bx, dims[0], dy * by, dims[1]),
+                        cbox=plan.box(1, (dx, dy, 0)),
+                    )
+                    outs[dx, dy] = got
+                    if part is not None:
+                        ss += float(part.sum())
+                got = [put({k: o[i] for k, o in outs.items()},
+                           plan.alloc[0] if i == 0 else plan.alloc[1],
+                           (bx, by) if i == 0 else (cbx, cby))
+                       for i in range(len(want))]
+                tag = f"127^3 carved {mesh} {label}"
+                lines.append(rec.fields(got, want, f"{name} {tag}",
+                                        "leg_ghosts"))
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{name} {tag}: carved != uncarved")
+                if pw is not None:
+                    lines.append(rec.scalar(ss, float(pw.sum()),
+                                            f"{name} {tag} sum r^2",
+                                            "leg_ghosts_norm"))
+        for line in lines:
+            print(f"check ghosts {line}")
+        del gx
+        torch.cuda.empty_cache()
+
+
 @contextlib.contextmanager
 def counting_spmd_inner():
     """Records the inner cycles of each distributed Newton step."""
@@ -1733,7 +2009,7 @@ def counting_spmd_inner():
         tsp.solve_spmd = solve
 
 
-def run_spmd(params, check_every):
+def run_spmd(params, check_every, local_backend="auto"):
     import torch
 
     import gpusolve_tpu_torch as gt
@@ -1742,12 +2018,38 @@ def run_spmd(params, check_every):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if params.mode == gt.Mode.NEWTON:
-        state, hist, plan = gt.newton_solve_spmd(params, mesh)
+        state, hist, plan = gt.newton_solve_spmd(
+            params, mesh, local_backend=local_backend)
     else:
         state, hist, plan = gt.solve_spmd(params, mesh,
+                                          local_backend=local_backend,
                                           check_every=check_every)
     torch.cuda.synchronize()
     return state, hist, plan, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def counting_glue():
+    """Counts the calls of the per-op path's torch glue of a down leg (the
+    y restriction, the lower-x fix-up, the FAS tau), which a leg folds."""
+    from gpusolve_tpu_torch.dist import spmd as tsp
+
+    calls = {"n": 0}
+    saved = {}
+    for name in ("_y_restrict", "_fix_x0", "_fas_tau"):
+        fn = getattr(tsp.SpmdEngine, name)
+        saved[name] = fn
+
+        def counted(*args, fn=fn, **kwargs):
+            calls["n"] += 1
+            return fn(*args, **kwargs)
+
+        setattr(tsp.SpmdEngine, name, counted)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(tsp.SpmdEngine, name, fn)
 
 
 def spmd_expected(plan, hist, inner_cycles):
@@ -1776,30 +2078,62 @@ def spmd_expected(plan, hist, inner_cycles):
     return nonzero(want)
 
 
-def spmd_main_path(params, label, batch_hist, k=10):
+def spmd_main_path(params, label, batch_hist, k=10, legs=True):
     """solve_spmd (Newton: newton_solve_spmd) on make_mesh((1,1,1)): the
-    launch counts, the same run on the plain ops on the card, and the
-    single-device batch engine's history at the same configuration."""
+    launch counts, and the single-device batch engine's history at the
+    same configuration.  With ``legs`` (V(3,3)): every level below the
+    junction runs both legs and no down leg's per-op glue; the same run on
+    the plain ops on the card gives the same history, and the per-op path
+    (local_backend="xla") agrees with it.  Without (V(6,6), past the legs'
+    sweep cap): the per-op kernels and no leg, held against the same run
+    on the plain ops at rel 2e-4 above 1e-4·initial."""
     import torch
 
     from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
 
     K.reset_launches()
-    with counting_spmd_inner() as inner_cycles:
+    with counting_spmd_inner() as inner_cycles, counting_glue() as glue:
         state, hist, plan, secs = run_spmd(params, k)
     counts = nonzero(K.launches)
     steps = len(hist) - 1
-    print(f"spmd path {label}: mesh (1,1,1), {plan.n_dist} distributed "
-          f"levels (level-0 block {plan.block[0]}), {steps} steps in "
-          f"{secs:.3f} s wall, history {hist}")
+    nd = plan.n_dist
+    print(f"spmd path {label}: mesh (1,1,1), {nd} distributed "
+          f"levels (level-0 block {plan.block[0]}), fused-down "
+          f"{plan.fused_down_levels}, fused-up {plan.fused_up_levels}, "
+          f"{steps} steps in {secs:.3f} s wall, history {hist}")
     if inner_cycles:
         print(f"spmd path {label}: inner cycles per step {inner_cycles}")
     print(f"spmd path {label} launches: {counts}")
     want = spmd_expected(plan, hist, inner_cycles)
     check(counts == want,
           f"spmd {label}: launch counts {counts} != schedule {want}")
+    legs_run = sum(n for kname, n in counts.items()
+                   if kname.startswith("leg_block"))
+    if legs:
+        check(plan.fused_down_levels == tuple(range(nd - 1))
+              and plan.fused_up_levels == tuple(range(1, nd)),
+              f"spmd {label}: fused levels {plan.fused_down_levels} / "
+              f"{plan.fused_up_levels}")
+        check(glue["n"] == 0,
+              f"spmd {label}: the per-op down-leg glue ran {glue['n']} times")
+        print(f"spmd path {label}: per-op down-leg glue (y restriction, "
+              f"fix-up, FAS tau) calls: {glue['n']}")
+    else:
+        check(legs_run == 0 and not plan.fused_down_levels,
+              f"spmd {label}: a leg ran past the sweep cap")
+    # The engines restrict in other orders, so the histories part by
+    # rounding, more the nearer the float32 floor: held above 1e-2·initial;
+    # V(6,6) FAS against the v1 engine above 1e-1·initial, since it comes
+    # within 10x of its floor by cycle 2, where the two part by 2.5e-4
+    # (entry 2: 30.804 against 30.812).
     newton = params.mode == Mode.NEWTON
+    fas_v66 = params.mode == Mode.NONLINEAR and not legs
+    worst_b = histories_agree(hist[:len(batch_hist)], batch_hist,
+                              f"spmd {label} vs the batch engine",
+                              floor=1e-1 if fas_v66 else 1e-2)
+    print(f"spmd {label} vs the single-device engine: worst rel diff "
+          f"{worst_b:.3e} (identical: {hist == batch_hist})")
     K.reset_launches()
     plain = params.replace(backend="ref",
                            maxiter=NEWTON_PLAIN_STEPS if newton
@@ -1808,18 +2142,32 @@ def spmd_main_path(params, label, batch_hist, k=10):
     check(all(n == 0 for n in K.launches.values()),
           "the plain spmd path launched a kernel")
     mine = hist[:len(ref_hist)]
-    worst = histories_agree(mine, ref_hist, f"spmd {label} kernels vs plain")
-    # The engines restrict in other orders (x, z, y weighted sums against
-    # 27 taps), so their histories part by ~eps·initial absolutely: held
-    # at rel 2e-4 down to 1e-2·initial, above the float32 floor; a
-    # check_every batch may run past the batch engine's stop.
-    worst_b = histories_agree(hist[:len(batch_hist)], batch_hist,
-                              f"spmd {label} vs the batch engine",
-                              floor=1e-2)
-    print(f"spmd kernels vs plain {label}: worst rel diff {worst:.3e} "
-          f"(plain run {ref_secs:.3f} s, {len(ref_hist) - 1} steps); vs "
-          f"the single-device batch engine {worst_b:.3e} (identical: "
-          f"{hist == batch_hist})")
+    if not legs:
+        # The per-op kernels against the plain ops over the assembled
+        # block, which restrict in the kernels' order.
+        worst_p = histories_agree(mine, ref_hist,
+                                  f"spmd {label} per-op kernels vs plain")
+        print(f"spmd per-op kernels vs plain {label}: worst rel diff "
+              f"{worst_p:.3e} (identical: {mine == ref_hist}; plain run "
+              f"{ref_secs:.3f} s, {len(ref_hist) - 1} steps)")
+    else:
+        check(mine == ref_hist,
+              f"spmd {label}: kernels {mine} != plain ops {ref_hist}")
+        K.reset_launches()
+        _, xla_hist, xplan, xla_secs = run_spmd(
+            plain.replace(backend="auto"), k, local_backend="xla")
+        check(all(n == 0 for n in K.launches.values())
+              and not xplan.fused_down_levels,
+              'local_backend="xla" launched a kernel or a leg')
+        # The per-op path restricts in another order (x, z, then y), so
+        # the histories part by rounding: held as the batch engine's.
+        worst_x = histories_agree(mine, xla_hist,
+                                  f"spmd {label} legs vs the per-op path",
+                                  floor=1e-2)
+        print(f"spmd kernels vs plain {label}: identical (plain run "
+              f"{ref_secs:.3f} s, {len(ref_hist) - 1} steps); vs the "
+              f"per-op path on plain ops (local_backend=\"xla\", "
+              f"{xla_secs:.3f} s) worst rel diff {worst_x:.3e}")
     del state
     torch.cuda.empty_cache()
     return counts
@@ -1848,10 +2196,13 @@ def spmd_cli():
             err_v = float(m[0].split(": ")[1])
             check(math.isfinite(err_v) and err_v < 5e-4,
                   f"cli --mesh: max-abs error {err_v}")
-        check(K.launches[K.variant("sweep_block", {"linear": 0,
-                                                   "nonlinear": 1,
-                                                   "newton": 2}[label])],
-              "cli --mesh ran no shard-local kernel")
+        check("backend: level 0: CUDA shard-local kernels (ops/spmd_leg, "
+              "ops/spmd_kernels) (fused-down, fused-up)" in err,
+              "cli --mesh: the fused tags of level 0")
+        check(K.launches[K.variant("leg_block", {"linear": 0,
+                                                 "nonlinear": 1,
+                                                 "newton": 2}[label])],
+              "cli --mesh ran no leg")
         print(f"cli --mesh 1,1,1 {label}: launches {nonzero(K.launches)}")
     for extra in (["--fuse", "pod"], ["--halo", "rdma"],
                   ["--dist-engine", "gspmd"]):
@@ -1962,10 +2313,88 @@ def time_block_kernels(base, rate, rows):
     time_cases(cases, rate, rows)
 
 
+def leg_bytes(mode, kw, box, cbox, S):
+    """Bytes one leg must move over ``box``, each input read once and each
+    output written once: v (unless it starts from 0), f and ũ over the
+    box, v written; the coarse v over the coarse cells the box reads
+    (corr-first); the coarse f (FAS also v and rest_v) over the coarse box
+    (restrict).  And its operations: per sweep the stencil's taps, the
+    update and the mode's term per point; the residual and the weighted
+    sums of the restriction (restrict), the residual (norm), the
+    prolongation's midpoints (corr-first)."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    n = inner(SK.box_dims(box))
+    cn = inner(SK.box_dims(cbox))
+    fields = (0 if kw.get("src_zero") else 1) + 1 + (mode == Mode.NEWTON)
+    b = 4 * (fields + 1) * n
+    if kw.get("corr"):
+        b += 4 * n // 8
+    taps = 2 * 7
+    extra = {Mode.LINEAR: 0, Mode.NONLINEAR: 4 + EXP_OPS,
+             Mode.NEWTON: 5 + EXP_OPS}[mode]
+    ops = S * (taps + 4 + extra) * n
+    consumer = kw.get("consumer")
+    if consumer == "restrict":
+        b += 4 * (3 if mode == Mode.NONLINEAR else 1) * cn
+        ops += (taps + 1 + extra) * n + 6 * n
+        if mode == Mode.NONLINEAR:
+            ops += 6 * n + (taps + 4 + EXP_OPS) * cn
+    elif consumer == "norm":
+        ops += (taps + 3 + extra) * n
+    if kw.get("corr"):
+        ops += 11.5 * n
+    return b, ops
+
+
+def time_leg_kernels(base, rate, rows):
+    """Each leg variant at the (1,1,1)-mesh 511³ level-0 block (S = 3, as
+    V(3,3) runs it; the corr-first leg too): its ms, bytes and bound, and
+    its plain version's ms.  No single PyTorch call computes S sweeps and
+    a restriction, so library_ms is null.  A mode's row in the kernels
+    line is its level-0 down leg (the restriction), the largest."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    plan = SpmdPlan(base.replace(grid_dim=BIG), (1, 1, 1))
+    box, cbox = plan.box(0, (0, 0, 0)), plan.box(1, (0, 0, 0))
+    glob = (0, BIG[0], 0, BIG[1])
+    x = leg_inputs(plan.block[0], plan.block[1], box, cbox, 1000)
+    S = 3
+    for mode in Mode:
+        p = base.replace(mode=mode, print_progress=False)
+        name = K.variant("leg_block", mode)
+        for label, kw in leg_variants(mode):
+            args = (p, plan, 0, x, kw)
+            opts = dict(box=box, glob=glob, cbox=cbox, S=S)
+            ms = cuda_ms(lambda: leg_call(SL.leg_block, *args, **opts), 5)
+            plain = cuda_ms(lambda: leg_call(SL.leg_block_plain, *args,
+                                             **opts), 1)
+            nbytes, ops = leg_bytes(mode, kw, box, cbox, S)
+            by_bytes, by_ops = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
+            bound = max(by_bytes, by_ops)
+            bound_by = "bytes" if by_bytes >= by_ops else "operations"
+            print(f"time {name} {label} (511^3 box of a 640^3 block, S={S}"
+                  f"): {ms:.3f} ms, {nbytes / 1e9:.3f} GB, bound "
+                  f"{bound:.3f} ms by {bound_by} ({100 * bound / ms:.1f}% "
+                  f"of it), plain {plain:.3f} ms, library —")
+            if label == "restrict":
+                rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                              "bound_by": bound_by, "library_ms": None}
+    del x
+    torch.cuda.empty_cache()
+
+
 def glue_class(key):
     """The part of the distributed cycle a profiler row belongs to."""
     if re.search(r"sweep_block_kernel|residual_block_kernel|"
-                 r"residual_restrict_kernel|prolong_add_block_kernel", key):
+                 r"residual_restrict_kernel|prolong_add_block_kernel|"
+                 r"leg_kernel", key):
         return "shard-local kernels"
     if re.search(r"jacobi_kernel|residual_kernel|restrict_kernel|"
                  r"prolong_add_kernel|apply_fas_kernel|subtract_kernel|"
@@ -2018,10 +2447,14 @@ def time_spmd_cycles(params, label, batch_ms, rate):
         torch.cuda.synchronize()
         wall_p = (time.perf_counter() - t0) * 1e3
     busy, any_rows = profile_rows(prof, k, "spmd-cycle")
-    parts = {}
+    parts, glue_n = {}, 0
     for ev, us in device_events(prof):
         c = glue_class(ev.key)
         parts[c] = parts.get(c, 0.0) + us / 1e3 / k
+        if c == "torch glue":
+            glue_n += ev.count
+    print(f"profile spmd {label}: {glue_n / k:.1f} torch glue launches a "
+          f"cycle")
     if any_rows:
         split = "; ".join(f"{c} {ms:.3f} ms ({100 * ms * k / busy:.1f}%)"
                           for c, ms in sorted(parts.items()))
@@ -2071,11 +2504,14 @@ def main() -> int:
     rate = mem_rate(name)
 
     base = gt.parse_config(CONFS["linear"])
+    print_leg_smem(base)
     rec = Record()
     check_kernels(base, rec)
     check_vcycle_fused(base, rec)
     check_block_kernels(base, rec)
     check_ghosts(base, rec)
+    check_leg_kernels(base, rec)
+    check_leg_ghosts(base, rec)
 
     # Phase 3: each main path with its own counts.
     launched = {kname: 0 for kname in K.KERNELS}
@@ -2092,22 +2528,31 @@ def main() -> int:
             other_cycles(gt.parse_config(CONFS[label]), label)
     # V(6,6): past the batch engine's sweep cap, solve (and newton_solve's
     # inner solve) runs the v1 kernel.
+    hist66 = {}
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG,
                                  pre_smoothing=6, post_smoothing=6)
         check(tvc.engine(params, DEVICE) == "v1",
               f"V(6,6) {label} does not run the v1 engine")
         plain_maxiter = NEWTON_PLAIN_STEPS if label == "newton" else None
-        _, counts, _ = main_path(params, f"511^3 V(6,6) {label}",
-                              plain_maxiter=plain_maxiter, identical=True,
-                              floor=1e-2)
+        _, counts, hist66[label] = main_path(
+            params, f"511^3 V(6,6) {label}", plain_maxiter=plain_maxiter,
+            identical=True, floor=1e-2)
         for kname, n in counts.items():
             launched[kname] += n
         torch.cuda.empty_cache()
-    # The distributed engine on the one-rank mesh, each mode.
+    # The distributed engine on the one-rank mesh, each mode: V(3,3) on
+    # the legs; V(6,6), past their sweep cap, on the per-op kernels.
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG)
         counts = spmd_main_path(params, f"511^3 {label}", batch_hist[label])
+        for kname, n in counts.items():
+            launched[kname] += n
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG,
+                                 pre_smoothing=6, post_smoothing=6)
+        counts = spmd_main_path(params, f"511^3 V(6,6) {label}",
+                                hist66[label], legs=False)
         for kname, n in counts.items():
             launched[kname] += n
     missing = [kname for kname, n in launched.items() if n == 0]
@@ -2141,6 +2586,7 @@ def main() -> int:
     time_newton_steps(newt)
     time_v1(base, rate, rows)
     time_block_kernels(base, rate, rows)
+    time_leg_kernels(base, rate, rows)
     time_spmd_cycles(lin, "511^3 LINEAR V(3,3)", lin_ms, rate)
     time_spmd_cycles(fas, "511^3 FAS V(3,3)", fas_ms, rate)
 
@@ -2150,6 +2596,7 @@ def main() -> int:
         kernels_line.append({
             "name": kname, "route": "cuda",
             "source": (V1_SRC if kname == "vcycle_fused" else
+                       LEG_SRC if kname.startswith("leg_block") else
                        SPMD_SRC if "_block" in kname else SRC),
             "replaces": REPLACES[kname], "launches": launched[kname],
             "max_abs_err": rec.errs[kname], "ms": row["ms"],

@@ -239,13 +239,17 @@ def _spmd_notes(params, eng, args, _explain) -> None:
             "note: shard-local compute runs the plain ops: dtype float64 "
             "(the CUDA kernels are float32)", file=sys.stderr,
         )
+    if not eng.face_taps:
+        print("note: the stencil has edge or corner taps: the distributed "
+              "levels run the plain ops over the assembled block, as the "
+              "JAX engine's assembled-halo path", file=sys.stderr)
     nd = plan.n_dist
     fold = (
         f" (z mesh axis folded into y: data mesh {plan.mesh_shape})"
         if plan.device_mesh != plan.mesh_shape else ""
     )
     kind = (
-        "CUDA shard-local kernels (ops/spmd_kernels)"
+        "CUDA shard-local kernels (ops/spmd_leg, ops/spmd_kernels)"
         if eng.plain_reason is None
         else f"plain shard-local ops ({eng.plain_reason})"
     )
@@ -253,7 +257,23 @@ def _spmd_notes(params, eng, args, _explain) -> None:
         f"dist-engine=spmd fuse={args.fuse} halo={args.halo} "
         f"({nd} distributed levels, {plan.nlev - nd} replicated){fold}",
     ]
-    lines += [f"level {l}: {kind}" for l in range(nd)]
+    pre, post = params.pre_smoothing, params.post_smoothing
+    for l in range(nd):
+        # The per-level tags of the JAX CLI (gpusolve_tpu/cli.py:193-205),
+        # and the gate that refused a leg.
+        tags, refused = [], []
+        for tag, why in (
+            ("fused-down", plan.down_refusal(l, pre)),
+            ("fused-up", plan.up_refusal(l + 1, post)),
+        ):
+            if why is None:
+                tags.append(tag)
+            else:
+                refused.append(f"{tag} refused: {why}")
+        lines.append(
+            f"level {l}: {kind}" + (f" ({', '.join(tags)})" if tags else "")
+            + (f"; {'; '.join(refused)}" if refused else "")
+        )
     lines.append(
         f"levels {nd}..{plan.nlev - 1}: replicated on every rank, the "
         "single-device per-op ops (ops/dispatch)"

@@ -2,45 +2,55 @@
 ``torch.distributed``.
 
 The counterpart of ``gpusolve_tpu/dist/spmd.py`` with ``fuse="leg"``,
-``halo="ppermute"``, no replicated tail, and the per-op shard-local path
-(the JAX package's path wherever its trapezoid gate ``_trap_ok`` refuses a
-leg).  Each process owns one block of every distributed level; its
-neighbours' face planes arrive through ``dist.batch_isend_irecv``, norms
-sum with ``all_reduce``, and the coarse levels below the distribution
-cutoff are gathered into a replicated layout (``all_gather``) that every
-rank smooths redundantly.  All three modes run: LINEAR, NONLINEAR (FAS
-tau correction, the up-leg ``v − restV``) and NEWTON (the frozen ũ per
-level; the outer loop ``newton_solve_spmd``).
+``halo="ppermute"`` and no replicated tail.  Each process owns one block of
+every distributed level; its neighbours' ghost faces and slabs arrive
+through ``dist.batch_isend_irecv``, norms sum with ``all_reduce``, and the
+coarse levels below the distribution cutoff are gathered into a replicated
+layout (``all_gather``) that every rank smooths redundantly.  All three
+modes run: LINEAR, NONLINEAR (FAS tau correction, the up-leg ``v −
+restV``) and NEWTON (the frozen ũ per level; the outer loop
+``newton_solve_spmd``).
 
 Layout (``SpmdPlan``):
   * the z mesh axis folds into the y data decomposition, so the data mesh
     is ``(mx, my·mz, 1)``: z is never split;
   * distributed levels (``l < n_dist``) use the mesh-aware halving
     allocation ``alloc``, so a fine block is twice a coarse one and the
-    transfers stay shard-local with a one-cell ghost; a block holds no
-    halo, and its globally interior cells form the ``box`` every kernel
-    writes (cells outside it stay zero);
+    transfers stay shard-local; a block holds no halo, and its globally
+    interior cells form the ``box`` every kernel writes (cells outside it
+    stay zero);
   * replicated levels use the port's dense ``(n+2)³`` layout and run the
     single-device ops of ``ops/dispatch``: per-op kernels on the card, the
     plain ops elsewhere.
 
-The distributed levels run the four shard-local kernels of
-``ops/spmd_kernels.py`` (sweep, residual and its norm, the fused residual
-and x/z restriction, the prolongation from a ghost-extended coarse block)
-on float32 CUDA tensors, and their plain versions on CPU tensors, in
-float64 or under ``backend="ref"`` (``ops/dispatch.plain_reason``).  The
-glue between them is plain torch, as the JAX engine's is XLA: the
-exchanges, the y restriction and the lower-x fix-up of the fused
-restriction, the interior masks, the FAS tau, the gathers into the
-replicated levels, and Newton's restriction of ũ.
+A distributed leg runs the trapezoid leg (``ops/spmd_leg.py``: all its
+sweeps in one launch over ghost slabs exchanged once per leg) wherever the
+plan's leg gates allow, as the JAX engine runs ``_trap_smooth``: the down
+leg with the residual, its x/y/z restriction, the coarse mask and the FAS
+tau in the kernel (``plan.fused_down_levels``), the up leg with the
+prolongation first (``plan.fused_up_levels``), the finest up leg with the
+cycle's norm.  Where a gate refuses, the leg runs per op.  On float32
+CUDA tensors those ops are the four shard-local kernels of
+``ops/spmd_kernels.py`` (sweep, residual and its norm, the residual with
+its x/z restriction, the prolongation), with the glue between them plain
+torch, as the JAX engine's is XLA: the y restriction and the lower-x
+fix-up, the interior masks, the FAS tau.  Everywhere else (CPU tensors,
+float64, ``backend="ref"``, ``local_backend="xla"``: the
+``ops/dispatch.plain_reason`` policy) they are the plain ops over the
+assembled block, its halo exchanged axis by axis so the edge and corner
+ghosts arrive, as the JAX engine's ``_stencil_assembled`` path; on one
+rank they round as the kernels do.  A stencil with edge or corner taps
+always runs them, and neither kernels nor legs.  The gathers into the
+replicated levels and Newton's restriction of ũ are glue everywhere.
 
 On a ``(1, 1, 1)`` mesh no collective is called; a missing neighbour's
-face is zeros, the Dirichlet boundary, as ``lax.ppermute`` leaves it.
+ghosts are zeros, the Dirichlet boundary, as ``lax.ppermute`` leaves them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import List, Optional, Tuple
 
@@ -53,9 +63,9 @@ from gpusolve_tpu_torch.dist.mesh import Mesh, coords_of
 from gpusolve_tpu_torch.grid import GridLevel, GridState, rhs_values, \
     torch_dtype
 from gpusolve_tpu_torch.ops import dispatch as ops
-from gpusolve_tpu_torch.ops import kernels
+from gpusolve_tpu_torch.ops import kernels, ref
 from gpusolve_tpu_torch.ops import spmd_kernels as sk
-from gpusolve_tpu_torch.ops.vcycle_batch import level_visits
+from gpusolve_tpu_torch.ops import spmd_leg as sl
 from gpusolve_tpu_torch.utils.timer import Timer
 
 _SUBCYCLES = {"V": ("V",), "W": ("W", "W"), "F": ("F", "V")}
@@ -74,8 +84,10 @@ class SpmdPlan:
     decomposition ``(mx, my·mz, 1)`` (the z mesh axis folds into y);
     ``names`` the mesh axes each data axis runs over."""
 
-    def __init__(self, params: GridParams, mesh_shape, cutoff: int = 4):
+    def __init__(self, params: GridParams, mesh_shape, cutoff: int = 4,
+                 local_backend: str = "auto"):
         self.params = params
+        self.local_backend = local_backend
         self.device_mesh = tuple(mesh_shape)
         mesh_shape = (mesh_shape[0], mesh_shape[1] * mesh_shape[2], 1)
         self.names = (
@@ -123,9 +135,107 @@ class SpmdPlan:
         ]
         self.dims = dims
         self.nlev = nlev
-        # The trapezoid legs are not ported: no level runs them.
-        self.fused_down_levels: Tuple[int, ...] = ()
-        self.fused_up_levels: Tuple[int, ...] = ()
+        # Which levels run the single-pass legs (``_trap_rr_ok`` /
+        # ``_trap_corr_ok``, gpusolve_tpu/dist/spmd.py:995-1004).
+        self.fused_down_levels: Tuple[int, ...] = tuple(
+            l for l in range(self.n_dist)
+            if self.down_refusal(l, params.pre_smoothing) is None
+        )
+        self.fused_up_levels: Tuple[int, ...] = tuple(
+            lc for lc in range(1, self.n_dist)
+            if self.up_refusal(lc, params.post_smoothing) is None
+        )
+
+    # The leg gates (``_trap_ok`` and its consumers' gates,
+    # gpusolve_tpu/dist/spmd.py:816-991) in the port's layout: the
+    # algorithm's conditions, without the TPU's tiling ones.  Each gives
+    # the reason a leg cannot run, or None.
+
+    def leg_refusal(self, l: int, S: int) -> Optional[str]:
+        """Why distributed level ``l`` cannot run its ``S`` sweeps as one
+        leg (``_trap_ok``)."""
+        if self.local_backend == "xla":
+            return 'local_backend="xla" runs the per-op path'
+        if not _face_taps_only(self.params.stencil):
+            return "the stencil has edge or corner taps"
+        if l >= self.n_dist:
+            return "a replicated level"
+        if not 1 <= S <= sl.MAX_SWEEPS:
+            return f"{S} sweeps (a leg takes 1..{sl.MAX_SWEEPS})"
+        for ax, name in ((0, "x"), (1, "y")):
+            if self.mesh_shape[ax] > 1 and self.block[l][ax] < sl.G:
+                return (f"block {self.block[l]} is shorter than the "
+                        f"{sl.G}-deep slab along {name}")
+        return None
+
+    def down_refusal(self, l: int, S: int) -> Optional[str]:
+        """Why level ``l``'s down leg cannot run as one leg with the
+        restriction (``_trap_rr_ok``); the junction needs the replicated
+        tail (ROADMAP Queue 1 item 3(c))."""
+        if l + 1 >= self.n_dist:
+            return "the junction (its leg needs the replicated tail)"
+        return self.leg_refusal(l, S)
+
+    def up_refusal(self, lc: int, S: int) -> Optional[str]:
+        """Why the up leg into level ``lc − 1`` cannot run as one leg with
+        the prolongation first (``_trap_corr_ok``)."""
+        if lc >= self.n_dist:
+            return "the junction (its leg needs the replicated tail)"
+        why = self.leg_refusal(lc - 1, S)
+        if why is not None:
+            return why
+        if S > sl.MAX_CORR_SWEEPS:
+            return f"{S} sweeps (the corr-first leg takes 1..4)"
+        for ax, name in ((0, "x"), (1, "y")):
+            if self.mesh_shape[ax] > 1 and self.block[lc][ax] < sl.GC:
+                return (f"coarse block {self.block[lc]} is shorter than the "
+                        f"{sl.GC}-deep slab along {name}")
+        return None
+
+    # The cycle's schedule, which the engine runs and launches_per_cycle
+    # counts.
+
+    def visits(self, kind: str, i: int = 0, fresh: bool = False):
+        """The ``kind`` cycle from level ``i``, visit by visit:
+        ``("down", l, fresh)``, ``("coarsest", l, fresh)`` and ``("up",
+        lc, False)``; ``fresh`` marks a first visit after the parent's
+        restriction (v is the zero it wrote)."""
+        if i == self.nlev - 1:
+            yield "coarsest", i, fresh
+            return
+        yield "down", i, fresh
+        for j, sub in enumerate(_SUBCYCLES[kind]):
+            yield from self.visits(sub, i + 1, j == 0)
+        yield "up", i + 1, False
+
+    def down_form(self, l: int) -> str:
+        """How level ``l``'s down leg runs: "leg" (one leg with the
+        restriction), "ops" (its smoothing, then the residual with the
+        restriction), "junction" (the same into the replicated level) or
+        "replicated"."""
+        if l >= self.n_dist:
+            return "replicated"
+        if l in self.fused_down_levels:
+            return "leg"
+        return "junction" if l + 1 == self.n_dist else "ops"
+
+    def up_form(self, lc: int) -> str:
+        """How the up leg into level ``lc − 1`` runs: "leg" (one leg with
+        the prolongation first), "ops" (the prolongation, then its
+        smoothing) or "replicated"."""
+        if lc > self.n_dist:
+            return "replicated"
+        return "leg" if lc in self.fused_up_levels else "ops"
+
+    def smooth_leg(self, l: int, S: int) -> bool:
+        """Whether level ``l`` runs ``S`` sweeps as one leg, else one op a
+        sweep."""
+        return self.leg_refusal(l, S) is None
+
+    def norm_in_leg(self) -> bool:
+        """Whether the finest up leg gives the cycle's Σr² (else a norm
+        pass follows the cycle)."""
+        return self.smooth_leg(0, self.params.post_smoothing)
 
     def data_coords(self, coords) -> Tuple[int, int]:
         """The (x, y) block coordinates of mesh coordinates ``coords``."""
@@ -153,6 +263,9 @@ def spmd_eligible(params: GridParams, mesh_shape) -> Optional[str]:
     if any(dims[0][a] < folded[a] for a in range(3)):
         return f"grid {dims[0]} too small for mesh {tuple(mesh_shape)}"
     return None
+
+
+LOCAL_BACKENDS = ("auto", "pallas", "xla")
 
 
 def _face_taps_only(stencil) -> bool:
@@ -246,6 +359,25 @@ class _Exchange:
             u = torch.cat([lo, u, hi], dim=ax)
         return u
 
+    def slabs(self, u: torch.Tensor, g: int):
+        """A leg's ghost slabs of block ``u``, ``g`` deep: ``(xlo, xhi,
+        ylo, yhi)`` (``_slabs_multi``, gpusolve_tpu/dist/spmd.py:870-908);
+        None on a one-rank mesh, whose ghosts are all zero.  Under a y
+        split the exchange is two-stage: the y slabs first, then the x
+        slabs of the y-extended block, so the diagonal neighbours' corner
+        rows arrive; else ``ylo`` and ``yhi`` are None."""
+        if self.mesh.size == 1:
+            return None
+        if self.plan.mesh_shape[1] == 1:
+            xlo, xhi = self.swap(0, u[-g:], u[:g])
+            return xlo, xhi, None, None
+        ylo, yhi = self.swap(1, u[:, -g:], u[:, :g])
+        xlo, xhi = self.swap(
+            0, torch.cat([ylo[-g:], u[-g:], yhi[-g:]], dim=1),
+            torch.cat([ylo[:g], u[:g], yhi[:g]], dim=1),
+        )
+        return xlo, xhi, ylo, yhi
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         if self.mesh.size > 1:
             dist.all_reduce(t, group=self.mesh.group)
@@ -292,9 +424,11 @@ def _restrict_axis(a: torch.Tensor, ax: int, n: int) -> torch.Tensor:
 def _restrict_local(asm: torch.Tensor, cblock) -> torch.Tensor:
     """27-point full weighting of a ghost-extended fine block: coarse local
     j reads assembled fine 2j+d+1, d ∈ {−1, 0, 1}, weights ¼ ½ ¼ per axis
-    (``gpusolve_tpu/dist/spmd.py:378``)."""
+    (``gpusolve_tpu/dist/spmd.py:378``); along x, z, then y, the order of
+    the fused residual-restriction kernel and its y glue, so on one rank
+    the two round alike."""
     out = asm
-    for ax in range(3):
+    for ax in (0, 2, 1):
         out = _restrict_axis(out, ax, cblock[ax])
     return out
 
@@ -356,44 +490,58 @@ class SpmdEngine:
     rank's blocks and whose replicated levels hold the whole coarse grids
     (``gpusolve_tpu/dist/spmd.py:577-1650``, ``local_vcycle``)."""
 
-    def __init__(self, params: GridParams, mesh: Mesh, cutoff: int = 4):
-        if not _face_taps_only(params.stencil):
-            raise ValueError(
-                "the spmd engine takes stencils whose taps lie on the faces; "
-                "corner and edge taps are not ported (the face exchange "
-                "carries face neighbours only)"
-            )
+    def __init__(self, params: GridParams, mesh: Mesh, cutoff: int = 4,
+                 local_backend: str = "auto"):
         self.key = _cycle_key(params)
-        self.params = params
+        self.local_backend = local_backend
         self.mesh = mesh
         self.cutoff = cutoff
-        self.plan = SpmdPlan(params, mesh.shape, cutoff)
+        self.plan = SpmdPlan(params, mesh.shape, cutoff, local_backend)
         self.dtype = torch_dtype(params.dtype)
         self.device = mesh.device
         self.ex = _Exchange(mesh, self.plan)
-        # Why the distributed levels run the plain versions, or None
-        # (the kernels).
-        self.plain_reason = ops.plain_reason(
-            params, self.device, self.dtype
-        )
+        self.face_taps = _face_taps_only(params.stencil)
+        # Why the distributed levels run the plain versions, or None (the
+        # kernels).  "xla" runs every op plain, the replicated levels too.
+        self.plain_reason = ops.plain_reason(params, self.device, self.dtype)
+        if local_backend == "xla":
+            params = params.replace(backend="ref")
+            self.plain_reason = 'local_backend="xla"'
+        elif not self.face_taps and self.plain_reason is None:
+            self.plain_reason = (
+                "the stencil has edge or corner taps: plain ops over the "
+                "assembled block"
+            )
+        self.params = params
         p = self.plan
         self.nd, self.nlev = p.n_dist, p.nlev
         self.hs = [params.level_h(l) for l in range(self.nlev)]
         self.boxes = [p.box(l, mesh.coords) for l in range(self.nd)]
+        dx, dy = self.ex.dc
+        self.globs = [
+            (dx * p.block[l][0], p.dims[l][0], dy * p.block[l][1],
+             p.dims[l][1])
+            for l in range(self.nd)
+        ]
         self.fas = params.mode == Mode.NONLINEAR
         self.newton = params.mode == Mode.NEWTON
-        # The fused restriction's outputs: zeroed once, each launch writes
-        # the same cells.
-        self._xz = []
-        for l in range(self.nd - 1):
-            bx, by, _ = p.block[l]
-            cbz = p.block[l + 1][2]
-            z = lambda *s: torch.zeros(s, dtype=self.dtype,
-                                       device=self.device)
-            self._xz.append((
-                z(bx // 2, by, cbz), z(by, cbz),
-                z(bx // 2, by, cbz) if self.fas else None,
-            ))
+        self._xz = {}
+
+    def _xz_buffers(self, l: int):
+        """The per-op fused restriction's outputs on level ``l``, made on
+        first use (a level whose down leg runs fused never needs them):
+        zeroed once, each launch writes the same cells."""
+        if l not in self._xz:
+            bx, by, _ = self.plan.block[l]
+            cbz = self.plan.block[l + 1][2]
+
+            def z(*shape):
+                return torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device)
+
+            self._xz[l] = (z(bx // 2, by, cbz), z(by, cbz),
+                           z(bx // 2, by, cbz) if self.fas else None)
+        return self._xz[l]
 
     # -- op choice ---------------------------------------------------------
 
@@ -431,26 +579,82 @@ class SpmdEngine:
     def _mask(self, l: int, x: torch.Tensor) -> torch.Tensor:
         """x with the cells outside level ``l``'s box zeroed."""
         out = torch.zeros_like(x)
-        sl = sk.box_slices(self.boxes[l])
-        out[sl] = x[sl]
+        sl_ = sk.box_slices(self.boxes[l])
+        out[sl_] = x[sl_]
         return out
 
-    def _smooth(self, l: int, lvl: GridLevel, n_iter: int) -> None:
-        sweep = self._op(sk.sweep_block, sk.sweep_block_plain)
+    def _av_assembled(self, l: int, v: torch.Tensor, h: float):
+        """``A·v/h²`` over level ``l``'s box from the assembled block (its
+        halo exchanged axis by axis, so edge and corner ghosts arrive):
+        the JAX engine's ``_stencil_assembled`` (:346).  None for an empty
+        box, after the exchange, which every rank joins."""
+        asm = self.ex.halo(v)
+        box = self.boxes[l]
+        if sk.box_empty(box):
+            return None
+        x0, x1, y0, y1, z0, z1 = box
+        return ref.stencil_apply(asm[x0:x1 + 3, y0:y1 + 3, z0:z1 + 3],
+                                 sk.box_dims(box), self.params.stencil,
+                                 1.0 / (h * h))
+
+    def _nv_box(self, l: int, newton_v):
+        if newton_v is None or not self.newton:
+            return None
+        return newton_v[sk.box_slices(self.boxes[l])]
+
+    def _sweeps(self, l: int, lvl: GridLevel, n_iter: int) -> None:
+        """``n_iter`` sweeps, one op each: the kernel on the ghost faces,
+        or the plain op over the assembled block."""
+        box, h = self.boxes[l], self.hs[l]
         for _ in range(n_iter):
-            sweep(lvl.r, lvl.v, lvl.f, self.ex.faces(lvl.v), self.boxes[l],
-                  self.params, self.hs[l], lvl.newton_v)
+            if self.plain_reason is None:
+                sk.sweep_block(lvl.r, lvl.v, lvl.f, self.ex.faces(lvl.v), box,
+                               self.params, h, lvl.newton_v)
+            else:
+                av = self._av_assembled(l, lvl.v, h)
+                if av is not None:
+                    s = sk.box_slices(box)
+                    lvl.r[s] = ref.sweep_point(
+                        self.params, h, av, lvl.v[s], lvl.f[s],
+                        self._nv_box(l, lvl.newton_v),
+                    )
             lvl.v, lvl.r = lvl.r, lvl.v
+
+    def _residual(self, l: int, r_out, v, f, newton_v=None, *,
+                  params: Optional[GridParams] = None, write_r=True,
+                  with_norm=False):
+        """The residual of level ``l``'s block (``params`` default the
+        engine's; Newton's comp_f passes FAS ones), its norm partials when
+        ``with_norm``: the kernel on the ghost faces, or the plain op over
+        the assembled block (one float64 Σr²)."""
+        prm = params or self.params
+        box, h = self.boxes[l], self.hs[l]
+        if self.plain_reason is None:
+            return sk.residual_block(
+                r_out, v, f, self.ex.faces(v), box, prm, h, write_r=write_r,
+                with_norm=with_norm, newton_v=newton_v,
+            )
+        av = self._av_assembled(l, v, h)
+        if av is None:
+            return v.new_zeros(1, dtype=torch.float64) if with_norm else None
+        s = sk.box_slices(box)
+        nv = newton_v[s] if prm.mode == Mode.NEWTON else None
+        r = ref.residual_point(prm, av, v[s], f[s], nv)
+        if write_r:
+            r_out[s] = r
+        if not with_norm:
+            return None
+        r64 = r.to(torch.float64)
+        return torch.sum(r64 * r64).reshape(1)
 
     def _fas_tau(self, l: int, f: torch.Tensor, rv: torch.Tensor) -> None:
         """``f += A·rv/h² + γ·rv·e^{rv}`` over level ``l``'s box: the FAS
         tau correction f_c = R(r) + A_c(R v) (``_finish_restrict``)."""
-        box = self.boxes[l]
-        sl = sk.box_slices(box)
-        av = sk.block_stencil(rv, self.ex.faces(rv), box, self.params,
-                              self.hs[l])
-        rb = rv[sl]
-        f[sl] += av + self.params.gamma * rb * torch.exp(rb)
+        av = self._av_assembled(l, rv, self.hs[l])
+        if av is not None:
+            s = sk.box_slices(self.boxes[l])
+            rb = rv[s]
+            f[s] += av + self.params.gamma * rb * torch.exp(rb)
 
     def _y_restrict(self, x2: torch.Tensor, lc: int) -> torch.Tensor:
         """y full weighting of an x/z-restricted block into coarse level
@@ -477,8 +681,8 @@ class SpmdEngine:
         g = self.ex.assemble(part)
         n = self.plan.dims[nd]
         out = g.new_zeros(self.plan.alloc[nd])
-        sl = tuple(slice(1, d + 1) for d in n)
-        out[sl] = g[sl]
+        s = tuple(slice(1, d + 1) for d in n)
+        out[s] = g[s]
         return out
 
     def _coarse_window(self, vc: torch.Tensor, lf: int) -> torch.Tensor:
@@ -492,47 +696,114 @@ class SpmdEngine:
 
     # -- legs -----------------------------------------------------------------
 
-    def _down_dist(self, l: int, levels) -> None:
+    def _leg(self, l: int, lvl: GridLevel, S: int, *, src_zero=False,
+             coarse=None, **kw):
+        """One trapezoid leg of ``S`` sweeps on level ``l``'s block into
+        its spare buffer, the ghost slabs exchanged once; returns the
+        consumer's norm partials or None."""
+        slabs = None
+        if self.mesh.size > 1:
+            slabs = {"f": self.ex.slabs(lvl.f, sl.G)}
+            if not src_zero:
+                slabs["v"] = self.ex.slabs(lvl.v, sl.G)
+            if self.newton:
+                slabs["nv"] = self.ex.slabs(lvl.newton_v, sl.G)
+        if coarse is not None:
+            coarse = (coarse, self.ex.slabs(coarse, sl.GC))
+        out = self._op(sl.leg_block, sl.leg_block_plain)(
+            lvl.r, lvl.v, lvl.f, slabs, self.boxes[l], self.globs[l],
+            self.params, self.hs[l], S, newton_v=lvl.newton_v,
+            src_zero=src_zero, coarse=coarse, **kw,
+        )
+        lvl.v, lvl.r = lvl.r, lvl.v
+        return out
+
+    def _smooth(self, l: int, lvl: GridLevel, n_iter: int, norm=None):
+        """Damped Jacobi on a distributed level: one leg where the gate
+        allows (the JAX engine's ``_smooth``; ``norm`` its consumer), else
+        one op a sweep.  Returns the leg's norm partials or None."""
+        if self.plan.smooth_leg(l, n_iter):
+            return self._leg(l, lvl, n_iter, consumer=norm)
+        self._sweeps(l, lvl, n_iter)
+        return None
+
+    def _down(self, l: int, levels, fresh: bool) -> None:
+        """Level ``l``'s down leg in the plan's ``down_form``."""
+        form = self.plan.down_form(l)
+        if form == "replicated":
+            self._down_repl(l, levels)
+            return
         prm = self.params
         lvl, nxt = levels[l], levels[l + 1]
+        if form == "leg":
+            # Sweeps, residual, x/y/z restriction, coarse mask and FAS tau
+            # in one leg; a fresh LINEAR/NEWTON visit starts from v = 0.
+            self._leg(
+                l, lvl, prm.pre_smoothing,
+                src_zero=l > 0 and fresh and not self.fas,
+                consumer="restrict",
+                cout=(nxt.f, nxt.v, nxt.rest_v) if self.fas
+                else (nxt.f, None, None),
+                cbox=self.boxes[l + 1], cdims=self.plan.dims[l + 1],
+                tau_h=self.hs[l + 1] if self.fas else 0.0,
+            )
+            if not self.fas and self.plan.down_form(l + 1) != "leg":
+                nxt.v.zero_()  # a child leg from v = 0 reads no v
+            return
         self._smooth(l, lvl, prm.pre_smoothing)
-        faces = self.ex.faces(lvl.v)
-        if l + 1 < self.nd:
-            xzr, rlast, xzv = self._xz[l]
-            self._op(sk.residual_restrict_block,
-                     sk.residual_restrict_block_plain)(
-                xzr, rlast, xzv, lvl.v, lvl.f, faces, self.boxes[l], prm,
-                self.hs[l], self.plan.dims[l + 1][2], lvl.newton_v,
+        if form == "ops" and self.plain_reason is None:
+            # The fused x/z restriction kernel, then the y restriction and
+            # the lower-x fix-up as glue.
+            xzr, rlast, xzv = self._xz_buffers(l)
+            sk.residual_restrict_block(
+                xzr, rlast, xzv, lvl.v, lvl.f, self.ex.faces(lvl.v),
+                self.boxes[l], prm, self.hs[l], self.plan.dims[l + 1][2],
+                lvl.newton_v,
             )
             f_next = self._mask(
                 l + 1, self._y_restrict(self._fix_x0(xzr, rlast), l + 1)
             )
-            if self.fas:
-                rv = self._mask(l + 1, self._y_restrict(xzv, l + 1))
-                self._fas_tau(l + 1, f_next, rv)
-                nxt.v, nxt.rest_v = rv, rv.clone()
+            rv = self._mask(l + 1, self._y_restrict(xzv, l + 1)) \
+                if self.fas else None
+        else:
+            # The residual, then the plain restriction of the assembled
+            # residual (and v); at the junction into the replicated level.
+            self._residual(l, lvl.r, lvl.v, lvl.f, lvl.newton_v)
+            if form == "junction":
+                cb = tuple(b // 2 for b in self.plan.block[l])
+                place = self._to_repl
             else:
-                nxt.v.zero_()
-            nxt.f = f_next
+                cb = self.plan.block[l + 1]
+                place = functools.partial(self._mask, l + 1)
+            f_next = place(_restrict_local(self.ex.halo(lvl.r), cb))
+            rv = place(_restrict_local(self.ex.halo(lvl.v), cb)) \
+                if self.fas else None
+        nxt.f = f_next
+        if not self.fas:
+            nxt.v.zero_()
             return
-        # The junction: distributed -> replicated.
-        self._op(sk.residual_block, sk.residual_block_plain)(
-            lvl.r, lvl.v, lvl.f, faces, self.boxes[l], prm, self.hs[l],
-            newton_v=lvl.newton_v,
-        )
-        cb = tuple(b // 2 for b in self.plan.block[l])
-        nxt.f = self._to_repl(_restrict_local(self.ex.halo(lvl.r), cb))
-        if self.fas:
-            rv = self._to_repl(_restrict_local(self.ex.halo(lvl.v), cb))
-            nxt.v, nxt.rest_v = rv, rv.clone()
+        nxt.v, nxt.rest_v = rv, rv.clone()
+        if form == "junction":
             ops.apply_fas_op(nxt.f, nxt.v, self.plan.dims[l + 1], prm,
                              self.hs[l + 1])
         else:
-            nxt.v.zero_()
+            self._fas_tau(l + 1, nxt.f, rv)
 
-    def _up_dist(self, lc: int, levels) -> None:
+    def _up(self, lc: int, levels) -> Optional[torch.Tensor]:
+        """The up leg into level ``lc − 1`` in the plan's ``up_form``;
+        returns the finest level's norm partials when its leg produced
+        them."""
+        form = self.plan.up_form(lc)
+        if form == "replicated":
+            self._up_repl(lc, levels)
+            return None
         lf = lc - 1
         lvl, c = levels[lf], levels[lc]
+        post = self.params.post_smoothing
+        norm = "norm" if lf == 0 else None
+        if form == "leg":
+            vc = c.v - c.rest_v if self.fas else c.v
+            return self._leg(lf, lvl, post, coarse=vc, consumer=norm)
         if lc == self.nd:
             if self.fas:
                 ops.subtract_op(c.v, c.rest_v, self.plan.dims[lc],
@@ -544,7 +815,7 @@ class SpmdEngine:
         self._op(sk.prolong_add_block, sk.prolong_add_block_plain)(
             lvl.v, casm, self.boxes[lf]
         )
-        self._smooth(lf, lvl, self.params.post_smoothing)
+        return self._smooth(lf, lvl, post, norm)
 
     def _smooth_repl(self, l: int, lvl: GridLevel, n_iter: int) -> None:
         lvl.v, lvl.r = ops.smooth(
@@ -575,42 +846,34 @@ class SpmdEngine:
         ops.prolong_add_op(lvl.v, c.v, dims[lc], dims[lc - 1], prm)
         self._smooth_repl(lc - 1, lvl, prm.post_smoothing)
 
-    def _cycle_at(self, i: int, kind: str, levels) -> None:
-        if i == self.nlev - 1:
-            prm = self.params
-            self._smooth_repl(i, levels[i],
-                              prm.pre_smoothing + prm.post_smoothing)
-            return
-        if i < self.nd:
-            self._down_dist(i, levels)
-        else:
-            self._down_repl(i, levels)
-        for sub in _SUBCYCLES[kind]:
-            self._cycle_at(i + 1, sub, levels)
-        if i + 1 > self.nd:
-            self._up_repl(i + 1, levels)
-        else:
-            self._up_dist(i + 1, levels)
-
     # -- cycles and norms ----------------------------------------------------
 
     def norm_sumsq(self, state: GridState, out: torch.Tensor) -> None:
         """This rank's Σr² of the finest level into ``out`` (one element;
         the caller sums over the ranks)."""
         lvl = state.levels[0]
-        partials = self._op(sk.residual_block, sk.residual_block_plain)(
-            None, lvl.v, lvl.f, self.ex.faces(lvl.v), self.boxes[0],
-            self.params, self.hs[0], write_r=False, with_norm=True,
-            newton_v=lvl.newton_v,
-        )
+        partials = self._residual(0, None, lvl.v, lvl.f, lvl.newton_v,
+                                  write_r=False, with_norm=True)
         self._finalize(partials, out)
 
     def cycle(self, state: GridState, out: torch.Tensor) -> None:
         """One cycle of ``params.cycle_type`` on ``state`` in place, and
-        this rank's finest-level Σr² after it into ``out``."""
-        levels = list(state.levels)
-        self._cycle_at(0, self.params.cycle_type, levels)
-        self.norm_sumsq(state, out)
+        this rank's finest-level Σr² after it into ``out``: from the
+        finest up leg where it ran one, else a norm pass."""
+        levels, prm = list(state.levels), self.params
+        partials = None
+        for step, l, fresh in self.plan.visits(prm.cycle_type):
+            if step == "down":
+                self._down(l, levels, fresh)
+            elif step == "up":
+                partials = self._up(l, levels)
+            else:
+                self._smooth_repl(l, levels[l],
+                                  prm.pre_smoothing + prm.post_smoothing)
+        if partials is None:
+            self.norm_sumsq(state, out)
+        else:
+            self._finalize(partials, out)
 
     def run_cycles(self, state: GridState, n: int, timer=None) -> np.ndarray:
         """``n`` cycles, then one sum over the ranks and one host read of
@@ -639,11 +902,8 @@ class SpmdEngine:
         lvl = state.levels[0]
         p_fas = self.params.replace(mode=Mode.NONLINEAR)
         ss = torch.empty(1, dtype=self.dtype, device=self.device)
-        partials = self._op(sk.residual_block, sk.residual_block_plain)(
-            lvl.f, lvl.newton_v, state.newton_f,
-            self.ex.faces(lvl.newton_v), self.boxes[0], p_fas, self.hs[0],
-            with_norm=True,
-        )
+        partials = self._residual(0, lvl.f, lvl.newton_v, state.newton_f,
+                                  params=p_fas, with_norm=True)
         self._finalize(partials, ss)
         self.ex.all_reduce(ss)
         if timer is not None:
@@ -677,56 +937,125 @@ def _sqrt(x) -> float:
 
 
 def launches_per_cycle(plan: SpmdPlan) -> dict:
-    """Kernel launches one cycle makes on the card, by kernel: per visit
-    of a distributed level its sweeps, one fused residual-restriction (the
-    junction level: one residual) and one prolongation; per visit of a
-    replicated level the single-device engine's ops; the FAS junction adds
-    ``apply_fas`` and ``subtract`` on the replicated level; the final
-    norm-only residual and its finalize."""
+    """Kernel launches one cycle makes on the card, by kernel: the plan's
+    visits in the forms the engine runs them.  A leg is one ``leg_block``
+    launch; a per-op smoothing its sweeps; a per-op down leg adds one fused
+    residual-restriction, the junction one residual (FAS: and
+    ``apply_fas``); a per-op up leg one prolongation (at the FAS junction
+    after a ``subtract``); a replicated level runs the single-device
+    engine's ops; the cycle ends with a norm-only residual unless the
+    finest up leg gave the norm, and a finalize.  Counts the face-tap
+    kernel path (plain runs launch none)."""
     params = plan.params
     mode = params.mode
-    nd, nlev = plan.n_dist, plan.nlev
-    visits = level_visits(nlev, params.cycle_type)
-    sweeps = params.pre_smoothing + params.post_smoothing
-    v = kernels.variant
+    pre, post = params.pre_smoothing, params.post_smoothing
     fas = mode == Mode.NONLINEAR
-    counts = {
-        v("sweep_block", mode): sweeps * sum(visits[:nd]),
-        v("residual_restrict_block", mode): sum(visits[:nd - 1]),
-        v("residual_block", mode): visits[nd - 1] + 1,
-        "prolong_add_block": sum(visits[:nd]),
-        "finalize": 1,
-        v("jacobi_sweep", mode): sweeps * sum(visits[nd:]),
-        v("residual", mode): sum(visits[nd:nlev - 1]),
-        "prolong_add": sum(visits[nd:nlev - 1]),
-    }
-    repl = sum(visits[nd:nlev - 1])
-    if fas:
-        counts.update(restrict=2 * repl, apply_fas=repl + visits[nd - 1],
-                      subtract=repl + visits[nd - 1])
-    else:
-        counts["restrict_zero"] = repl
+    v = kernels.variant
+    counts = {}
+
+    def add(name, n=1):
+        counts[name] = counts.get(name, 0) + n
+
+    def smooth(l, S):
+        if plan.smooth_leg(l, S):
+            add(v("leg_block", mode))
+        else:
+            add(v("sweep_block", mode), S)
+
+    for step, l, _ in plan.visits(params.cycle_type):
+        if step == "coarsest":
+            add(v("jacobi_sweep", mode), pre + post)
+            continue
+        form = plan.down_form(l) if step == "down" else plan.up_form(l)
+        if form == "leg":
+            add(v("leg_block", mode))
+        elif step == "down" and form == "replicated":
+            add(v("jacobi_sweep", mode), pre)
+            add(v("residual", mode))
+            if fas:
+                add("restrict", 2)
+                add("apply_fas")
+            else:
+                add("restrict_zero")
+        elif step == "down":
+            smooth(l, pre)
+            if form == "ops":
+                add(v("residual_restrict_block", mode))
+            else:
+                add(v("residual_block", mode))
+                if fas:
+                    add("apply_fas")
+        elif form == "replicated":
+            if fas:
+                add("subtract")
+            add("prolong_add")
+            add(v("jacobi_sweep", mode), post)
+        else:
+            if l == plan.n_dist and fas:
+                add("subtract")
+            add("prolong_add_block")
+            smooth(l - 1, post)
+    if not plan.norm_in_leg():
+        add(v("residual_block", mode))
+    add("finalize")
     return {k: n for k, n in counts.items() if n}
 
 
-def build_spmd_solver(params: GridParams, mesh: Mesh,
-                      cutoff: int = 4) -> SpmdEngine:
+_NOT_PORTED = {
+    ("fuse", "pod"): "ROADMAP Queue 2 rows 13-14",
+    ("halo", "rdma"): "ROADMAP Queue 2 row 12",
+    ("tail", "pv2"): "ROADMAP Queue 1 item 3(c)",
+}
+
+
+def _check_options(local_backend: str, halo: str, fuse: str,
+                   tail: str) -> None:
+    """The reference's ``ValueError`` for an unknown value
+    (gpusolve_tpu/dist/spmd.py:598-606), and one naming the ROADMAP item
+    for a value not ported yet."""
+    if fuse not in ("leg", "pod"):
+        raise ValueError(f"fuse must be 'leg' or 'pod', got {fuse!r}")
+    if halo not in ("ppermute", "rdma"):
+        raise ValueError(f"halo must be 'ppermute' or 'rdma', got {halo!r}")
+    if tail not in ("auto", "pv2", "off"):
+        raise ValueError(f"tail must be 'auto', 'pv2' or 'off', got {tail!r}")
+    if local_backend not in LOCAL_BACKENDS:
+        raise ValueError(
+            f"local_backend must be one of {', '.join(LOCAL_BACKENDS)}, got "
+            f"{local_backend!r}"
+        )
+    for key, val in (("fuse", fuse), ("halo", halo), ("tail", tail)):
+        item = _NOT_PORTED.get((key, val))
+        if item is not None:
+            raise ValueError(
+                f"{key}={val!r} is not ported to gpusolve_tpu_torch yet "
+                f"({item})"
+            )
+
+
+def build_spmd_solver(params: GridParams, mesh: Mesh, cutoff: int = 4,
+                      local_backend: str = "auto", halo: str = "ppermute",
+                      fuse: str = "leg", tail: str = "auto") -> SpmdEngine:
     """The per-leg engine of this rank (``build_spmd_solver``,
-    ``gpusolve_tpu/dist/spmd.py:577`` with ``fuse="leg"`` and
-    ``halo="ppermute"``, the forms ported)."""
-    return SpmdEngine(params, mesh, cutoff)
+    ``gpusolve_tpu/dist/spmd.py:577``).  ``local_backend``: "auto" and
+    "pallas" run the kernels and the legs where the gates allow, "xla" the
+    per-op path on plain ops.  ``halo="ppermute"``, ``fuse="leg"`` and
+    ``tail`` "auto" or "off" (no tail either way) are the forms ported."""
+    _check_options(local_backend, halo, fuse, tail)
+    return SpmdEngine(params, mesh, cutoff, local_backend)
 
 
-def _engine(params, mesh, cutoff, plan) -> SpmdEngine:
+def _engine(params, mesh, cutoff, plan, local_backend) -> SpmdEngine:
     """The engine cached on ``plan`` when it was built for the same
-    cycle, mesh and cutoff, else a new one, cached there."""
+    cycle, mesh, cutoff and local backend, else a new one, cached there."""
     eng = getattr(plan, "_engine", None)
     if (
         eng is not None and eng.key == _cycle_key(params)
         and eng.mesh == mesh and eng.cutoff == cutoff
+        and eng.local_backend == local_backend
     ):
         return eng
-    eng = build_spmd_solver(params, mesh, cutoff)
+    eng = SpmdEngine(params, mesh, cutoff, local_backend)
     eng.plan._engine = eng
     return eng
 
@@ -735,8 +1064,12 @@ def solve_spmd(
     params: GridParams, mesh: Mesh, cutoff: int = 4,
     state: Optional[GridState] = None, plan: Optional[SpmdPlan] = None,
     initial_residual: Optional[float] = None,
+    local_backend: str = "auto",
     check_every: int = 1,
+    halo: str = "ppermute",
+    fuse: str = "leg",
     timer: Optional[Timer] = None,
+    tail: str = "auto",
 ) -> Tuple[GridState, List[float], SpmdPlan]:
     """The distributed solve, any mode (``gpusolve_tpu/dist/spmd.py:1746``).
     Returns ``(state, history, plan)``; the history is comparable with the
@@ -746,7 +1079,8 @@ def solve_spmd(
     ``res <= initial / (1.0 / tol)`` between batches: the history records
     every cycle, and a solve may run up to k−1 cycles past the threshold,
     as in the JAX package."""
-    eng = _engine(params, mesh, cutoff, plan)
+    _check_options(local_backend, halo, fuse, tail)
+    eng = _engine(params, mesh, cutoff, plan, local_backend)
     plan = eng.plan
     if state is None:
         state = eng.init_state()
@@ -806,11 +1140,15 @@ def gather_solution(state: GridState, plan: SpmdPlan, mesh: Mesh,
 
 def newton_solve_spmd(
     params: GridParams, mesh: Mesh, cutoff: int = 4,
+    local_backend: str = "auto",
+    halo: str = "ppermute",
+    fuse: str = "leg",
     state: Optional[GridState] = None,
     newton_f: Optional[torch.Tensor] = None,
     initial_residual: Optional[float] = None,
     timer: Optional[Timer] = None,
     check_every: int = 1,
+    tail: str = "auto",
 ) -> Tuple[GridState, List[float], SpmdPlan]:
     """The distributed outer Newton iteration
     (``gpusolve_tpu/dist/spmd.py:2015``; reference
@@ -826,7 +1164,8 @@ def newton_solve_spmd(
         raise ValueError(
             f"newton_solve_spmd runs NEWTON mode, got {params.mode.name}"
         )
-    eng = _engine(params, mesh, cutoff, None)
+    _check_options(local_backend, halo, fuse, tail)
+    eng = _engine(params, mesh, cutoff, None, local_backend)
     plan = eng.plan
     if timer is None and params.print_progress:
         timer = Timer()
@@ -857,7 +1196,8 @@ def newton_solve_spmd(
             lvl.v.zero_()
         eng.restrict_newton_v(state)
         solve_spmd(inner, mesh, cutoff, state=state, plan=plan,
-                   initial_residual=fn, check_every=check_every)
+                   initial_residual=fn, local_backend=local_backend,
+                   check_every=check_every)
         lvl0 = state.levels[0]
         lvl0.newton_v.add_(lvl0.v)
         res = eng.comp_f(state, timer)

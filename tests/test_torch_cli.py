@@ -220,3 +220,38 @@ def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
 def test_cli_mesh_exits_1(small_conf, capsys, args, message):
     assert cli.main([small_conf(), "--platform", "cpu", *args]) == 1
     assert message in capsys.readouterr().err
+
+
+def test_cli_mesh_fused_tags(small_conf, capsys):
+    """--explain-backend with --mesh prints each distributed level's
+    (fused-down, fused-up) tags, as the JAX CLI does, and the gate that
+    refused a leg: at 31³ on the one-rank mesh, levels 0 and 1 run both
+    legs and the junction level 2 neither."""
+    path = small_conf(dims=(31, 31, 31), maxiter=2)
+    assert cli.main([path, "--mesh", "1,1,1", "--platform", "cpu",
+                     "--explain-backend"]) == 0
+    err = capsys.readouterr().err
+    for l in (0, 1):
+        assert re.search(rf"backend: level {l}: .*\(fused-down, fused-up\)",
+                         err), err
+    assert re.search(r"backend: level 2: .*; fused-down refused: the "
+                     r"junction", err), err
+
+
+def test_cli_mesh_edge_tap_stencil(tmp_path, capsys):
+    """A stencil with a (1,1,0) tap runs on --mesh 1,1,1 (it exited 1):
+    the plain ops over the assembled block, with a note."""
+    toks = open(CONF).read().split()
+    toks[0], toks[2:5] = "2", ["15", "15", "15"]
+    # The offsets rows: x, y, z per tap; the second tap becomes (1,1,0).
+    stencil = "\n".join([
+        "6 -1 -1 -1 -1 -1 -1", "0 1 -1 0 0 0 0", "0 1 0 1 -1 0 0",
+        "0 0 0 0 0 1 -1",
+    ])
+    path = tmp_path / "edge.conf"
+    path.write_text(" ".join(toks[:10]) + "\n" + stencil + "\n")
+    assert cli.main([str(path), "--mesh", "1,1,1", "--platform", "cpu",
+                     "--explain-backend"]) == 0
+    out, err = capsys.readouterr()
+    assert "edge or corner taps" in err
+    assert [ln for ln in out.splitlines() if LINE.match(ln)]

@@ -4,11 +4,15 @@ XLA local path) on the same mesh, in float64 to rtol 1e-10:
 
   * ``SpmdPlan`` field by field (pure Python);
   * a (1, 1, 1) mesh in this process, LINEAR, FAS and Newton;
-  * (2, 2, 1) and (1, 2, 2) meshes (the latter folds z into y) on 4 gloo
-    ranks: one ``torch.multiprocessing`` spawn per mesh runs every case
+  * (2, 2, 1), (1, 2, 2) and (4, 1, 1) meshes (the second folds z into
+    y) on 4 gloo ranks, with the trapezoid legs engaged wherever the plan's
+    gates allow (y-split slabs on the first two, x slabs only on the
+    third): one ``torch.multiprocessing`` spawn per mesh runs every case
     (LINEAR, FAS, Newton, W and F cycles, ``check_every=3``) and returns
     the histories and gathered solutions, which are held against the JAX
-    engine and the port's own single-device solve;
+    engine and the port's own single-device solve; the (2, 2, 1) spawn
+    also runs V(6,6) on the per-op kernel route (the wrappers' plain
+    versions on CPU tensors) and on the plain route;
   * the interop converters, and a port solve resumed from a JAX state.
 
 The JAX package is imported inside the functions that use it, so the
@@ -47,6 +51,22 @@ CASES = {
         "linear": (0, (15, 31, 15), "V", 4, 1),
         "newton": (2, (15, 31, 15), "V", 3, 1),
     },
+    (4, 1, 1): {
+        "linear": (0, (63, 63, 63), "V", 3, 1),
+        "fas": (1, (31, 31, 31), "V", 3, 1),
+    },
+}
+
+
+# The card's per-op route on CPU tensors, in the (2, 2, 1) spawn: name ->
+# (mode, dims, cutoff), at V(6,6), past the legs' sweep cap, so every
+# distributed level runs per op; the engine's kernel path forced, so the
+# kernels' wrappers run their plain versions (CPU tensors) and the per-op
+# glue (the y restriction, the lower-x fix-up, the FAS tau) runs across
+# ranks as on the card.
+ROUTE_CASES = {
+    "linear_v66": (0, (31, 31, 31), 4),
+    "fas_v66": (1, (15, 15, 15), 3),
 }
 
 
@@ -69,16 +89,24 @@ def _port_solve(params, mesh, cutoff, check_every=1):
                          check_every=check_every)
 
 
+# A 7-point stencil with one (1, 1, 0) edge tap in place of a face tap.
+CORNER = ((6.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0),
+          ((0, 0, 0), (1, 1, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
+           (0, 0, 1), (0, 0, -1)))
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_run(mesh_shape, mode, dims, cycle, cutoff, maxiter=4):
+def _jax_run(mesh_shape, mode, dims, cycle, cutoff, maxiter=4,
+             stencil=None):
     """The JAX engine's history and gathered solution (cached per
     module run: each configuration compiles once)."""
     from gpusolve_tpu.config import GridParams, Stencil
     from gpusolve_tpu.dist import spmd as jsp
     from gpusolve_tpu.dist.mesh import make_mesh
 
-    params = GridParams(stencil=Stencil.poisson_7pt(),
-                        **_kw(mode, dims, cycle, maxiter))
+    st = Stencil.poisson_7pt() if stencil is None else Stencil(
+        values=stencil[0], offsets=stencil[1])
+    params = GridParams(stencil=st, **_kw(mode, dims, cycle, maxiter))
     mesh = make_mesh(mesh_shape)
     run = jsp.newton_solve_spmd if mode == 2 else jsp.solve_spmd
     state, hist, plan = run(params, mesh, cutoff=cutoff,
@@ -97,11 +125,20 @@ def _close(got, want, what):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dims,mesh_shape,cutoff", [
-    ((31, 31, 31), (2, 2, 1), 4), ((15, 15, 15), (2, 2, 1), 3),
-    ((15, 31, 15), (1, 2, 2), 4), ((511, 511, 511), (1, 1, 1), 4),
-    ((127, 63, 255), (2, 2, 2), 4), ((63, 63, 63), (4, 1, 1), 2),
-])
+# The port's leg gates per plan: (fused_down_levels, fused_up_levels).
+# The JAX engine's own values are the TPU's (its tiling gates), so these
+# are the port's gates at each geometry.
+FUSED = {
+    ((31, 31, 31), (2, 2, 1), 4): ((0,), (1,)),
+    ((15, 15, 15), (2, 2, 1), 3): ((0,), (1,)),
+    ((15, 31, 15), (1, 2, 2), 4): ((), ()),
+    ((511, 511, 511), (1, 1, 1), 4): ((0, 1, 2, 3, 4, 5), (1, 2, 3, 4, 5, 6)),
+    ((127, 63, 255), (2, 2, 2), 4): ((0,), (1,)),
+    ((63, 63, 63), (4, 1, 1), 2): ((0, 1), (1, 2)),
+}
+
+
+@pytest.mark.parametrize("dims,mesh_shape,cutoff", list(FUSED))
 def test_plan_matches_jax(dims, mesh_shape, cutoff):
     from gpusolve_tpu.config import GridParams, Stencil
     from gpusolve_tpu.dist.spmd import SpmdPlan
@@ -118,7 +155,11 @@ def test_plan_matches_jax(dims, mesh_shape, cutoff):
     # Replicated levels: the port's dense padded layout.
     assert tp.alloc[tp.n_dist:] == [tuple(n + 2 for n in d)
                                    for d in tp.dims[tp.n_dist:]]
-    assert tp.fused_down_levels == () and tp.fused_up_levels == ()
+    assert (tp.fused_down_levels, tp.fused_up_levels) == \
+        FUSED[dims, mesh_shape, cutoff]
+    # local_backend="xla" runs the per-op path: no leg.
+    xla = gt.SpmdPlan(_tparams(0, dims), mesh_shape, cutoff, "xla")
+    assert xla.fused_down_levels == () and xla.fused_up_levels == ()
 
 
 def test_factor_devices_and_mesh_errors():
@@ -131,12 +172,62 @@ def test_factor_devices_and_mesh_errors():
     with pytest.raises(ValueError, match="torchrun"):
         gt.make_mesh((2, 1, 1), device="cpu")
     assert tmesh.coords_of(5, (2, 2, 2)) == (1, 0, 1)
-    params = _tparams(0, (15, 15, 15))
-    corner = params.replace(stencil=gt.Stencil(
-        values=(6.0, -1.0), offsets=((0, 0, 0), (1, 1, 0))
+    # A stencil with an edge tap runs on the spmd engine (the plain ops
+    # over the assembled block, no leg), as the JAX engine's assembled-halo
+    # path: the histories agree to rtol 1e-10 in float64.
+    corner = _tparams(0, (15, 15, 15)).replace(stencil=gt.Stencil(
+        values=CORNER[0], offsets=CORNER[1]
     ))
-    with pytest.raises(ValueError, match="corner and edge taps"):
-        gt.solve_spmd(corner, mesh)
+    state, hist, plan = gt.solve_spmd(corner, mesh, cutoff=3)
+    assert plan.fused_down_levels == () and plan.fused_up_levels == ()
+    want_hist, want_sol = _jax_run((1, 1, 1), 0, (15, 15, 15), "V", 3,
+                                   stencil=CORNER)
+    _close(hist, want_hist, "edge-tap history")
+    _close(tsp.gather_solution(state, plan, mesh), want_sol,
+           "edge-tap solution")
+
+
+KEYWORDS = [
+    ({}, None), ({"local_backend": "pallas"}, None),
+    ({"local_backend": "xla"}, None), ({"tail": "off"}, None),
+    ({"halo": "ppermute", "fuse": "leg", "tail": "auto"}, None),
+    ({"fuse": "pod"}, "fuse='pod' is not ported"),
+    ({"halo": "rdma"}, "halo='rdma' is not ported"),
+    ({"tail": "pv2"}, "tail='pv2' is not ported"),
+    ({"fuse": "wide"}, "fuse must be 'leg' or 'pod'"),
+    ({"halo": "nccl"}, "halo must be 'ppermute' or 'rdma'"),
+    ({"tail": "on"}, "tail must be 'auto', 'pv2' or 'off'"),
+    ({"local_backend": "cuda"}, "local_backend must be one of"),
+]
+
+
+@pytest.mark.parametrize("kw,error", KEYWORDS,
+                         ids=[f"{k}" for k, _ in KEYWORDS])
+def test_spmd_keywords(kw, error):
+    """build_spmd_solver, solve_spmd and newton_solve_spmd take the
+    reference's local_backend, halo, fuse and tail keywords: the ported
+    values run (``"xla"`` without legs), the others raise ValueError."""
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    lin, newt = _tparams(0, (15, 15, 15), maxiter=1), \
+        _tparams(2, (15, 15, 15), maxiter=1)
+    calls = (
+        lambda: tsp.build_spmd_solver(lin, mesh, 3, **kw),
+        lambda: gt.solve_spmd(lin, mesh, cutoff=3, **kw),
+        lambda: gt.newton_solve_spmd(newt, mesh, cutoff=3, **kw),
+    )
+    if error is not None:
+        for call in calls:
+            with pytest.raises(ValueError, match=error):
+                call()
+        return
+    eng = calls[0]()
+    legs = kw.get("local_backend") != "xla"
+    assert bool(eng.plan.fused_down_levels) == legs
+    _, hist, _ = calls[1]()
+    want, _ = _jax_run((1, 1, 1), 0, (15, 15, 15), "V", 3, maxiter=1)
+    _close(hist, want, f"{kw} history")
+    _, nhist, _ = calls[2]()
+    assert len(nhist) == 2 and nhist[1] < nhist[0]
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +324,26 @@ def _rank_main(rank, mesh_shape, store_path, out_dir):
             if rank == 0:
                 np.savez(os.path.join(out_dir, f"{name}.npz"),
                          hist=np.asarray(hist), sol=sol,
-                         launched=sum(kernels.launches.values()))
+                         launched=sum(kernels.launches.values()),
+                         n_dist=plan.n_dist,
+                         fused=np.asarray(plan.fused_down_levels + (-1,)))
+        for name, (mode, dims, cutoff) in (
+            ROUTE_CASES.items() if mesh_shape == (2, 2, 1) else ()
+        ):
+            params = _tparams(mode, dims).replace(pre_smoothing=6,
+                                                  post_smoothing=6)
+            eng = tsp.SpmdEngine(params, mesh, cutoff)
+            eng.plain_reason = None
+            eng.plan._engine = eng
+            _, hist, plan = gt.solve_spmd(params, mesh, cutoff=cutoff,
+                                          plan=eng.plan)
+            assert plan._engine is eng
+            _, plain, _ = gt.solve_spmd(params, mesh, cutoff=cutoff)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{name}.npz"),
+                         hist=np.asarray(hist), plain=np.asarray(plain),
+                         forms=np.asarray([plan.down_form(l)
+                                           for l in range(plan.n_dist)]))
         # No rank tears its connections down while a peer still reads.
         torch.distributed.barrier()
     finally:
@@ -255,7 +365,11 @@ def _spawn(mesh_shape, out):
     results = {}
     for name in CASES[mesh_shape]:
         with np.load(out / f"{name}.npz") as f:
-            results[name] = (f["hist"], f["sol"], int(f["launched"]))
+            results[name] = (f["hist"], f["sol"], int(f["launched"]),
+                             int(f["n_dist"]), tuple(f["fused"][:-1]))
+    for name in ROUTE_CASES if mesh_shape == (2, 2, 1) else ():
+        with np.load(out / f"{name}.npz") as f:
+            results[name] = (f["hist"], f["plain"], tuple(f["forms"]))
     return results
 
 
@@ -281,11 +395,13 @@ RANK_IDS = [f"{'x'.join(map(str, m))}-{name}" for m, name in RANK_CASES]
 @pytest.mark.parametrize("mesh_shape,name", RANK_CASES, ids=RANK_IDS)
 def test_ranks_match_jax(ranks, mesh_shape, name):
     mode, dims, cycle, cutoff, _ = CASES[mesh_shape][name]
-    hist, sol, launched = ranks(mesh_shape)[name]
+    hist, sol, launched, n_dist, fused = ranks(mesh_shape)[name]
     want_hist, want_sol = _jax_run(mesh_shape, mode, dims, cycle, cutoff)
     _close(hist, want_hist, f"{name} history")
     _close(sol, want_sol, f"{name} solution")
     assert launched == 0  # CPU tensors run the plain versions
+    # The legs ran wherever a level below the junction exists.
+    assert fused == tuple(range(n_dist - 1)), fused
 
 
 @pytest.mark.parametrize("mesh_shape,name", RANK_CASES, ids=RANK_IDS)
@@ -301,3 +417,18 @@ def test_ranks_match_single_device(ranks, mesh_shape, name):
     else:
         _, want = gt.solve(state, params)
     _close(ranks(mesh_shape)[name][0], want, f"{name} vs single device")
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_ranks_kernel_route(ranks, name):
+    """The engine's per-op kernel route on (2, 2, 1) ranks (the wrappers'
+    plain versions on CPU tensors, the glue between them exchanging across
+    ranks) and its plain route over the assembled block both match the
+    port's single-device solve at V(6,6) to rtol 1e-10 in float64."""
+    mode, dims, _ = ROUTE_CASES[name]
+    hist, plain, forms = ranks((2, 2, 1))[name]
+    assert forms[0] == "ops" and forms[-1] == "junction", forms
+    params = _tparams(mode, dims).replace(pre_smoothing=6, post_smoothing=6)
+    _, want = gt.solve(gt.build_grid(params, device="cpu"), params)
+    _close(hist, want, f"{name} kernel route vs single device")
+    _close(plain, want, f"{name} plain route vs single device")
