@@ -76,13 +76,33 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
      per-op kernels with their counts, against the same run on the plain
      ops within rel 2e-4 above 1e-4·initial and against the v1 engine
      above 1e-2·initial (FAS 1e-1·initial);
-  4. the CLI with --mesh 1,1,1 on the three example configs, and the
+  4. the CLI with --mesh 1,1,1 on the three example configs, with --fuse
+     leg and as they are (--fuse auto resolves to the pod engine), and the
      engines and flags not ported (exit 1);
   5. each shard-local kernel's time, bound, plain and library time at the
      511³ level-0 block, and each leg variant's; device ms per 511³ spmd
      cycle beside the batch engine's, a profiler split into the
      shard-local kernels, the replicated levels' kernels and the torch
      glue (launches a cycle), the idle share and peak memory.
+
+The pod engine (dist/pod.py, fuse="pod") on the (1,1,1) mesh:
+  2. pod_down and pod_up (ops/pod.py, csrc/pod.cu: every leg of a
+     direction in one cooperative launch) against their plain versions
+     and against the same legs launched one by one through leg_block, bit
+     for bit, every field of the pod levels and the norm, in every mode, at
+     511³ (the one-rank plan, npod = 1, and a three-level chain) and at 15³
+     and (33,17,9) (depths 1 and 2), with each chain's cooperative grid;
+  3. solve_spmd(fuse="pod") (LINEAR and FAS V(3,3), check_every=10) and
+     newton_solve_spmd(fuse="pod") at 511³: depth 1, the tail in place,
+     launch counts equal to dist/pod.launches_per_cycle's schedule (one
+     pod_down and one pod_up a V-cycle), the same history on the plain ops
+     on the card, the per-leg and batch engines within rel 2e-4 above
+     1e-2·initial; W and F at 127³ against the plain ops;
+  5. each chain's ms, bytes, bound, plain ms and the same legs' ms as
+     separate launches, at npod = 1 and 3; device ms per pod cycle (npod 1
+     and 3) beside the per-leg and batch engines', with the profiler split
+     (pod chains, tail kernels, torch glue and its launches a cycle), the
+     idle share and peak memory.
 
 The line before the last is the JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -110,6 +130,7 @@ SRC = "gpusolve_tpu_torch/ops/csrc/multigrid.cu"
 V1_SRC = "gpusolve_tpu_torch/ops/csrc/vcycle_fused.cu"
 SPMD_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_block.cu"
 LEG_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_leg.cu"
+POD_SRC = "gpusolve_tpu_torch/ops/csrc/pod.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
 V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
@@ -149,6 +170,12 @@ REPLACES = {
     "leg_block": "gpusolve_tpu/ops/pallas_spmd.py:1847",
     "leg_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:1847",
     "leg_block_newton": "gpusolve_tpu/ops/pallas_spmd.py:1847",
+    "pod_down": "gpusolve_tpu/ops/pallas_pod.py:494",
+    "pod_down_fas": "gpusolve_tpu/ops/pallas_pod.py:494",
+    "pod_down_newton": "gpusolve_tpu/ops/pallas_pod.py:494",
+    "pod_up": "gpusolve_tpu/ops/pallas_pod.py:741",
+    "pod_up_fas": "gpusolve_tpu/ops/pallas_pod.py:741",
+    "pod_up_newton": "gpusolve_tpu/ops/pallas_pod.py:741",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # Operations counted for one e^x (a range reduction, a polynomial and a
@@ -1989,6 +2016,133 @@ def check_leg_ghosts(base, rec):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The pod engine's chains (ops/pod.py)
+# ---------------------------------------------------------------------------
+
+# (grid, pod depths): the 511³ one-rank plan (choose_npod's depth 1) and a
+# three-level chain, and small grids, one of them not 2^k − 1.
+POD_CASES = ((BIG, (1, 3)), ((15, 15, 15), (1, 2)), ((33, 17, 9), (1, 2)))
+
+
+def seeded_pod_state(eng, seed):
+    """A pod engine state on the card with seeded v (0.05), f (100), ũ
+    (0.3) and rest_v (0.05) on levels 0..npod, zero outside each box
+    (normal numbers drawn on the card from a generator seeded with
+    ``seed``)."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state = eng.init_state()
+    for l in range(eng.npod + 1):
+        lvl, box = state.levels[l], eng.boxes[l]
+        for name, scale in (("v", 0.05), ("f", 100.0), ("newton_v", 0.3),
+                            ("rest_v", 0.05)):
+            t = getattr(lvl, name)
+            if t is not None:
+                t[SK.box_slices(box)] = scale * torch.randn(
+                    SK.box_dims(box), generator=gen, device=DEVICE)
+    return state
+
+
+def run_chain(eng, state, how, up):
+    """The whole down (or up) chain of ``eng`` over ``state`` in one
+    launch ("kernel"), its plain version ("plain") or one ``leg_block``
+    launch a leg ("legs"); the up chain prolongs the tail root's v.
+    Returns the norm partials (up) or None."""
+    from gpusolve_tpu_torch.ops import pod as PD
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    p, levels = eng.params, list(state.levels)
+    S = p.post_smoothing if up else p.pre_smoothing
+    legs = eng.up_legs(0, levels, levels[eng.npod].v) if up \
+        else eng.down_legs(0, levels)
+    if how == "kernel":
+        return (PD.pod_up if up else PD.pod_down)(legs, p, S)
+    if how == "plain":
+        return (PD.pod_up_plain if up else PD.pod_down_plain)(legs, p, S)
+    part = None
+    for leg in legs:
+        out = SL.leg_block(leg.v_out, leg.v, leg.f, None, leg.box, leg.glob,
+                           p, leg.h, S, **leg.kwargs())
+        if out is not None:
+            part = out
+    return part
+
+
+def pod_fields(state, npod):
+    return [t for lvl in state.levels[:npod + 1]
+            for t in (lvl.v, lvl.r, lvl.f, lvl.rest_v) if t is not None]
+
+
+def check_pod_kernels(base, rec):
+    """pod_down and pod_up against their plain versions and against the
+    same legs launched one by one through leg_block, every field of
+    levels 0..npod and the norm, bit for bit, in every mode: the 511³
+    one-rank plan (npod = 1) and a three-level chain, and 15³ and
+    (33, 17, 9) at depths 1 and 2 (FAS sub_rv below the chain's head)."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.pod import build_pod_solver
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import pod as PD
+
+    mesh = gt.make_mesh((1, 1, 1))
+    for dims, npods in POD_CASES:
+        for npod in npods:
+            lines = []
+            for mode in Mode:
+                p = base.replace(mode=mode, grid_dim=dims,
+                                 print_progress=False)
+                eng = build_pod_solver(p, mesh, npod=npod)
+                tag = (f"{'x'.join(map(str, dims))} npod={npod} blocks "
+                       f"{[eng.plan.shape(l) for l in range(npod + 1)]}")
+                seeded = seeded_pod_state(eng, 700 + npod)
+                for up in (False, True):
+                    name = K.variant("pod_up" if up else "pod_down", mode)
+                    res = {}
+                    for how in ("kernel", "plain", "legs"):
+                        st = clone_state(seeded)
+                        part = run_chain(eng, st, how, up)
+                        ss = None
+                        if part is not None:
+                            ss = st.levels[0].v.new_empty(1)
+                            (K.finalize_plain if how == "plain"
+                             else K.finalize)(part, ss)
+                            ss = float(ss)
+                        res[how] = (pod_fields(st, npod), ss)
+                        del st
+                    got, ss_k = res["kernel"]
+                    lines.append(rec.fields(got, res["plain"][0],
+                                            f"{name} {tag}", name))
+                    check(rec.same[name], f"{name} {tag}: not bit-identical "
+                          "to its plain version")
+                    legs = all(torch.equal(a, b)
+                               for a, b in zip(got, res["legs"][0]))
+                    check(legs and ss_k == res["legs"][1],
+                          f"{name} {tag}: != its legs one by one")
+                    lines.append(f"{name} vs {npod} leg_block launches "
+                                 f"{tag}: bit-identical={legs}")
+                    if ss_k is not None:
+                        lines.append(rec.scalar(ss_k, res["plain"][1],
+                                                f"{name} sum r^2 {tag}",
+                                                name + "_norm"))
+                    blocks, per_sm, smem = PD.last_grid[name]
+                    form = "one block a tile" if npod == 1 else \
+                        "cooperative"
+                    lines.append(f"{name} grid {tag}: {blocks} blocks, "
+                                 f"{form}, {per_sm} resident an SM, {smem} "
+                                 "bytes of shared memory a block")
+                del eng, seeded
+                torch.cuda.empty_cache()
+            for line in lines:
+                print(f"check {line}")
+
+
 @contextlib.contextmanager
 def counting_spmd_inner():
     """Records the inner cycles of each distributed Newton step."""
@@ -2009,7 +2163,7 @@ def counting_spmd_inner():
         tsp.solve_spmd = solve
 
 
-def run_spmd(params, check_every, local_backend="auto"):
+def run_spmd(params, check_every, local_backend="auto", fuse="leg"):
     import torch
 
     import gpusolve_tpu_torch as gt
@@ -2019,11 +2173,11 @@ def run_spmd(params, check_every, local_backend="auto"):
     t0 = time.perf_counter()
     if params.mode == gt.Mode.NEWTON:
         state, hist, plan = gt.newton_solve_spmd(
-            params, mesh, local_backend=local_backend)
+            params, mesh, local_backend=local_backend, fuse=fuse)
     else:
         state, hist, plan = gt.solve_spmd(params, mesh,
                                           local_backend=local_backend,
-                                          check_every=check_every)
+                                          check_every=check_every, fuse=fuse)
     torch.cuda.synchronize()
     return state, hist, plan, time.perf_counter() - t0
 
@@ -2053,15 +2207,18 @@ def counting_glue():
 
 
 def spmd_expected(plan, hist, inner_cycles):
-    """Launches of a distributed solve: every executed cycle's (the
-    history records each), the initial norm; a Newton solve the initial
-    F, and per step the replicated R(ũ), the inner cycles and F."""
+    """Launches of a distributed solve (the per-leg or the pod engine's
+    schedule): every executed cycle's (the history records each), the
+    initial norm; a Newton solve the initial F, and per step the
+    replicated R(ũ), the inner cycles and F."""
     from gpusolve_tpu_torch.config import Mode
-    from gpusolve_tpu_torch.dist.spmd import launches_per_cycle
+    from gpusolve_tpu_torch.dist import pod as tpod
+    from gpusolve_tpu_torch.dist import spmd as tsp
     from gpusolve_tpu_torch.ops import kernels as K
 
     params = plan.params
-    per = launches_per_cycle(plan)
+    per = (tpod if isinstance(plan, tpod.PodPlan) else tsp
+           ).launches_per_cycle(plan)
     steps = len(hist) - 1
     newton = params.mode == Mode.NEWTON
     cycles = sum(inner_cycles) if newton else steps
@@ -2170,19 +2327,119 @@ def spmd_main_path(params, label, batch_hist, k=10, legs=True):
               f"{xla_secs:.3f} s) worst rel diff {worst_x:.3e}")
     del state
     torch.cuda.empty_cache()
+    return counts, hist
+
+
+def pod_main_path(params, label, batch_hist, leg_hist, k=10):
+    """solve_spmd (Newton: newton_solve_spmd) with fuse="pod" on
+    make_mesh((1,1,1)): the engine's own depth (1) with the tail in place
+    on the boundary block, launch counts equal to its schedule
+    (dist/pod.launches_per_cycle: one pod_down and one pod_up a V-cycle,
+    the tail's per-op kernels), no leg or shard-local kernel; the same
+    history on the plain ops on the card; the per-leg and the batch
+    engines' histories within rel 2e-4 above 1e-2·initial."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    with counting_spmd_inner() as inner_cycles:
+        state, hist, plan, secs = run_spmd(params, k, fuse="pod")
+    counts = nonzero(K.launches)
+    print(f"pod path {label}: mesh (1,1,1), pod depth {plan.npod} (blocks "
+          f"{[plan.shape(l) for l in range(plan.npod + 1)]}, tail in place "
+          f"{plan.tail_in_place}), {len(hist) - 1} steps in {secs:.3f} s "
+          f"wall, history {hist}")
+    if inner_cycles:
+        print(f"pod path {label}: inner cycles per step {inner_cycles}")
+    print(f"pod path {label} launches: {counts}")
+    check(plan.npod == 1 and plan.tail_in_place,
+          f"pod {label}: depth {plan.npod}, tail in place "
+          f"{plan.tail_in_place}")
+    want = spmd_expected(plan, hist, inner_cycles)
+    check(counts == want,
+          f"pod {label}: launch counts {counts} != schedule {want}")
+    for what, other in (("the batch engine", batch_hist),
+                        ("the per-leg engine", leg_hist)):
+        worst = histories_agree(hist[:len(other)], other,
+                                f"pod {label} vs {what}", floor=1e-2)
+        print(f"pod {label} vs {what}: worst rel diff {worst:.3e} "
+              f"(identical: {hist == other})")
+    newton = params.mode == Mode.NEWTON
+    K.reset_launches()
+    plain = params.replace(backend="ref",
+                           maxiter=NEWTON_PLAIN_STEPS if newton
+                           else params.maxiter)
+    _, ref_hist, _, ref_secs = run_spmd(plain, k, fuse="pod")
+    check(all(n == 0 for n in K.launches.values()),
+          "the plain pod path launched a kernel")
+    mine = hist[:len(ref_hist)]
+    check(mine == ref_hist,
+          f"pod {label}: kernels {mine} != plain ops {ref_hist}")
+    print(f"pod kernels vs plain {label}: identical (plain run "
+          f"{ref_secs:.3f} s, {len(ref_hist) - 1} steps)")
+    del state
+    torch.cuda.empty_cache()
     return counts
 
 
+def pod_other_cycles(params127, label):
+    """W and F at 127³ on the pod engine: the kernels' history equals the
+    plain ops' on the card, and the counts follow the schedule."""
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    for cycle in ("W", "F"):
+        p = params127.replace(cycle_type=cycle, print_progress=False)
+        K.reset_launches()
+        _, hist, plan, _ = run_spmd(p, 1, fuse="pod")
+        counts = nonzero(K.launches)
+        want = spmd_expected(plan, hist, [])
+        check(counts == want, f"pod {cycle} {label}: counts {counts} != "
+              f"{want}")
+        _, ref, _, _ = run_spmd(p.replace(backend="ref"), 1, fuse="pod")
+        check(hist == ref, f"pod {cycle} {label}: kernels {hist} != plain "
+              f"{ref}")
+        print(f"pod path 127^3 {cycle} {label}: depth {plan.npod}, "
+              f"identical to the plain ops, launches {counts}")
+
+
 def spmd_cli():
-    """--mesh 1,1,1 on the example configs, and the not-ported engines."""
+    """--mesh 1,1,1 on the example configs, with --fuse leg (the per-leg
+    engine) and as they are (--fuse auto, the pod engine), and the
+    not-ported engines."""
     from gpusolve_tpu_torch.ops import kernels as K
 
     for label, line in (("linear", "Solving linear problem"),
                         ("nonlinear", "Solving nonlinear problem"),
                         ("newton", "Solving newton problem")):
+        mode = {"linear": 0, "nonlinear": 1, "newton": 2}[label]
         K.reset_launches()
         args = [CONFS[label], "--mesh", "1,1,1", "--explain-backend",
                 "--check-every", "10"]
+        args += ["--validate"] if label != "linear" else []
+        rc, out, err = run_cli(args)
+        check(rc == 0, f"cli --mesh 1,1,1 (auto) {label} exited {rc}")
+        lines = out.splitlines()
+        check(line in lines, f"cli --mesh (auto): mode line {line!r}")
+        progress(lines, newton=label == "newton")
+        check("backend: fuse=auto -> pod" in err and
+              "backend: pod depth 1" in err,
+              f"cli --mesh {label}: --fuse auto did not take the pod engine")
+        check(K.launches[K.variant("pod_down", mode)]
+              and K.launches[K.variant("pod_up", mode)]
+              and not K.launches[K.variant("leg_block", mode)],
+              f"cli --mesh {label} (auto): launches {nonzero(K.launches)}")
+        if label != "linear":
+            m = [ln for ln in lines if ln.startswith("max-abs error")]
+            err_v = float(m[0].split(": ")[1])
+            check(math.isfinite(err_v) and err_v < 5e-4,
+                  f"cli --mesh (auto): max-abs error {err_v}")
+        print(f"cli --mesh 1,1,1 {label} (fuse=auto -> pod): launches "
+              f"{nonzero(K.launches)}")
+        K.reset_launches()
+        args = [CONFS[label], "--mesh", "1,1,1", "--explain-backend",
+                "--check-every", "10", "--fuse", "leg"]
         args += ["--validate"] if label != "linear" else []
         rc, out, err = run_cli(args)
         check(rc == 0, f"cli --mesh 1,1,1 {label} exited {rc}")
@@ -2199,20 +2456,18 @@ def spmd_cli():
         check("backend: level 0: CUDA shard-local kernels (ops/spmd_leg, "
               "ops/spmd_kernels) (fused-down, fused-up)" in err,
               "cli --mesh: the fused tags of level 0")
-        check(K.launches[K.variant("leg_block", {"linear": 0,
-                                                 "nonlinear": 1,
-                                                 "newton": 2}[label])],
-              "cli --mesh ran no leg")
-        print(f"cli --mesh 1,1,1 {label}: launches {nonzero(K.launches)}")
-    for extra in (["--fuse", "pod"], ["--halo", "rdma"],
-                  ["--dist-engine", "gspmd"]):
+        check(K.launches[K.variant("leg_block", mode)],
+              "cli --mesh --fuse leg ran no leg")
+        print(f"cli --mesh 1,1,1 --fuse leg {label}: launches "
+              f"{nonzero(K.launches)}")
+    for extra in (["--halo", "rdma"], ["--dist-engine", "gspmd"]):
         rc, _, err = run_cli([CONFS["linear"], "--mesh", "1,1,1", *extra])
         check(rc == 1 and "not ported" in err,
               f"cli --mesh {' '.join(extra)}: rc {rc}")
     rc, _, err = run_cli([CONFS["linear"], "--mesh", "2,2,1"])
     check(rc == 1 and "torchrun" in err, f"cli --mesh 2,2,1: rc {rc}")
-    print("cli --mesh: --fuse pod, --halo rdma, --dist-engine gspmd and a "
-          "mesh larger than the world exit 1")
+    print("cli --mesh: --halo rdma, --dist-engine gspmd and a mesh larger "
+          "than the world exit 1")
 
 
 def spmd_kernel_bytes(name, box, cnz=None):
@@ -2390,8 +2645,78 @@ def time_leg_kernels(base, rate, rows):
     torch.cuda.empty_cache()
 
 
+def chain_bytes(eng, up):
+    """Bytes and operations of one chain of ``eng``: its legs' (leg_bytes,
+    each input read once and each output written once), with the FAS
+    rest_v each up leg below the head reads (sub_rv)."""
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    p = eng.params
+    nbytes = ops = 0
+    for l in range(eng.npod):
+        box = eng.boxes[l]
+        kw = {"corr": True, "consumer": "norm" if l == 0 else None} if up \
+            else {"consumer": "restrict", "src_zero": l > 0 and not eng.fas}
+        b, o = leg_bytes(p.mode, kw, box, eng.boxes[l + 1],
+                         p.post_smoothing if up else p.pre_smoothing)
+        if up and eng.fas and l > 0:
+            b += 4 * inner(SK.box_dims(box))
+        nbytes += b
+        ops += o
+    return nbytes, ops
+
+
+def time_pod_kernels(base, rate, rows):
+    """pod_down and pod_up at 511³ on the one-rank plan (npod = 1, the
+    main path's) and a three-level chain, every mode: ms, bytes and bound,
+    the plain version's ms, and the same legs as one leg_block launch each
+    (ms).  No single PyTorch call computes a chain of legs: library_ms is
+    null.  The kernels line takes the npod = 1 chains."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.pod import build_pod_solver
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import pod as PD
+
+    mesh = gt.make_mesh((1, 1, 1))
+    for npod in (1, 3):
+        for mode in Mode:
+            p = base.replace(mode=mode, grid_dim=BIG, print_progress=False)
+            eng = build_pod_solver(p, mesh, npod=npod)
+            seeded = seeded_pod_state(eng, 1000 + npod)
+            for up in (False, True):
+                name = K.variant("pod_up" if up else "pod_down", mode)
+                st = clone_state(seeded)
+                ms = cuda_ms(lambda: run_chain(eng, st, "kernel", up), 5)
+                legs = cuda_ms(lambda: run_chain(eng, st, "legs", up), 5)
+                plain = cuda_ms(lambda: run_chain(eng, st, "plain", up), 1)
+                nbytes, ops = chain_bytes(eng, up)
+                by_bytes, by_ops = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
+                bound = max(by_bytes, by_ops)
+                bound_by = "bytes" if by_bytes >= by_ops else "operations"
+                blocks, per_sm, smem = PD.last_grid[name]
+                print(f"time {name} (511^3, npod={npod}, S=3): {ms:.3f} ms, "
+                      f"{nbytes / 1e9:.3f} GB, bound {bound:.3f} ms by "
+                      f"{bound_by} ({100 * bound / ms:.1f}% of it), the same "
+                      f"{npod} legs one launch each {legs:.3f} ms (chain/"
+                      f"legs {ms / legs:.3f}), plain {plain:.3f} ms, library "
+                      f"—; grid {blocks} blocks ({per_sm} resident an SM), "
+                      f"{smem} bytes of shared memory a block")
+                if npod == 1:
+                    rows[name] = {"ms": ms, "plain_ms": plain,
+                                  "bound_ms": bound, "bound_by": bound_by,
+                                  "library_ms": None}
+                del st
+            del eng, seeded
+            torch.cuda.empty_cache()
+
+
 def glue_class(key):
     """The part of the distributed cycle a profiler row belongs to."""
+    if re.search(r"pod_kernel", key):
+        return "pod chains"
     if re.search(r"sweep_block_kernel|residual_block_kernel|"
                  r"residual_restrict_kernel|prolong_add_block_kernel|"
                  r"leg_kernel", key):
@@ -2403,22 +2728,31 @@ def glue_class(key):
     return "torch glue"
 
 
-def time_spmd_cycles(params, label, batch_ms, rate):
+def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
+                     others=()):
     """Device ms per distributed cycle at 511³ on the (1,1,1) mesh (CUDA
-    events over 10 cycles), beside the batch engine's from the same call;
-    a profiler breakdown into the shard-local kernels, the replicated
-    levels' kernels and the torch glue; the idle share; peak memory."""
+    events over 10 cycles) on the per-leg (``fuse="leg"``) or the pod
+    engine (at its own depth, or ``npod``), beside the batch engine's from
+    the same call (and ``others``: (name, ms) of other engines in this
+    call); a profiler breakdown into the distributed levels' kernels (the
+    legs or the pod chains), the replicated levels' kernels and the torch
+    glue, with the glue's launches a cycle; the idle share; peak memory.
+    Returns the device ms a cycle."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.pod import PodEngine
     from gpusolve_tpu_torch.dist.spmd import build_spmd_solver
 
     k = 10
     torch.cuda.synchronize()
     base_gib = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    eng = build_spmd_solver(params, gt.make_mesh((1, 1, 1)))
+    mesh = gt.make_mesh((1, 1, 1))
+    eng = PodEngine(params, mesh, npod=npod) if npod else \
+        build_spmd_solver(params, mesh, fuse=fuse)
+    what = "spmd" if fuse == "leg" else f"pod npod={eng.npod}"
     state = eng.init_state()
     sums = torch.empty(k, device=DEVICE)
     eng.run_cycles(state, 2)  # warm
@@ -2434,11 +2768,13 @@ def time_spmd_cycles(params, label, batch_ms, rate):
     wall = (time.perf_counter() - t0) * 1e3 / k
     dev = a.elapsed_time(b) / k
     peak = torch.cuda.max_memory_allocated() / 2**30 - base_gib
-    print(f"spmd cycle {label}: {dev:.3f} ms/cycle device (CUDA events "
+    beside = "".join(f"; {name} {ms:.3f} ms/cycle in this call "
+                     f"({what}/{name} {dev / ms:.3f})" for name, ms in others)
+    print(f"{what} cycle {label}: {dev:.3f} ms/cycle device (CUDA events "
           f"over {k} cycles), {wall:.3f} ms/cycle wall; the batch engine "
-          f"{batch_ms:.3f} ms/cycle in this call (spmd/batch "
-          f"{dev / batch_ms:.3f}); peak memory of the engine {peak:.2f} GiB "
-          f"(state, buffers and temporaries)")
+          f"{batch_ms:.3f} ms/cycle in this call ({what}/batch "
+          f"{dev / batch_ms:.3f}){beside}; peak memory of the engine "
+          f"{peak:.2f} GiB (state, buffers and temporaries)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
@@ -2446,26 +2782,27 @@ def time_spmd_cycles(params, label, batch_ms, rate):
             eng.cycle(state, sums[i:i + 1])
         torch.cuda.synchronize()
         wall_p = (time.perf_counter() - t0) * 1e3
-    busy, any_rows = profile_rows(prof, k, "spmd-cycle")
+    busy, any_rows = profile_rows(prof, k, f"{what}-cycle")
     parts, glue_n = {}, 0
     for ev, us in device_events(prof):
         c = glue_class(ev.key)
         parts[c] = parts.get(c, 0.0) + us / 1e3 / k
         if c == "torch glue":
             glue_n += ev.count
-    print(f"profile spmd {label}: {glue_n / k:.1f} torch glue launches a "
-          f"cycle")
+    print(f"profile {what} {label}: {glue_n / k:.1f} torch glue launches "
+          "a cycle")
     if any_rows:
         split = "; ".join(f"{c} {ms:.3f} ms ({100 * ms * k / busy:.1f}%)"
                           for c, ms in sorted(parts.items()))
-        print(f"profile spmd {label}: {split}; busy {busy / k:.3f} ms/cycle "
-              f"-> idle share {1 - busy / (k * dev):.3f} of the event time "
-              f"({dev:.3f} ms), {1 - busy / wall_p:.3f} of the profiled "
-              f"wall ({wall_p / k:.3f} ms)")
+        print(f"profile {what} {label}: {split}; busy {busy / k:.3f} "
+              f"ms/cycle -> idle share {1 - busy / (k * dev):.3f} of the "
+              f"event time ({dev:.3f} ms), {1 - busy / wall_p:.3f} of the "
+              f"profiled wall ({wall_p / k:.3f} ms)")
     else:
-        print("profile spmd: no device time recorded (not measured)")
+        print(f"profile {what}: no device time recorded (not measured)")
     del state, eng
     torch.cuda.empty_cache()
+    return dev
 
 
 
@@ -2512,6 +2849,7 @@ def main() -> int:
     check_ghosts(base, rec)
     check_leg_kernels(base, rec)
     check_leg_ghosts(base, rec)
+    check_pod_kernels(base, rec)
 
     # Phase 3: each main path with its own counts.
     launched = {kname: 0 for kname in K.KERNELS}
@@ -2542,19 +2880,30 @@ def main() -> int:
             launched[kname] += n
         torch.cuda.empty_cache()
     # The distributed engine on the one-rank mesh, each mode: V(3,3) on
-    # the legs; V(6,6), past their sweep cap, on the per-op kernels.
+    # the legs; V(6,6), past their sweep cap, on the per-op kernels; the
+    # pod engine (fuse="pod", --fuse auto's choice) at V(3,3).
+    leg_hist = {}
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG)
-        counts = spmd_main_path(params, f"511^3 {label}", batch_hist[label])
+        counts, leg_hist[label] = spmd_main_path(
+            params, f"511^3 {label}", batch_hist[label])
         for kname, n in counts.items():
             launched[kname] += n
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG,
                                  pre_smoothing=6, post_smoothing=6)
-        counts = spmd_main_path(params, f"511^3 V(6,6) {label}",
-                                hist66[label], legs=False)
+        counts, _ = spmd_main_path(params, f"511^3 V(6,6) {label}",
+                                   hist66[label], legs=False)
         for kname, n in counts.items():
             launched[kname] += n
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG)
+        counts = pod_main_path(params, f"511^3 {label}", batch_hist[label],
+                               leg_hist[label])
+        for kname, n in counts.items():
+            launched[kname] += n
+        if label != "newton":
+            pod_other_cycles(gt.parse_config(CONFS[label]), label)
     missing = [kname for kname, n in launched.items() if n == 0]
     check(not missing, f"kernels no main path launched: {missing}")
 
@@ -2587,8 +2936,14 @@ def main() -> int:
     time_v1(base, rate, rows)
     time_block_kernels(base, rate, rows)
     time_leg_kernels(base, rate, rows)
-    time_spmd_cycles(lin, "511^3 LINEAR V(3,3)", lin_ms, rate)
-    time_spmd_cycles(fas, "511^3 FAS V(3,3)", fas_ms, rate)
+    time_pod_kernels(base, rate, rows)
+    for p, what, batch_ms in ((lin, "LINEAR", lin_ms), (fas, "FAS", fas_ms)):
+        label = f"511^3 {what} V(3,3)"
+        leg_ms = time_spmd_cycles(p, label, batch_ms, rate)
+        pod_ms = time_spmd_cycles(p, label, batch_ms, rate, fuse="pod",
+                                  others=(("per-leg", leg_ms),))
+        time_spmd_cycles(p, label, batch_ms, rate, fuse="pod", npod=3,
+                         others=(("per-leg", leg_ms), ("pod npod=1", pod_ms)))
 
     kernels_line = []
     for kname in K.KERNELS:
@@ -2596,6 +2951,7 @@ def main() -> int:
         kernels_line.append({
             "name": kname, "route": "cuda",
             "source": (V1_SRC if kname == "vcycle_fused" else
+                       POD_SRC if kname.startswith("pod_") else
                        LEG_SRC if kname.startswith("leg_block") else
                        SPMD_SRC if "_block" in kname else SRC),
             "replaces": REPLACES[kname], "launches": launched[kname],

@@ -17,7 +17,9 @@ mixed-precision refinement (``solver/refine.py``) and checkpoints
 (``utils/checkpoint.py``).  The distributed engine (``dist/``: the
 per-leg explicit-halo engine on ``torch.distributed``, four shard-local
 CUDA kernels) runs the same three modes on a process mesh; on one card
-as the ``(1, 1, 1)`` mesh, ``solve_spmd(params, make_mesh((1, 1, 1)))``.
+as the ``(1, 1, 1)`` mesh, ``solve_spmd(params, make_mesh((1, 1, 1)))``,
+or on the pod engine (every down leg in one launch, every up leg in
+another) with ``fuse="pod"``.
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``, or ``--platform cpu`` on the CLI).
 
@@ -39,7 +41,10 @@ from gpusolve_tpu_torch.config import (
     parse_config_text,
 )
 from gpusolve_tpu_torch.dist import (
+    PodPlan,
     SpmdPlan,
+    build_pod_solver,
+    choose_npod,
     make_mesh,
     newton_solve_spmd,
     solve_spmd,
@@ -53,9 +58,12 @@ __all__ = [
     "GridParams",
     "GridState",
     "Mode",
+    "PodPlan",
     "SpmdPlan",
     "Stencil",
     "build_grid",
+    "build_pod_solver",
+    "choose_npod",
     "make_mesh",
     "newton_solve",
     "newton_solve_spmd",

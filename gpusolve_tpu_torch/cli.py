@@ -37,7 +37,7 @@ Flags:
                              kernels (solver/refine.py)
   --refine-inner-tol T       the inner solves' relative tolerance
 
-Distributed (the per-leg spmd engine, dist/spmd.py):
+Distributed (the spmd engine: dist/spmd.py per leg, dist/pod.py pod):
   --mesh X,Y,Z               the process mesh; 1,1,1 runs in one process
                              (on the card, or --platform cpu), larger
                              meshes one process per shard under
@@ -46,9 +46,13 @@ Distributed (the per-leg spmd engine, dist/spmd.py):
                              with --platform cpu, else NCCL, one card per
                              rank); only rank 0 prints
   --dist-engine {auto,spmd,gspmd}, --fuse {auto,leg,pod},
-  --halo {ppermute,rdma}     the JAX CLI's engine flags: spmd, leg and
-                             ppermute run; gspmd, pod and rdma exit 1 (not
-                             ported yet), and --fuse auto takes leg
+  --halo {ppermute,rdma}     the JAX CLI's engine flags: spmd, leg, pod and
+                             ppermute run; gspmd and rdma exit 1 (not
+                             ported yet).  --fuse auto takes the pod engine
+                             where the reference's CLI does (a depth passes
+                             its gates), else leg, and says why; a
+                             multi-rank CUDA mesh takes leg (the pod
+                             chains' exchange needs peer-to-peer writes)
 With --mesh, --save-state, --load-state and --refine exit 1 (their
 distributed forms are not ported yet).
 """
@@ -59,11 +63,11 @@ import argparse
 import contextlib
 import os
 import sys
+from typing import Optional
 
 # Distributed engines and options not ported yet, with --mesh.
 _MESH_NOT_PORTED = {
     ("dist_engine", "gspmd"): "ROADMAP Queue 1 item 13, sharding.py",
-    ("fuse", "pod"): "ROADMAP Queue 2 items 13-14",
     ("halo", "rdma"): "ROADMAP Queue 2 item 12",
 }
 _MESH_NOT_PORTED_FLAGS = {
@@ -163,8 +167,9 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--fuse", choices=["auto", "leg", "pod"], default="auto",
-        help="with --mesh: one kernel per op of each leg (leg); the pod "
-        "engine is not ported, so auto takes leg",
+        help="with --mesh: one kernel per leg (leg), or every down leg of "
+        "a cycle in one launch and every up leg in another around a "
+        "replicated tail (pod); auto takes pod wherever its gates allow",
     )
     ap.add_argument(
         "--halo", choices=["ppermute", "rdma"], default="ppermute",
@@ -257,6 +262,13 @@ def _spmd_notes(params, eng, args, _explain) -> None:
         f"dist-engine=spmd fuse={args.fuse} halo={args.halo} "
         f"({nd} distributed levels, {plan.nlev - nd} replicated){fold}",
     ]
+    if args.fuse == "pod":
+        lines.append(
+            f"pod depth {nd}: levels 0..{nd - 1} in one down launch and one "
+            f"up launch (ops/pod, csrc/pod.cu), the tail from level {nd} "
+            + ("in place on the boundary block" if plan.tail_in_place
+               else "gathered from the boundary blocks")
+        )
     pre, post = params.pre_smoothing, params.post_smoothing
     for l in range(nd):
         # The per-level tags of the JAX CLI (gpusolve_tpu/cli.py:193-205),
@@ -276,13 +288,35 @@ def _spmd_notes(params, eng, args, _explain) -> None:
         )
     lines.append(
         f"levels {nd}..{plan.nlev - 1}: replicated on every rank, the "
-        "single-device per-op ops (ops/dispatch)"
+        "single-device per-op ops (ops/dispatch"
+        + (", one batch a tail group: ops/vcycle_batch.run_tail)"
+           if args.fuse == "pod" else ")")
     )
     _explain(lines)
 
 
+def _pod_refusal(params, mesh_shape, device) -> Optional[str]:
+    """Why ``--fuse auto`` takes the per-leg engine, or None for pod
+    (the JAX CLI's choice, gpusolve_tpu/cli.py:378-409: ``--halo rdma``
+    exits before it here; ``--backend ref`` stands for its ``--backend
+    xla``)."""
+    from gpusolve_tpu_torch.dist.pod import choose_npod
+
+    if params.backend == "ref":
+        return "--backend ref requests the plain ops"
+    n = mesh_shape[0] * mesh_shape[1] * mesh_shape[2]
+    if n > 1 and device.type == "cuda":
+        return ("a multi-rank CUDA mesh: the pod chains' exchange needs "
+                "peer-to-peer writes (ROADMAP Queue 2, row 12)")
+    if choose_npod(params, (mesh_shape[0], mesh_shape[1] * mesh_shape[2])) \
+            is None:
+        return "geometry/mode outside the pod gates"
+    return None
+
+
 def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
-    """--mesh: the per-leg spmd engine on this process's shard."""
+    """--mesh: the spmd engine (per leg, or pod) on this process's
+    shard."""
     import torch.distributed as dist
 
     from gpusolve_tpu_torch.config import Mode
@@ -304,10 +338,9 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
         )
         return 1
     if args.fuse == "auto":
-        args.fuse = "leg"
-        print("note: --fuse auto runs the per-leg engine: the pod engine is "
-              "not ported yet (ROADMAP Queue 2 items 13-14)", file=sys.stderr)
-        _explain(["fuse=auto -> leg"])
+        why = _pod_refusal(params, mesh_shape, device)
+        args.fuse = "leg" if why else "pod"
+        _explain([f"fuse=auto -> {args.fuse}" + (f" ({why})" if why else "")])
     started = False
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
         dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
@@ -319,7 +352,7 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
                 mesh_shape,
                 device=None if multi and device.type == "cuda" else device,
             )
-            eng = build_spmd_solver(params, mesh)
+            eng = build_spmd_solver(params, mesh, fuse=args.fuse)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
@@ -328,12 +361,13 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
             if params.mode == Mode.NEWTON:
                 state, _, plan = newton_solve_spmd(
                     params, mesh, check_every=args.check_every,
+                    fuse=args.fuse, plan=eng.plan,
                 )
                 which = 2
             else:
                 state, _, plan = solve_spmd(
                     params, mesh, plan=eng.plan,
-                    check_every=args.check_every,
+                    check_every=args.check_every, fuse=args.fuse,
                 )
                 which = 0
         if args.profile:

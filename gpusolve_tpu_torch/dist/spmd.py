@@ -45,6 +45,10 @@ replicated levels and Newton's restriction of ũ are glue everywhere.
 
 On a ``(1, 1, 1)`` mesh no collective is called; a missing neighbour's
 ghosts are zeros, the Dirichlet boundary, as ``lax.ppermute`` leaves them.
+
+``fuse="pod"`` runs the pod engine of ``dist/pod.py`` instead (its
+``PodEngine`` keeps this engine's contract), through the same entry
+points.
 """
 
 from __future__ import annotations
@@ -491,12 +495,15 @@ class SpmdEngine:
     (``gpusolve_tpu/dist/spmd.py:577-1650``, ``local_vcycle``)."""
 
     def __init__(self, params: GridParams, mesh: Mesh, cutoff: int = 4,
-                 local_backend: str = "auto"):
+                 local_backend: str = "auto",
+                 plan: Optional[SpmdPlan] = None):
         self.key = _cycle_key(params)
         self.local_backend = local_backend
         self.mesh = mesh
         self.cutoff = cutoff
-        self.plan = SpmdPlan(params, mesh.shape, cutoff, local_backend)
+        self.plan = plan if plan is not None else SpmdPlan(
+            params, mesh.shape, cutoff, local_backend
+        )
         self.dtype = torch_dtype(params.dtype)
         self.device = mesh.device
         self.ex = _Exchange(mesh, self.plan)
@@ -1002,7 +1009,6 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
 
 
 _NOT_PORTED = {
-    ("fuse", "pod"): "ROADMAP Queue 2 rows 13-14",
     ("halo", "rdma"): "ROADMAP Queue 2 row 12",
     ("tail", "pv2"): "ROADMAP Queue 1 item 3(c)",
 }
@@ -1036,26 +1042,38 @@ def _check_options(local_backend: str, halo: str, fuse: str,
 def build_spmd_solver(params: GridParams, mesh: Mesh, cutoff: int = 4,
                       local_backend: str = "auto", halo: str = "ppermute",
                       fuse: str = "leg", tail: str = "auto") -> SpmdEngine:
-    """The per-leg engine of this rank (``build_spmd_solver``,
-    ``gpusolve_tpu/dist/spmd.py:577``).  ``local_backend``: "auto" and
-    "pallas" run the kernels and the legs where the gates allow, "xla" the
-    per-op path on plain ops.  ``halo="ppermute"``, ``fuse="leg"`` and
-    ``tail`` "auto" or "off" (no tail either way) are the forms ported."""
+    """The engine of this rank (``build_spmd_solver``,
+    ``gpusolve_tpu/dist/spmd.py:577``): the per-leg engine, or with
+    ``fuse="pod"`` the pod engine (``dist/pod.py``, which takes neither
+    ``local_backend`` nor ``halo``, as the reference's).
+    ``local_backend``: "auto" and "pallas" run the kernels and the legs
+    where the gates allow, "xla" the per-op path on plain ops.
+    ``halo="ppermute"`` and ``tail`` "auto" or "off" (no tail either way)
+    are the forms ported."""
     _check_options(local_backend, halo, fuse, tail)
-    return SpmdEngine(params, mesh, cutoff, local_backend)
+    return _engine(params, mesh, cutoff, None, local_backend, fuse)
 
 
-def _engine(params, mesh, cutoff, plan, local_backend) -> SpmdEngine:
+def _engine(params, mesh, cutoff, plan, local_backend,
+            fuse="leg") -> SpmdEngine:
     """The engine cached on ``plan`` when it was built for the same
-    cycle, mesh, cutoff and local backend, else a new one, cached there."""
+    cycle, mesh, cutoff, local backend and engine, else a new one, cached
+    there.  A pod plan passed in gives the pod engine its depth."""
+    from gpusolve_tpu_torch.dist.pod import PodEngine, PodPlan
+
     eng = getattr(plan, "_engine", None)
     if (
         eng is not None and eng.key == _cycle_key(params)
         and eng.mesh == mesh and eng.cutoff == cutoff
         and eng.local_backend == local_backend
+        and isinstance(eng, PodEngine) == (fuse == "pod")
     ):
         return eng
-    eng = SpmdEngine(params, mesh, cutoff, local_backend)
+    if fuse == "pod":
+        npod = plan.npod if isinstance(plan, PodPlan) else None
+        eng = PodEngine(params, mesh, cutoff, local_backend, npod)
+    else:
+        eng = SpmdEngine(params, mesh, cutoff, local_backend)
     eng.plan._engine = eng
     return eng
 
@@ -1071,16 +1089,17 @@ def solve_spmd(
     timer: Optional[Timer] = None,
     tail: str = "auto",
 ) -> Tuple[GridState, List[float], SpmdPlan]:
-    """The distributed solve, any mode (``gpusolve_tpu/dist/spmd.py:1746``).
-    Returns ``(state, history, plan)``; the history is comparable with the
-    single-device solver's.
+    """The distributed solve, any mode (``gpusolve_tpu/dist/spmd.py:1746``),
+    on the per-leg engine or with ``fuse="pod"`` the pod engine (a pod
+    ``plan`` gives its depth).  Returns ``(state, history, plan)``; the
+    history is comparable with the single-device solver's.
 
     ``check_every=k`` runs k cycles per host sync and applies the stop test
     ``res <= initial / (1.0 / tol)`` between batches: the history records
     every cycle, and a solve may run up to k−1 cycles past the threshold,
     as in the JAX package."""
     _check_options(local_backend, halo, fuse, tail)
-    eng = _engine(params, mesh, cutoff, plan, local_backend)
+    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse)
     plan = eng.plan
     if state is None:
         state = eng.init_state()
@@ -1149,6 +1168,7 @@ def newton_solve_spmd(
     timer: Optional[Timer] = None,
     check_every: int = 1,
     tail: str = "auto",
+    plan: Optional[SpmdPlan] = None,
 ) -> Tuple[GridState, List[float], SpmdPlan]:
     """The distributed outer Newton iteration
     (``gpusolve_tpu/dist/spmd.py:2015``; reference
@@ -1159,13 +1179,14 @@ def newton_solve_spmd(
     ``newton_f``, the original RHS, is a tensor of its own (level 0's f
     holds F after each ``comp_f``), kept as ``plan.newton_f`` and
     ``state.newton_f``.  ``check_every`` batches the inner solve's cycles
-    (``solve_spmd``)."""
+    (``solve_spmd``).  ``plan``: a plan whose engine to reuse (a pod
+    plan: its depth), as ``solve_spmd`` takes one."""
     if params.mode != Mode.NEWTON:
         raise ValueError(
             f"newton_solve_spmd runs NEWTON mode, got {params.mode.name}"
         )
     _check_options(local_backend, halo, fuse, tail)
-    eng = _engine(params, mesh, cutoff, None, local_backend)
+    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse)
     plan = eng.plan
     if timer is None and params.print_progress:
         timer = Timer()
@@ -1197,7 +1218,7 @@ def newton_solve_spmd(
         eng.restrict_newton_v(state)
         solve_spmd(inner, mesh, cutoff, state=state, plan=plan,
                    initial_residual=fn, local_backend=local_backend,
-                   check_every=check_every)
+                   check_every=check_every, fuse=fuse)
         lvl0 = state.levels[0]
         lvl0.newton_v.add_(lvl0.v)
         res = eng.comp_f(state, timer)

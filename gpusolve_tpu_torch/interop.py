@@ -7,7 +7,10 @@ take the JAX fields as numpy arrays (``np.asarray`` of the JAX arrays; this
 module imports no JAX), crop them, and back.  ``spmd_state_from_numpy``
 and ``spmd_state_to_numpy`` do the same for the distributed engines'
 states: each distributed level's global array is cut into this rank's
-block.
+block.  ``pod_state_from_numpy`` and ``pod_state_to_numpy`` carry the
+pod engine's state (``dist/pod.py``) across by interior cells: the two
+packages lay the pod levels out differently, but each places a level's
+global cell i at index i of its global array.
 """
 
 from __future__ import annotations
@@ -206,4 +209,87 @@ def state_to_numpy(
             full[: a.shape[0], : a.shape[1], : a.shape[2]] = a
             fields[name] = full
         out.append(fields)
+    return out
+
+
+def _interior(arr: np.ndarray, dims: Dims) -> np.ndarray:
+    """The padded ``(n+2)³`` field of a global level array whose cell i
+    sits at index i: its interior cells, zero around them."""
+    nx, ny, nz = dims
+    out = np.zeros((nx + 2, ny + 2, nz + 2), dtype=arr.dtype)
+    out[1:nx + 1, 1:ny + 1, 1:nz + 1] = arr[1:nx + 1, 1:ny + 1, 1:nz + 1]
+    return out
+
+
+def pod_state_from_numpy(
+    params: GridParams,
+    plan,
+    arrays: Sequence[np.ndarray],
+    mesh,
+    newton_f: Optional[np.ndarray] = None,
+) -> GridState:
+    """A pod engine state (``dist/pod.PodPlan``) for this rank of ``mesh``
+    from the JAX pod engine's flat state (``np.asarray`` of each array,
+    ``gpusolve_tpu/dist/pod.py`` ``local_init``'s layout): per level ``v,
+    f`` and the mode's third field (FAS rest_v, Newton ũ), the pod levels
+    in the TPU's pod blocks, then the tail levels.  Each level's interior
+    cells go into this rank's block (the pod levels; the tail's root and
+    the tail levels are ``(n+2)³``).  NEWTON takes ``newton_f``, the
+    original right-hand side, in level 0's global layout."""
+    from gpusolve_tpu_torch.dist.spmd import _window
+
+    dtype = torch_dtype(params.dtype)
+    names = ("v", "f") + ((_third(params),) if _third(params) else ())
+    if len(arrays) != len(names) * plan.nlev:
+        raise ValueError(
+            f"{len(arrays)} arrays given, the plan has {plan.nlev} levels "
+            f"of {len(names)}"
+        )
+    dc = plan.data_coords(mesh.coords) + (0,)
+
+    def conv(arr, l):
+        full = torch.from_numpy(_interior(np.asarray(arr), plan.dims[l]))
+        if l < plan.n_dist:
+            b = plan.block[l]
+            full = _window(full, tuple(c * n for c, n in zip(dc, b)), b)
+        return full.to(device=mesh.device, dtype=dtype)
+
+    levels = []
+    for l in range(plan.nlev):
+        fields = {name: conv(arrays[len(names) * l + i], l)
+                  for i, name in enumerate(names)}
+        fields["r"] = torch.zeros_like(fields["v"])
+        levels.append(GridLevel(**fields))
+    nf = None
+    if params.mode == Mode.NEWTON:
+        if newton_f is None:
+            raise ValueError("NEWTON mode needs the original newton_f")
+        nf = conv(newton_f, 0)
+    return GridState(levels=tuple(levels), newton_f=nf)
+
+
+def pod_state_to_numpy(state: GridState, params: GridParams, plan,
+                       shapes: Sequence[Tuple[int, int, int]],
+                       mesh) -> List[np.ndarray]:
+    """The flat per-level ``v, f`` (and third field) of a pod engine
+    state in the JAX pod engine's layout: ``shapes[l]`` is level l's
+    global array shape there; this rank's interior cells of each level at
+    their global indices, zero elsewhere."""
+    names = ("v", "f") + ((_third(params),) if _third(params) else ())
+    dc = plan.data_coords(mesh.coords) + (0,)
+    out = []
+    for l, lvl in enumerate(state.levels):
+        nx, ny, nz = plan.dims[l]
+        for name in names:
+            a = getattr(lvl, name).detach().cpu().numpy()
+            full = np.zeros(shapes[l], dtype=a.dtype)
+            if l < plan.n_dist:
+                x0, x1, y0, y1, z0, z1 = plan.box(l, mesh.coords)
+                gx, gy = dc[0] * a.shape[0], dc[1] * a.shape[1]
+                full[gx + x0:gx + x1 + 1, gy + y0:gy + y1 + 1, z0:z1 + 1] = \
+                    a[x0:x1 + 1, y0:y1 + 1, z0:z1 + 1]
+            else:
+                full[1:nx + 1, 1:ny + 1, 1:nz + 1] = \
+                    a[1:nx + 1, 1:ny + 1, 1:nz + 1]
+            out.append(full)
     return out

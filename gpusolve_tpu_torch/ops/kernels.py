@@ -5,8 +5,10 @@ The kernels live in ``csrc/``: the per-op kernels in ``multigrid.cu``, the
 whole-V-cycle cooperative kernel in ``vcycle_fused.cu`` (its wrapper is
 ``ops/vcycle_fused.py``), the distributed engine's shard-local kernels in
 ``spmd_block.cu`` (their wrappers are ``ops/spmd_kernels.py``), their
-trapezoid leg in ``spmd_leg.cu`` (its wrapper is ``ops/spmd_leg.py``),
-their shared point arithmetic in ``mg_device.cuh``.  On first use each source is
+trapezoid leg in ``spmd_leg.cu`` (its wrapper is ``ops/spmd_leg.py``; its
+body in ``leg_device.cuh``), the pod engine's chains of legs in
+``pod.cu`` (``ops/pod.py``), their shared point arithmetic in
+``mg_device.cuh``.  On first use each source is
 compiled with ``nvcc
 -gencode arch=compute_90a,code=sm_90a``, the sources in parallel, and
 linked into one shared library with a plain C interface under
@@ -57,9 +59,9 @@ Dims = Tuple[int, int, int]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "multigrid.cu", CSRC / "vcycle_fused.cu", CSRC / "spmd_block.cu",
-    CSRC / "spmd_leg.cu",
+    CSRC / "spmd_leg.cu", CSRC / "pod.cu",
 )
-HEADERS = (CSRC / "mg_device.cuh",)
+HEADERS = (CSRC / "mg_device.cuh", CSRC / "leg_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +79,8 @@ KERNELS = (
     "residual_restrict_block", "residual_restrict_block_fas",
     "residual_restrict_block_newton", "prolong_add_block",
     "leg_block", "leg_block_fas", "leg_block_newton",
+    "pod_down", "pod_down_fas", "pod_down_newton",
+    "pod_up", "pod_up_fas", "pod_up_newton",
 )
 # Launches of each kernel since the last reset_launches(): only the CUDA
 # launches count, never the plain versions.
@@ -210,6 +214,7 @@ def _bind(path: Path):
         "mg_prolong_add_block": ([p, p] + [i] * 11 + [p], i),
         "mg_leg_grid": ([p, p], i),
         "mg_leg_block": ([p, p, p, p, p, i, p], i),
+        "mg_pod_chain": ([i, i, p, p, p, p, p, i, p, p], i),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)

@@ -176,7 +176,7 @@ def _coarse_keep(shape, starts, glob: Glob, cdims, device):
 def leg_block_plain(
     v_out, v, f, slabs, box, glob, params, h, S, *, newton_v=None,
     src_zero=False, coarse=None, consumer=None, cout=None, cbox=None,
-    cdims=None, tau_h=0.0,
+    cdims=None, tau_h=0.0, sub_rv=None,
 ) -> Optional[torch.Tensor]:
     """Plain version of :func:`leg_block`: every generation over the whole
     extended block (cells near its outer edge are wrong, and no output
@@ -204,7 +204,10 @@ def leg_block_plain(
     loc = (slice(x0 + G, x1 + G + 1), slice(y0 + gy, y1 + gy + 1),
            slice(z0, z1 + 1))
     if not box_empty(box):
-        v_out[box_slices(box)] = e[loc]
+        out = e[loc]
+        if sub_rv is not None:
+            out = out - sub_rv[box_slices(box)]
+        v_out[box_slices(box)] = out
     if consumer is None:
         return None
     r = ref.residual_point(params, _stencil_all(e, params, h), e, fe, nve)
@@ -310,6 +313,7 @@ def leg_block(
     cbox: Optional[Box] = None,
     cdims=None,
     tau_h: float = 0.0,
+    sub_rv: Optional[torch.Tensor] = None,
 ) -> Optional[torch.Tensor]:
     """S damped-Jacobi sweeps of a block over ``box`` into ``v_out``, from
     v (or 0 with ``src_zero``, or v + P(coarse) with ``coarse=(vc,
@@ -320,7 +324,40 @@ def leg_block(
     ``consumer="restrict"`` writes the restricted post-sweep residual into
     ``cout[0]`` over ``cbox`` and, in NONLINEAR mode, R(v) into ``cout[1]``
     and ``cout[2]`` and the tau fold into ``cout[0]`` (``tau_h`` the
-    coarse h, ``cdims`` the coarse level's dims)."""
+    coarse h, ``cdims`` the coarse level's dims).  With ``sub_rv`` (FAS
+    rest_v) the leg writes generation S − sub_rv, one float32 subtraction
+    a cell: the pod engine's up legs below a chain's head."""
+    kw = dict(newton_v=newton_v, src_zero=src_zero, coarse=coarse,
+              consumer=consumer, cout=cout, cbox=cbox, cdims=cdims,
+              tau_h=tau_h, sub_rv=sub_rv)
+    check_leg(params, S, **kw)
+    if f.device.type == "cpu":
+        return leg_block_plain(v_out, v, f, slabs, box, glob, params, h, S,
+                               **kw)
+    ptrs, ints, fl, partials = _launch_args(
+        v_out, v, f, slabs, box, glob, params, h, S, **kw
+    )
+    if box_empty(box):
+        return v_out.new_zeros(1, dtype=torch.float64) \
+            if consumer == "norm" else None
+    rc = kernels.lib().mg_leg_block(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(ints))(*ints),
+        (ctypes.c_float * len(fl))(*fl), *_tap_args(params),
+        kernels._stream(f.device),
+    )
+    name = kernels.variant("leg_block", params.mode)
+    kernels._check_rc(rc, name)
+    kernels.launches[name] += 1
+    return partials
+
+
+def check_leg(params: GridParams, S: int, *, newton_v=None, src_zero=False,
+              coarse=None, consumer=None, cout=None, cbox=None, cdims=None,
+              tau_h=0.0, sub_rv=None) -> None:
+    """The leg arguments' consistency, on any device: the consumer, the
+    sweep cap, which producer and epilogue go with which consumer and
+    mode."""
     fas = params.mode == Mode.NONLINEAR
     if consumer not in CONSUMERS:
         raise ValueError(f"consumer must be one of {CONSUMERS}, got "
@@ -328,18 +365,30 @@ def leg_block(
     cap = MAX_CORR_SWEEPS if coarse is not None else MAX_SWEEPS
     if not 1 <= S <= cap:
         raise ValueError(f"a leg takes 1..{cap} sweeps, got {S}")
-    if src_zero and (coarse is not None or fas):
-        raise ValueError("src_zero starts a LINEAR or NEWTON down leg")
     if coarse is not None and consumer == "restrict":
         raise ValueError("the corr-first leg has no restrict consumer")
+    if src_zero and (coarse is not None or fas):
+        raise ValueError("src_zero starts a LINEAR or NEWTON down leg")
     if consumer == "restrict" and fas and not tau_h > 0.0:
         raise ValueError("a NONLINEAR restrict leg needs tau_h")
-    if f.device.type == "cpu":
-        return leg_block_plain(
-            v_out, v, f, slabs, box, glob, params, h, S, newton_v=newton_v,
-            src_zero=src_zero, coarse=coarse, consumer=consumer, cout=cout,
-            cbox=cbox, cdims=cdims, tau_h=tau_h,
-        )
+    if sub_rv is not None and (not fas or consumer is not None):
+        raise ValueError("sub_rv is the FAS v - rest_v fold of a leg with "
+                         "no consumer")
+
+
+def _tap_args(params: GridParams):
+    t = kernels._taps(params.stencil)
+    return t.val, t.off, t.n
+
+
+def _launch_args(
+    v_out, v, f, slabs, box, glob, params, h, S, *, newton_v, src_zero,
+    coarse, consumer, cout, cbox, cdims, tau_h, sub_rv,
+):
+    """Checks one leg's CUDA tensors and gives its C arguments: the
+    pointer, int and float arrays of ``mg_leg_block`` and the norm
+    partials it writes (None without the norm consumer)."""
+    fas = params.mode == Mode.NONLINEAR
     dev = kernels._cuda_device(f)
     shape = tuple(f.shape)
     bx, by, bz = shape
@@ -351,8 +400,10 @@ def leg_block(
         kernels._check(v, "v", shape, dev)
     if nv is not None:
         kernels._check(nv, "newton_v", shape, dev)
-    if v_out.data_ptr() in _ptrs(v, f, nv):
-        raise ValueError("v_out must not alias v, f or newton_v")
+    if sub_rv is not None:
+        kernels._check(sub_rv, "sub_rv", shape, dev)
+    if v_out.data_ptr() in _ptrs(v, f, nv, sub_rv):
+        raise ValueError("v_out must not alias v, f, newton_v or sub_rv")
     _check_box(box, shape)
     names = (["f"] if src_zero else ["v", "f"]) + (["nv"] if nv is not None
                                                    else [])
@@ -386,20 +437,16 @@ def leg_block(
         ci = [cshape[1], cshape[2], *cbox, *cdims]
     elif coarse is not None:
         ci = [cshape[1], cshape[2]] + [0] * 9
-    if box_empty(box):
-        return v_out.new_zeros(1, dtype=torch.float64) \
-            if consumer == "norm" else None
-    L = kernels.lib()
     ints = [
         int(params.mode), CONSUMERS.index(consumer), int(slabs is not None),
         int(ys), S, int(src_zero), int(coarse is not None), bx, by, bz,
         *box, *glob, *ci,
     ]
-    iv = (ctypes.c_int * len(ints))(*ints)
     partials = None
-    if consumer == "norm":
+    if consumer == "norm" and not box_empty(box):
         grid = (ctypes.c_longlong * 4)()
-        rc = L.mg_leg_grid(iv, grid)
+        rc = kernels.lib().mg_leg_grid((ctypes.c_int * len(ints))(*ints),
+                                       grid)
         kernels._check_rc(rc, "leg_block")
         partials = torch.empty(grid[0] * grid[1] * grid[2],
                                dtype=torch.float64, device=dev)
@@ -409,16 +456,9 @@ def leg_block(
         s = sl.get(name) or (None,) * 4
         fields += [t, *s]
     cfield = [vc, *(cs or (None,) * 4)]
-    ptrs = _ptrs(v_out, *fields, *cfield, partials, fc, vco, rvo)
-    pv = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    ptrs = _ptrs(v_out, *fields, *cfield, partials, fc, vco, rvo, sub_rv)
     pre_fac = params.stencil.diag / (h * h)
     fl = [1.0 / (h * h), (h * h) / params.stencil.diag, params.omega,
           params.gamma, pre_fac,
           1.0 / (tau_h * tau_h) if tau_h > 0.0 else 0.0]
-    fv = (ctypes.c_float * len(fl))(*fl)
-    t = kernels._taps(params.stencil)
-    rc = L.mg_leg_block(pv, iv, fv, t.val, t.off, t.n, kernels._stream(dev))
-    name = kernels.variant("leg_block", params.mode)
-    kernels._check_rc(rc, name)
-    kernels.launches[name] += 1
-    return partials
+    return ptrs, ints, fl, partials

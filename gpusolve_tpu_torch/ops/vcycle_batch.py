@@ -33,6 +33,15 @@ vcycle.py:86-148):
     never starts from zero.
 A repeated coarse visit (W, F) continues from the v the previous visit
 left.
+
+``run_tail`` is the batch as the pod engine's replicated tail runs it
+(``dist/pod.py``; ``batch_call`` with ``ncyc`` cycles, ``thr = −1``,
+``zero_start`` and ``alloc0``, ``pallas_vcycle2.py:281-316``,
+``:1506-1508``): a fixed number of cycles on the levels below the pod,
+no norm and no stop.  Its root is the pod's boundary block: on one rank
+the pod lays that block out as ``(n+2)³``, this engine's layout, so the
+tail runs on it in place and needs no ``alloc0``; on a larger mesh the
+pod engine gathers it into that layout (one embed).
 """
 
 from __future__ import annotations
@@ -61,22 +70,22 @@ def level_visits(nlev: int, cycle_type: str) -> List[int]:
     return visits
 
 
-def launches_per_cycle(params: GridParams) -> dict:
+def launches_per_cycle(params: GridParams, norm: bool = True) -> dict:
     """Kernel launches one cycle makes, by kernel (the count the launch
     counters must show), for the cycle's mode.  Each visit of a
     non-coarsest level runs pre + post sweeps, one residual, one
     prolongation and its restriction: LINEAR and NEWTON one
     ``restrict_zero``; FAS two ``restrict`` (R(r); R(v) into v and
     rest_v), one ``apply_fas`` and one ``subtract``.  Each visit of the
-    coarsest runs pre + post sweeps; the cycle ends with the norm-only
-    residual and the finalize."""
+    coarsest runs pre + post sweeps; with ``norm`` (not in ``run_tail``)
+    the cycle ends with the norm-only residual and the finalize."""
     nlev = params.num_levels
     visits = level_visits(nlev, params.cycle_type)
     sweeps = params.pre_smoothing + params.post_smoothing
     inner = sum(visits[:-1])
     counts = {
-        kernels.variant("residual", params.mode): inner + 1,
-        "finalize": 1,
+        kernels.variant("residual", params.mode): inner + int(norm),
+        "finalize": int(norm),
         kernels.variant("jacobi_sweep", params.mode): sweeps * sum(visits),
     }
     if params.mode == Mode.NONLINEAR:
@@ -84,7 +93,7 @@ def launches_per_cycle(params: GridParams) -> dict:
     else:
         counts["restrict_zero"] = inner
     counts["prolong_add"] = inner
-    return counts
+    return {k: n for k, n in counts.items() if n}
 
 
 def _cycle(
@@ -142,6 +151,34 @@ def _cycle(
         smooth_level(i, params.post_smoothing)
 
     cycle_at(0, params.cycle_type)
+
+
+def run_tail(
+    levels: List[GridLevel],
+    params: GridParams,
+    n: int,
+    *,
+    zero_start: bool = False,
+    done: Optional[torch.Tensor] = None,
+) -> None:
+    """``n`` cycles of ``params.cycle_type`` on ``levels`` (root first;
+    ``params`` the root's grid) in place, with no norm and no stop.
+
+    ``zero_start``: the first cycle's root starts from v = 0, as the first
+    visit after a restriction does (LINEAR and NEWTON); the root's v is
+    zeroed here (one fill) and read as zero.  Refused in FAS, whose coarse
+    v starts at R(v), as the reference refuses it
+    (``pallas_vcycle2.py:316-317``).  ``done``: the flag every op reads,
+    never set here; pass one to keep the ops from making their own."""
+    if zero_start:
+        if params.mode == Mode.NONLINEAR:
+            raise ValueError(
+                "zero_start is refused in NONLINEAR (FAS) mode: the coarse "
+                "v starts at R(v)"
+            )
+        levels[0].v.zero_()
+    for _ in range(n):
+        _cycle(levels, params, done)
 
 
 def run(

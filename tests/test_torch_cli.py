@@ -1,8 +1,9 @@
 """The port's CLI on the CPU: the reference's output lines in every mode,
 the flags of the JAX CLI's single-device surface, --explain-backend's
-engine lines, and --mesh: the per-leg spmd engine on the one-rank mesh
-with the JAX CLI's lines, and a clear exit 1 for the distributed engines
-and flags not ported yet and for a mesh larger than the world."""
+engine lines, and --mesh: the spmd engine (per leg, or pod) on the
+one-rank mesh with the JAX CLI's lines, and a clear exit 1 for the
+distributed engines and flags not ported yet and for a mesh larger than
+the world."""
 
 import os
 import re
@@ -83,7 +84,8 @@ def test_cli_not_ported_flags_exit_1(
     lines = out.splitlines()
     if args[0] == "--mesh":
         assert [ln for ln in lines if LINE.match(ln)]
-        assert "note: --fuse auto runs the per-leg engine" in err
+        # --fuse auto takes the pod engine, silently, as the JAX CLI does.
+        assert "per-leg" not in err
     elif args[0] == "--refine":
         res = [float(LINE.match(ln).group(2)) for ln in lines
                if LINE.match(ln)]
@@ -186,7 +188,7 @@ def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
     extra = ["--validate"] if mode else []
     assert cli.main([path, "--mesh", "1,1,1", "--platform", "cpu",
                      "--explain-backend", "--check-every", "2",
-                     "--dtype", "float64", *extra]) == 0
+                     "--dtype", "float64", "--fuse", "leg", *extra]) == 0
     out, err = capsys.readouterr()
     assert "backend: dist-engine=spmd fuse=leg halo=ppermute" in err
     assert "backend: level 0: plain shard-local ops (float64)" in err
@@ -209,7 +211,6 @@ def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--mesh", "1,1,1", "--fuse", "pod"], "not ported"),
     (["--mesh", "1,1,1", "--halo", "rdma"], "not ported"),
     (["--mesh", "1,1,1", "--dist-engine", "gspmd"], "not ported"),
     (["--mesh", "1,1,1", "--refine"], "not ported"),
@@ -222,14 +223,28 @@ def test_cli_mesh_exits_1(small_conf, capsys, args, message):
     assert message in capsys.readouterr().err
 
 
-def test_cli_mesh_fused_tags(small_conf, capsys):
-    """--explain-backend with --mesh prints each distributed level's
-    (fused-down, fused-up) tags, as the JAX CLI does, and the gate that
-    refused a leg: at 31³ on the one-rank mesh, levels 0 and 1 run both
-    legs and the junction level 2 neither."""
+def test_cli_mesh_fuse_pod(small_conf, capsys):
+    """--fuse pod with --mesh runs the pod engine (it exited 1 as not
+    ported): the progress lines, the pod depth and each pod level's
+    (fused-down, fused-up) tags under --explain-backend."""
     path = small_conf(dims=(31, 31, 31), maxiter=2)
     assert cli.main([path, "--mesh", "1,1,1", "--platform", "cpu",
-                     "--explain-backend"]) == 0
+                     "--explain-backend", "--fuse", "pod"]) == 0
+    out, err = capsys.readouterr()
+    assert len([ln for ln in out.splitlines() if LINE.match(ln)]) == 2
+    assert "backend: dist-engine=spmd fuse=pod halo=ppermute" in err
+    assert "backend: pod depth 1" in err
+    assert re.search(r"backend: level 0: .*\(fused-down, fused-up\)", err)
+
+
+def test_cli_mesh_fused_tags(small_conf, capsys):
+    """--explain-backend with --mesh --fuse leg prints each distributed
+    level's (fused-down, fused-up) tags, as the JAX CLI does, and the gate
+    that refused a leg: at 31³ on the one-rank mesh, levels 0 and 1 run
+    both legs and the junction level 2 neither."""
+    path = small_conf(dims=(31, 31, 31), maxiter=2)
+    assert cli.main([path, "--mesh", "1,1,1", "--platform", "cpu",
+                     "--explain-backend", "--fuse", "leg"]) == 0
     err = capsys.readouterr().err
     for l in (0, 1):
         assert re.search(rf"backend: level {l}: .*\(fused-down, fused-up\)",

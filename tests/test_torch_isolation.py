@@ -24,7 +24,7 @@ def port_sources():
     for dirpath, _, names in os.walk(PKG):
         files += [
             os.path.join(dirpath, n) for n in names
-            if n.endswith((".py", ".cu"))
+            if n.endswith((".py", ".cu", ".cuh"))
         ]
     return files
 
@@ -33,7 +33,9 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, gpusolve_tpu_torch, gpusolve_tpu_torch.cli, "
         "gpusolve_tpu_torch.interop, gpusolve_tpu_torch.ops.vcycle_batch, "
-        "gpusolve_tpu_torch.dist.spmd, gpusolve_tpu_torch.ops.spmd_kernels; "
+        "gpusolve_tpu_torch.dist.spmd, gpusolve_tpu_torch.ops.spmd_kernels, "
+        "gpusolve_tpu_torch.dist.pod, gpusolve_tpu_torch.ops.pod, "
+        "gpusolve_tpu_torch.ops.spmd_leg; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gpusolve_tpu' or m.startswith('gpusolve_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -116,3 +118,24 @@ def test_cpu_spmd_solve_leaves_counters_at_zero():
 
         with um.patch.object(torch.cuda, "is_available", lambda: False):
             gt.make_mesh((1, 1, 1))
+
+
+def test_cpu_pod_solve_leaves_counters_at_zero():
+    """The pod engine on CPU tensors runs the plain chains and the tail's
+    plain ops: no counter moves, in any mode; its module sources are
+    scanned above (ops/pod.py, dist/pod.py, csrc/pod.cu, leg_device.cuh)."""
+    names = {os.path.relpath(p, PKG) for p in port_sources()}
+    assert {"ops/pod.py", "dist/pod.py", "ops/csrc/pod.cu",
+            "ops/csrc/leg_device.cuh"} <= names
+    kernels.reset_launches()
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    for mode in range(3):
+        params = gt.parse_config(
+            CONF, grid_dim=(15, 15, 15), maxiter=2, print_progress=False,
+            mode=mode,
+        )
+        if mode == 2:
+            gt.newton_solve_spmd(params, mesh, fuse="pod")
+        else:
+            gt.solve_spmd(params, mesh, fuse="pod", check_every=2)
+    assert all(n == 0 for n in kernels.launches.values())

@@ -191,7 +191,7 @@ KEYWORDS = [
     ({}, None), ({"local_backend": "pallas"}, None),
     ({"local_backend": "xla"}, None), ({"tail": "off"}, None),
     ({"halo": "ppermute", "fuse": "leg", "tail": "auto"}, None),
-    ({"fuse": "pod"}, "fuse='pod' is not ported"),
+    ({"fuse": "pod"}, None),
     ({"halo": "rdma"}, "halo='rdma' is not ported"),
     ({"tail": "pv2"}, "tail='pv2' is not ported"),
     ({"fuse": "wide"}, "fuse must be 'leg' or 'pod'"),
@@ -206,7 +206,8 @@ KEYWORDS = [
 def test_spmd_keywords(kw, error):
     """build_spmd_solver, solve_spmd and newton_solve_spmd take the
     reference's local_backend, halo, fuse and tail keywords: the ported
-    values run (``"xla"`` without legs), the others raise ValueError."""
+    values run (``"xla"`` without legs; ``fuse="pod"`` the pod engine,
+    every pod level on legs), the others raise ValueError."""
     mesh = gt.make_mesh((1, 1, 1), device="cpu")
     lin, newt = _tparams(0, (15, 15, 15), maxiter=1), \
         _tparams(2, (15, 15, 15), maxiter=1)
