@@ -78,7 +78,7 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
      above 1e-2·initial (FAS 1e-1·initial);
   4. the CLI with --mesh 1,1,1 on the three example configs, with --fuse
      leg and as they are (--fuse auto resolves to the pod engine), and the
-     engines and flags not ported (exit 1);
+     engine not ported (exit 1);
   5. each shard-local kernel's time, bound, plain and library time at the
      511³ level-0 block, and each leg variant's; device ms per 511³ spmd
      cycle beside the batch engine's, a profiler split into the
@@ -103,6 +103,29 @@ The pod engine (dist/pod.py, fuse="pod") on the (1,1,1) mesh:
      and 3) beside the per-leg and batch engines', with the profiler split
      (pod chains, tail kernels, torch glue and its launches a cycle), the
      idle share and peak memory.
+
+The rdma exchange (ops/rdma.py, csrc/rdma_exchange.cu; halo="rdma" on
+the per-leg engine):
+  2. (a) rdma_exchange on the one-rank mesh against its plain version, bit
+     for bit (the zero fill, the receive buffers NaN before), at the 511³
+     plan's 640³ level-0 block (3 fields, G = 8) and 320³ level-1 block
+     (1 field, GC = 5), with its ms, bytes, bound, plain ms and the
+     library's (one zero_() a slab); (b) 2 and 4 processes spawned on the
+     one card (a gloo group over a FileStore carries the CUDA IPC handles
+     and the barriers), each rank one shard of the (m,1,1) plan's 511³
+     level-0 blocks and of odd (9,5,7) blocks: 50 exchanges with new
+     contents each, every slab bit-identical to the plain version over the
+     same group on CPU copies of the planes it reads; then each rank's
+     kernel and library (copy_ into the IPC-opened peer buffers, zero_ at
+     an edge) times, CUDA events taken while the card time-slices the
+     ranks' contexts, and the wrapper's wall time with its host barriers;
+  3. (c) solve_spmd / newton_solve_spmd with halo="rdma" at 511³ V(3,3)
+     on the (1,1,1) mesh, all three modes: plan.rdma_active, counts equal
+     to launches_per_cycle (one rdma_exchange a leg, two a corr-first
+     leg), histories bit-identical to halo="ppermute" in the same call;
+  4. (d) --mesh 1,1,1 --halo rdma on the three examples: --fuse auto ->
+     leg with the reference's reason, the --fuse leg run's residuals;
+  5. device ms per 511³ cycle with halo="rdma" beside halo="ppermute".
 
 The line before the last is the JSON object {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}.
@@ -131,6 +154,7 @@ V1_SRC = "gpusolve_tpu_torch/ops/csrc/vcycle_fused.cu"
 SPMD_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_block.cu"
 LEG_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_leg.cu"
 POD_SRC = "gpusolve_tpu_torch/ops/csrc/pod.cu"
+RDMA_SRC = "gpusolve_tpu_torch/ops/csrc/rdma_exchange.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
 V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
@@ -176,6 +200,7 @@ REPLACES = {
     "pod_up": "gpusolve_tpu/ops/pallas_pod.py:741",
     "pod_up_fas": "gpusolve_tpu/ops/pallas_pod.py:741",
     "pod_up_newton": "gpusolve_tpu/ops/pallas_pod.py:741",
+    "rdma_exchange": "gpusolve_tpu/ops/pallas_spmd.py:1919",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # Operations counted for one e^x (a range reduction, a polynomial and a
@@ -2163,7 +2188,8 @@ def counting_spmd_inner():
         tsp.solve_spmd = solve
 
 
-def run_spmd(params, check_every, local_backend="auto", fuse="leg"):
+def run_spmd(params, check_every, local_backend="auto", fuse="leg",
+             halo="ppermute"):
     import torch
 
     import gpusolve_tpu_torch as gt
@@ -2173,11 +2199,12 @@ def run_spmd(params, check_every, local_backend="auto", fuse="leg"):
     t0 = time.perf_counter()
     if params.mode == gt.Mode.NEWTON:
         state, hist, plan = gt.newton_solve_spmd(
-            params, mesh, local_backend=local_backend, fuse=fuse)
+            params, mesh, local_backend=local_backend, fuse=fuse, halo=halo)
     else:
         state, hist, plan = gt.solve_spmd(params, mesh,
                                           local_backend=local_backend,
-                                          check_every=check_every, fuse=fuse)
+                                          check_every=check_every, fuse=fuse,
+                                          halo=halo)
     torch.cuda.synchronize()
     return state, hist, plan, time.perf_counter() - t0
 
@@ -2406,8 +2433,10 @@ def pod_other_cycles(params127, label):
 
 def spmd_cli():
     """--mesh 1,1,1 on the example configs, with --fuse leg (the per-leg
-    engine) and as they are (--fuse auto, the pod engine), and the
-    not-ported engines."""
+    engine), as they are (--fuse auto, the pod engine) and with --halo
+    rdma (--fuse auto -> leg, the reference's reason; the --fuse leg
+    run's progress lines, residual for residual), and the not-ported
+    engine."""
     from gpusolve_tpu_torch.ops import kernels as K
 
     for label, line in (("linear", "Solving linear problem"),
@@ -2460,14 +2489,35 @@ def spmd_cli():
               "cli --mesh --fuse leg ran no leg")
         print(f"cli --mesh 1,1,1 --fuse leg {label}: launches "
               f"{nonzero(K.launches)}")
-    for extra in (["--halo", "rdma"], ["--dist-engine", "gspmd"]):
-        rc, _, err = run_cli([CONFS["linear"], "--mesh", "1,1,1", *extra])
-        check(rc == 1 and "not ported" in err,
-              f"cli --mesh {' '.join(extra)}: rc {rc}")
+        leg_lines = progress(lines, newton=label == "newton")
+        K.reset_launches()
+        args = [CONFS[label], "--mesh", "1,1,1", "--explain-backend",
+                "--check-every", "10", "--halo", "rdma"]
+        args += ["--validate"] if label != "linear" else []
+        rc, out, err = run_cli(args)
+        check(rc == 0, f"cli --mesh 1,1,1 --halo rdma {label} exited {rc}")
+        lines = out.splitlines()
+        check(line in lines, f"cli --halo rdma: mode line {line!r}")
+        check("backend: fuse=auto -> leg (--halo rdma is a per-leg engine "
+              "feature)" in err and "fuse=leg halo=rdma" in err,
+              f"cli --halo rdma {label}: --fuse auto did not take leg")
+        got = progress(lines, newton=label == "newton")
+        check(got == leg_lines, f"cli --halo rdma {label}: {got} != the "
+              f"--fuse leg run's {leg_lines}")
+        check(K.launches["rdma_exchange"]
+              and K.launches[K.variant("leg_block", mode)],
+              f"cli --halo rdma {label}: launches {nonzero(K.launches)}")
+        print(f"cli --mesh 1,1,1 --halo rdma {label} (fuse=auto -> leg): "
+              f"the --fuse leg run's residuals, launches "
+              f"{nonzero(K.launches)}")
+    rc, _, err = run_cli([CONFS["linear"], "--mesh", "1,1,1",
+                          "--dist-engine", "gspmd"])
+    check(rc == 1 and "not ported" in err,
+          f"cli --mesh --dist-engine gspmd: rc {rc}")
     rc, _, err = run_cli([CONFS["linear"], "--mesh", "2,2,1"])
     check(rc == 1 and "torchrun" in err, f"cli --mesh 2,2,1: rc {rc}")
-    print("cli --mesh: --halo rdma, --dist-engine gspmd and a mesh larger "
-          "than the world exit 1")
+    print("cli --mesh: --dist-engine gspmd and a mesh larger than the world "
+          "exit 1")
 
 
 def spmd_kernel_bytes(name, box, cnz=None):
@@ -2717,6 +2767,8 @@ def glue_class(key):
     """The part of the distributed cycle a profiler row belongs to."""
     if re.search(r"pod_kernel", key):
         return "pod chains"
+    if re.search(r"rdma_kernel", key):
+        return "rdma exchange"
     if re.search(r"sweep_block_kernel|residual_block_kernel|"
                  r"residual_restrict_kernel|prolong_add_block_kernel|"
                  r"leg_kernel", key):
@@ -2729,10 +2781,10 @@ def glue_class(key):
 
 
 def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
-                     others=()):
+                     others=(), halo="ppermute"):
     """Device ms per distributed cycle at 511³ on the (1,1,1) mesh (CUDA
-    events over 10 cycles) on the per-leg (``fuse="leg"``) or the pod
-    engine (at its own depth, or ``npod``), beside the batch engine's from
+    events over 10 cycles) on the per-leg (``fuse="leg"``, ``halo``) or the
+    pod engine (at its own depth, or ``npod``), beside the batch engine's from
     the same call (and ``others``: (name, ms) of other engines in this
     call); a profiler breakdown into the distributed levels' kernels (the
     legs or the pod chains), the replicated levels' kernels and the torch
@@ -2751,8 +2803,9 @@ def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
     torch.cuda.reset_peak_memory_stats()
     mesh = gt.make_mesh((1, 1, 1))
     eng = PodEngine(params, mesh, npod=npod) if npod else \
-        build_spmd_solver(params, mesh, fuse=fuse)
-    what = "spmd" if fuse == "leg" else f"pod npod={eng.npod}"
+        build_spmd_solver(params, mesh, fuse=fuse, halo=halo)
+    what = f"pod npod={eng.npod}" if fuse == "pod" else \
+        "spmd" if halo == "ppermute" else f"spmd halo={halo}"
     state = eng.init_state()
     sums = torch.empty(k, device=DEVICE)
     eng.run_cycles(state, 2)  # warm
@@ -2800,10 +2853,275 @@ def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
               f"profiled wall ({wall_p / k:.3f} ms)")
     else:
         print(f"profile {what}: no device time recorded (not measured)")
+    eng.close()
     del state, eng
     torch.cuda.empty_cache()
     return dev
 
+
+
+# ---------------------------------------------------------------------------
+# The rdma exchange (ops/rdma.py, csrc/rdma_exchange.cu; halo="rdma")
+# ---------------------------------------------------------------------------
+
+RDMA_ITERS = 50   # exchanges a rank checks in phase (b)
+RDMA_RANKS = (2, 4)
+# (label, block, fields, depth) of phase (b)'s odd-shaped case: its slabs
+# and its upper slab's offset are not 16-byte multiples (the 4-byte path).
+RDMA_ODD = ("odd (9,5,7) blocks", (9, 5, 7), 2, 3)
+
+
+def rdma_bytes(fields, g, neighbours):
+    """Bytes one exchange must move on one rank: each slab sent read once
+    and written once (into a neighbour), each edge slab written once."""
+    _, by, bz = fields[0].shape
+    sb = g * by * bz * fields[0].element_size()
+    return len(fields) * sb * (2 + neighbours)
+
+
+def seeded_blocks(shape, n, seed):
+    """``n`` seeded float32 blocks on the card."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=DEVICE)
+            for _ in range(n)]
+
+
+def check_rdma_kernel(base, rec, rate, rows):
+    """Phase (a): rdma_exchange on the one-rank mesh against its plain
+    version, bit for bit (the zero fill; the receive buffers are filled
+    with NaN first), at the 511³ (1,1,1) plan's level-0 block (640³, 3
+    fields, G = 8) and its level-1 block (320³, 1 field, GC = 5); the
+    level-0 call's ms, bytes and bound, the plain version's ms (cached
+    zeros on one rank) and the library's (one zero_() a slab)."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan, _Exchange
+    from gpusolve_tpu_torch.ops import rdma as RD
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    plan = SpmdPlan(base.replace(grid_dim=BIG), (1, 1, 1))
+    ex = _Exchange(gt.make_mesh((1, 1, 1)), plan)
+    for l, n, g in ((0, 3, SL.G), (1, 1, SL.GC)):
+        fields = seeded_blocks(plan.block[l], n, 2000 + l)
+        RD.peer_slabs(ex, fields, g).recv.fill_(float("nan"))
+        got = RD.rdma_exchange(fields, ex, g)
+        want = RD.rdma_exchange_plain(fields, ex, g)
+        torch.cuda.synchronize()
+        flat = [t for s in got for t in s[:2]]
+        line = rec.fields(flat, [t for s in want for t in s[:2]],
+                          f"rdma_exchange {plan.block[l]} x{n} g={g} "
+                          "(1,1,1): the zero fill", "rdma_exchange")
+        print(f"check {line}")
+        check(rec.same["rdma_exchange"], "rdma_exchange: not bit-identical")
+        if l:
+            continue
+        ms = cuda_ms(lambda: RD.rdma_exchange(fields, ex, g), 20)
+        plain = cuda_ms(lambda: RD.rdma_exchange_plain(fields, ex, g), 20)
+        lib_ms = cuda_ms(lambda: [t.zero_() for t in flat], 20)
+        nbytes = rdma_bytes(fields, g, 0)
+        bound = nbytes / rate * 1e3
+        print(f"time rdma_exchange ({plan.block[l]} block, {n} fields, "
+              f"g={g}, one rank: the zero fill): {ms:.4f} ms, "
+              f"{nbytes / 1e9:.4f} GB, bound {bound:.4f} ms by bytes "
+              f"({100 * bound / ms:.1f}% of it), plain {plain:.4f} ms "
+              f"(cached zeros), library {lib_ms:.4f} ms ({2 * n} zero_() "
+              "calls)")
+        rows["rdma_exchange"] = {"ms": ms, "plain_ms": plain,
+                                 "bound_ms": bound, "bound_by": "bytes",
+                                 "library_ms": lib_ms}
+        del fields, got, want, flat
+    ex.close()
+    torch.cuda.empty_cache()
+
+
+def _rdma_rank(rank, m, store_path, out_dir):
+    """Phase (b) on one of ``m`` processes sharing the card: see
+    rdma_ranks.  Writes its lines, numbers and verdict to
+    ``out_dir/rank{rank}.json``."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.mesh import Mesh
+    from gpusolve_tpu_torch.dist.spmd import SpmdPlan, _Exchange
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import rdma as RD
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, m),
+                            rank=rank, world_size=m)
+    result = {"rank": rank, "ok": False, "lines": [], "times": {}}
+    try:
+        group = dist.group.WORLD
+        coords = (rank, 0, 0)
+        params = gt.parse_config(CONFS["linear"], grid_dim=BIG)
+        plan = SpmdPlan(params, (m, 1, 1))
+        ex = _Exchange(Mesh((m, 1, 1), coords, rank, group,
+                            torch.device(DEVICE)), plan)
+        host = _Exchange(Mesh((m, 1, 1), coords, rank, group,
+                              torch.device("cpu")), plan)
+        neighbours = (rank > 0) + (rank < m - 1)
+        rate = mem_rate(torch.cuda.get_device_name(0))
+        cases = ((f"511^3 ({m},1,1) level-0 blocks", plan.block[0], 3,
+                  SL.G), RDMA_ODD)
+        for ci, (label, shape, n, g) in enumerate(cases):
+            fields = seeded_blocks(shape, n, 3000 + 100 * ci + 10 * rank)
+            launched = K.launches["rdma_exchange"]
+            for it in range(RDMA_ITERS):
+                for u in fields:
+                    u.add_(1.0)  # new contents every exchange
+                got = RD.rdma_exchange(fields, ex, g)
+                got = [t.cpu() for s in got for t in s[:2]]
+                # The plain version on CPU copies of the planes it reads
+                # (the first and last g of each block).
+                faces = [torch.cat([u[:g], u[-g:]]).cpu() for u in fields]
+                want = [t for s in RD.rdma_exchange_plain(faces, host, g)
+                        for t in s[:2]]
+                bad = [i for i, (a, b) in enumerate(zip(got, want))
+                       if not torch.equal(a, b)]
+                if bad:
+                    raise RuntimeError(f"{label}: exchange {it}: slabs {bad} "
+                                       "differ from the plain version")
+            check(K.launches["rdma_exchange"] - launched == RDMA_ITERS,
+                  f"{label}: {K.launches['rdma_exchange'] - launched} "
+                  "launches")
+            result["lines"].append(
+                f"rank {rank}/{m} {label} x{n} g={g}: {RDMA_ITERS} "
+                "exchanges bit-identical to the plain version")
+            # Times: the kernel alone (no barrier), the wrapper with its
+            # host barriers, and the library's copy_/zero_ a slab into the
+            # IPC-opened peer buffers, all ranks at once.
+            reg = RD.peer_slabs(ex, fields, g)
+            by, bz = shape[1:]
+            peer = {side: RD._as_tensor(ptr, (2 * n, g, by, bz),
+                                        torch.float32)
+                    for side, ptr in (("lo", reg.peer_lo),
+                                      ("hi", reg.peer_hi)) if ptr}
+
+            def library():
+                for i, u in enumerate(fields):
+                    if "lo" in peer:
+                        peer["lo"][2 * i + 1].copy_(u[:g])
+                    else:
+                        reg.recv[2 * i].zero_()
+                    if "hi" in peer:
+                        peer["hi"][2 * i].copy_(u[-g:])
+                    else:
+                        reg.recv[2 * i + 1].zero_()
+
+            times = {}
+            for what, fn in (("kernel", lambda: reg.launch(fields)),
+                             ("library", library)):
+                torch.cuda.synchronize()
+                dist.barrier(group)
+                times[what] = cuda_ms(fn, 20)
+            torch.cuda.synchronize()
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                RD.rdma_exchange(fields, ex, g)
+            times["wrapper_wall"] = (time.perf_counter() - t0) * 1e2
+            nbytes = rdma_bytes(fields, g, neighbours)
+            times["bound"] = nbytes / rate * 1e3
+            result["times"][label] = times
+            result["lines"].append(
+                f"time rdma_exchange rank {rank}/{m} {label} x{n} g={g} "
+                f"({neighbours} neighbours): kernel {times['kernel']:.4f} ms "
+                f"(CUDA events, {m} processes time-slicing the card), "
+                f"{nbytes / 1e9:.4f} GB, bound {times['bound']:.4f} ms by "
+                f"bytes, library {times['library']:.4f} ms ({2 * n} "
+                f"copy_/zero_ calls), wrapper with its host barriers "
+                f"{times['wrapper_wall']:.3f} ms wall")
+            del fields, got, peer
+        ex.close()
+        result["ok"] = True
+    except Exception as e:
+        result["error"] = f"{type(e).__name__}: {e}"
+        raise  # the parent stops the other ranks and fails
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        if result["ok"]:
+            dist.destroy_process_group()
+
+
+def rdma_ranks():
+    """Phase (b): m = 2 and m = 4 processes on the one card (spawned; a
+    gloo group over a FileStore carries the IPC handles and the
+    barriers; the library built by this process before the spawn), each
+    rank one shard of the (m,1,1) plan's 511³ level-0 blocks (3 fields,
+    G = 8) and of an odd-shaped case: RDMA_ITERS exchanges with new
+    contents each, every slab bit-identical to the plain version over the
+    same group on CPU copies; then the kernel's, the library's and the
+    wrapper's times.  Any failing rank fails the run."""
+    import torch.multiprocessing as mp
+
+    for m in RDMA_RANKS:
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = mp.start_processes(
+                _rdma_rank, args=(m, os.path.join(tmp, "store"), tmp),
+                nprocs=m, join=False, start_method="spawn")
+            deadline = time.monotonic() + 420
+            try:
+                while not ctx.join(timeout=5):
+                    check(time.monotonic() < deadline,
+                          f"rdma ranks m={m}: no end in 420 s")
+            except (mp.ProcessRaisedException,
+                    mp.ProcessExitedException) as e:
+                raise SmokeFailure(f"rdma ranks m={m}: {e}") from e
+            finally:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.terminate()
+            results = []
+            for rank in range(m):
+                path = os.path.join(tmp, f"rank{rank}.json")
+                check(os.path.exists(path), f"rdma rank {rank}/{m}: no result")
+                with open(path) as f:
+                    results.append(json.load(f))
+        for res in results:
+            for ln in res["lines"]:
+                print(f"check {ln}" if "bit-identical" in ln else ln)
+        bad = [f"rank {r['rank']}: {r.get('error')}" for r in results
+               if not r["ok"]]
+        check(not bad, f"rdma ranks m={m}: {'; '.join(bad)}")
+
+
+def rdma_main_path(params, label, leg_hist, k=10):
+    """Phase (c): solve_spmd (Newton: newton_solve_spmd) with
+    halo="rdma" on make_mesh((1,1,1)): plan.rdma_active, launch counts
+    equal to launches_per_cycle's schedule (one rdma_exchange a leg, two a
+    corr-first leg), and the halo="ppermute" history of the same call bit
+    for bit."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    with counting_spmd_inner() as inner_cycles:
+        state, hist, plan, secs = run_spmd(params, k, halo="rdma")
+    counts = nonzero(K.launches)
+    print(f"rdma path {label}: mesh (1,1,1), rdma_active "
+          f"{plan.rdma_active}, {len(hist) - 1} steps in {secs:.3f} s wall, "
+          f"history {hist}")
+    print(f"rdma path {label} launches: {counts}")
+    check(plan.rdma_active, f"rdma {label}: plan.rdma_active is False")
+    want = spmd_expected(plan, hist, inner_cycles)
+    check(counts == want,
+          f"rdma {label}: launch counts {counts} != schedule {want}")
+    check(hist == leg_hist,
+          f"rdma {label}: {hist} != halo='ppermute' {leg_hist}")
+    print(f"rdma {label} vs halo='ppermute': identical")
+    plan._engine.close()
+    del state
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -2850,6 +3168,9 @@ def main() -> int:
     check_leg_kernels(base, rec)
     check_leg_ghosts(base, rec)
     check_pod_kernels(base, rec)
+    rows = {}
+    check_rdma_kernel(base, rec, rate, rows)
+    rdma_ranks()
 
     # Phase 3: each main path with its own counts.
     launched = {kname: 0 for kname in K.KERNELS}
@@ -2889,6 +3210,11 @@ def main() -> int:
             params, f"511^3 {label}", batch_hist[label])
         for kname, n in counts.items():
             launched[kname] += n
+        # halo="rdma": the same engine with the legs' slabs from the
+        # exchange kernel (its zero fill on one rank).
+        counts = rdma_main_path(params, f"511^3 {label}", leg_hist[label])
+        for kname, n in counts.items():
+            launched[kname] += n
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG,
                                  pre_smoothing=6, post_smoothing=6)
@@ -2916,7 +3242,6 @@ def main() -> int:
     spmd_cli()
 
     # Phase 5: times.
-    rows = {}
     lin = gt.parse_config(CONFS["linear"], grid_dim=BIG,
                           print_progress=False)
     fas = gt.parse_config(CONFS["nonlinear"], grid_dim=BIG,
@@ -2940,6 +3265,8 @@ def main() -> int:
     for p, what, batch_ms in ((lin, "LINEAR", lin_ms), (fas, "FAS", fas_ms)):
         label = f"511^3 {what} V(3,3)"
         leg_ms = time_spmd_cycles(p, label, batch_ms, rate)
+        time_spmd_cycles(p, label, batch_ms, rate, halo="rdma",
+                         others=(("per-leg halo=ppermute", leg_ms),))
         pod_ms = time_spmd_cycles(p, label, batch_ms, rate, fuse="pod",
                                   others=(("per-leg", leg_ms),))
         time_spmd_cycles(p, label, batch_ms, rate, fuse="pod", npod=3,
@@ -2951,6 +3278,7 @@ def main() -> int:
         kernels_line.append({
             "name": kname, "route": "cuda",
             "source": (V1_SRC if kname == "vcycle_fused" else
+                       RDMA_SRC if kname == "rdma_exchange" else
                        POD_SRC if kname.startswith("pod_") else
                        LEG_SRC if kname.startswith("leg_block") else
                        SPMD_SRC if "_block" in kname else SRC),

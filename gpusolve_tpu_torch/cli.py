@@ -46,13 +46,16 @@ Distributed (the spmd engine: dist/spmd.py per leg, dist/pod.py pod):
                              with --platform cpu, else NCCL, one card per
                              rank); only rank 0 prints
   --dist-engine {auto,spmd,gspmd}, --fuse {auto,leg,pod},
-  --halo {ppermute,rdma}     the JAX CLI's engine flags: spmd, leg, pod and
-                             ppermute run; gspmd and rdma exit 1 (not
-                             ported yet).  --fuse auto takes the pod engine
-                             where the reference's CLI does (a depth passes
-                             its gates), else leg, and says why; a
-                             multi-rank CUDA mesh takes leg (the pod
-                             chains' exchange needs peer-to-peer writes)
+  --halo {ppermute,rdma}     the JAX CLI's engine flags: spmd, leg, pod,
+                             ppermute and rdma run; gspmd exits 1 (not
+                             ported yet).  --halo rdma exchanges the legs'
+                             x slabs in one CUDA launch of peer writes
+                             (ops/rdma.py); under a y split the two-stage
+                             exchange runs instead, with a note.  --fuse
+                             auto takes the pod engine where the
+                             reference's CLI does (a depth passes its
+                             gates), else leg, and says why: --halo rdma
+                             and a multi-rank CUDA mesh take leg
 With --mesh, --save-state, --load-state and --refine exit 1 (their
 distributed forms are not ported yet).
 """
@@ -68,7 +71,6 @@ from typing import Optional
 # Distributed engines and options not ported yet, with --mesh.
 _MESH_NOT_PORTED = {
     ("dist_engine", "gspmd"): "ROADMAP Queue 1 item 13, sharding.py",
-    ("halo", "rdma"): "ROADMAP Queue 2 item 12",
 }
 _MESH_NOT_PORTED_FLAGS = {
     "save_state": "save_state_spmd", "load_state": "load_state_spmd",
@@ -174,7 +176,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--halo", choices=["ppermute", "rdma"], default="ppermute",
         help="with --mesh: face exchange by point-to-point messages "
-        "(ppermute); in-kernel remote copies (rdma) are not ported",
+        "(ppermute), or the legs' x slabs by peer writes in one CUDA "
+        "launch (rdma; x-split meshes, the per-leg engine)",
     )
     return ap
 
@@ -239,6 +242,12 @@ def _spmd_notes(params, eng, args, _explain) -> None:
     --explain-backend) and, on stderr, why it runs without the kernels
     (the JAX package's ``_spmd_notes``, gpusolve_tpu/cli.py:154-200)."""
     plan = eng.plan
+    if args.halo == "rdma" and args.fuse == "leg" and not plan.rdma_active:
+        print(
+            "note: --halo rdma carries x-face slabs only; the y-split "
+            "two-stage ppermute exchange runs instead on this mesh",
+            file=sys.stderr,
+        )
     if eng.plain_reason == "float64":
         print(
             "note: shard-local compute runs the plain ops: dtype float64 "
@@ -295,19 +304,21 @@ def _spmd_notes(params, eng, args, _explain) -> None:
     _explain(lines)
 
 
-def _pod_refusal(params, mesh_shape, device) -> Optional[str]:
+def _pod_refusal(params, mesh_shape, device, halo) -> Optional[str]:
     """Why ``--fuse auto`` takes the per-leg engine, or None for pod
-    (the JAX CLI's choice, gpusolve_tpu/cli.py:378-409: ``--halo rdma``
-    exits before it here; ``--backend ref`` stands for its ``--backend
-    xla``)."""
+    (the JAX CLI's choice, gpusolve_tpu/cli.py:378-409; ``--backend ref``
+    stands for its ``--backend xla``)."""
     from gpusolve_tpu_torch.dist.pod import choose_npod
 
+    if halo != "ppermute":
+        return f"--halo {halo} is a per-leg engine feature"
     if params.backend == "ref":
         return "--backend ref requests the plain ops"
     n = mesh_shape[0] * mesh_shape[1] * mesh_shape[2]
     if n > 1 and device.type == "cuda":
-        return ("a multi-rank CUDA mesh: the pod chains' exchange needs "
-                "peer-to-peer writes (ROADMAP Queue 2, row 12)")
+        return ("a multi-rank CUDA mesh: the pod chains' mid-chain "
+                "exchange is not ported (ROADMAP Queue 2, rows 12-14 "
+                "across cards)")
     if choose_npod(params, (mesh_shape[0], mesh_shape[1] * mesh_shape[2])) \
             is None:
         return "geometry/mode outside the pod gates"
@@ -338,7 +349,7 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
         )
         return 1
     if args.fuse == "auto":
-        why = _pod_refusal(params, mesh_shape, device)
+        why = _pod_refusal(params, mesh_shape, device, args.halo)
         args.fuse = "leg" if why else "pod"
         _explain([f"fuse=auto -> {args.fuse}" + (f" ({why})" if why else "")])
     started = False
@@ -352,7 +363,8 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
                 mesh_shape,
                 device=None if multi and device.type == "cuda" else device,
             )
-            eng = build_spmd_solver(params, mesh, fuse=args.fuse)
+            eng = build_spmd_solver(params, mesh, fuse=args.fuse,
+                                    halo=args.halo)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
@@ -361,13 +373,14 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
             if params.mode == Mode.NEWTON:
                 state, _, plan = newton_solve_spmd(
                     params, mesh, check_every=args.check_every,
-                    fuse=args.fuse, plan=eng.plan,
+                    halo=args.halo, fuse=args.fuse, plan=eng.plan,
                 )
                 which = 2
             else:
                 state, _, plan = solve_spmd(
                     params, mesh, plan=eng.plan,
-                    check_every=args.check_every, fuse=args.fuse,
+                    check_every=args.check_every, halo=args.halo,
+                    fuse=args.fuse,
                 )
                 which = 0
         if args.profile:
@@ -384,6 +397,7 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
 
                 err = compare_analytic(solution, params.h)
                 print(f"max-abs error vs analytic solution: {err:.6g}")
+        eng.close()
         if started:
             # No rank tears its connections down while a peer still reads.
             dist.barrier()

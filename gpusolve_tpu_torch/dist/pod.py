@@ -35,8 +35,9 @@ buffer ``r`` and the two trade roles, as the per-leg engine's legs do.
 Where it runs: on the card, the one-rank ``(1, 1, 1)`` mesh, the chains
 on their CUDA kernels (float32) or their plain versions (float64,
 ``backend="ref"``).  On a larger mesh the chains' exchange between legs
-is peer-to-peer traffic into the neighbours' memory (ROADMAP Queue 2,
-row 12, which needs a second card), so a multi-rank CUDA mesh raises; on
+is peer-to-peer traffic into the neighbours' memory inside the chain
+(ROADMAP Queue 2, rows 12-14 across cards, which wait for a machine with
+two cards), so a multi-rank CUDA mesh raises; on
 gloo CPU ranks the plain chains run, exchanging each leg's slabs on the
 host (``_Exchange.slabs``), x- and y-split.
 """
@@ -279,8 +280,8 @@ class PodEngine(SpmdEngine):
         if mesh.size > 1 and mesh.device.type == "cuda":
             raise ValueError(
                 "fuse='pod' on a multi-rank CUDA mesh: the chains' exchange "
-                "between legs is peer-to-peer traffic into a second card "
-                "(ROADMAP Queue 2, row 12); run fuse='leg'"
+                "between legs is in-kernel peer-to-peer traffic (ROADMAP "
+                "Queue 2, rows 12-14 across cards); run fuse='leg'"
             )
         mesh_xy = (mesh.shape[0], mesh.shape[1] * mesh.shape[2])
         if npod is None:

@@ -1,10 +1,12 @@
 """Explicit-halo distributed multigrid engine, per-leg form, on
 ``torch.distributed``.
 
-The counterpart of ``gpusolve_tpu/dist/spmd.py`` with ``fuse="leg"``,
-``halo="ppermute"`` and no replicated tail.  Each process owns one block of
-every distributed level; its neighbours' ghost faces and slabs arrive
-through ``dist.batch_isend_irecv``, norms sum with ``all_reduce``, and the
+The counterpart of ``gpusolve_tpu/dist/spmd.py`` with ``fuse="leg"`` and
+no replicated tail.  Each process owns one block of every distributed
+level; its neighbours' ghost faces and slabs arrive through
+``dist.batch_isend_irecv`` (``halo="ppermute"``) or, for a leg's x slabs
+with ``halo="rdma"``, through peer writes into this rank's receive
+buffers (``ops/rdma.py``), norms sum with ``all_reduce``, and the
 coarse levels below the distribution cutoff are gathered into a replicated
 layout (``all_gather``) that every rank smooths redundantly.  All three
 modes run: LINEAR, NONLINEAR (FAS tau correction, the up-leg ``v −
@@ -45,6 +47,8 @@ replicated levels and Newton's restriction of ũ are glue everywhere.
 
 On a ``(1, 1, 1)`` mesh no collective is called; a missing neighbour's
 ghosts are zeros, the Dirichlet boundary, as ``lax.ppermute`` leaves them.
+With ``halo="rdma"`` the legs' slabs are the exchange kernel's zero fill
+there, as the reference's kernel gives them on a 1×1×1 mesh.
 
 ``fuse="pod"`` runs the pod engine of ``dist/pod.py`` instead (its
 ``PodEngine`` keeps this engine's contract), through the same entry
@@ -67,7 +71,7 @@ from gpusolve_tpu_torch.dist.mesh import Mesh, coords_of
 from gpusolve_tpu_torch.grid import GridLevel, GridState, rhs_values, \
     torch_dtype
 from gpusolve_tpu_torch.ops import dispatch as ops
-from gpusolve_tpu_torch.ops import kernels, ref
+from gpusolve_tpu_torch.ops import kernels, rdma, ref
 from gpusolve_tpu_torch.ops import spmd_kernels as sk
 from gpusolve_tpu_torch.ops import spmd_leg as sl
 from gpusolve_tpu_torch.utils.timer import Timer
@@ -109,6 +113,9 @@ class SpmdPlan:
             dims[d][a] // self.mesh_shape[a] >= cutoff for a in range(3)
         ):
             d += 1
+        # Whether the legs' x slabs go through the rdma exchange: the
+        # engine sets it (halo="rdma" without a y split).
+        self.rdma_active = False
         self.n_dist = min(max(d, 1), nlev - 1) if all(
             dims[0][a] >= self.mesh_shape[a] for a in range(3)
         ) else 0
@@ -289,6 +296,7 @@ class _Exchange:
         self.plan = plan
         self.dc = plan.data_coords(mesh.coords)
         self._zeros = {}
+        self.rdma = {}  # the rdma exchange's registries (ops/rdma.py)
 
     def _peer(self, ax: int, step: int) -> Optional[int]:
         c = list(self.dc)
@@ -381,6 +389,11 @@ class _Exchange:
             torch.cat([ylo[:g], u[:g], yhi[:g]], dim=1),
         )
         return xlo, xhi, ylo, yhi
+
+    def close(self) -> None:
+        """Releases the rdma exchange's buffers (collective on a
+        multi-rank mesh)."""
+        rdma.close(self)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         if self.mesh.size > 1:
@@ -496,14 +509,19 @@ class SpmdEngine:
 
     def __init__(self, params: GridParams, mesh: Mesh, cutoff: int = 4,
                  local_backend: str = "auto",
-                 plan: Optional[SpmdPlan] = None):
+                 plan: Optional[SpmdPlan] = None, halo: str = "ppermute"):
         self.key = _cycle_key(params)
         self.local_backend = local_backend
+        self.halo = halo
         self.mesh = mesh
         self.cutoff = cutoff
         self.plan = plan if plan is not None else SpmdPlan(
             params, mesh.shape, cutoff, local_backend
         )
+        # The x-slab exchange in one kernel (the JAX engine's use_rdma,
+        # gpusolve_tpu/dist/spmd.py:854-855): x slabs only, so not under a
+        # y split, where the two-stage exchange runs.
+        self.plan.rdma_active = halo == "rdma" and self.plan.mesh_shape[1] == 1
         self.dtype = torch_dtype(params.dtype)
         self.device = mesh.device
         self.ex = _Exchange(mesh, self.plan)
@@ -557,6 +575,11 @@ class SpmdEngine:
 
     def _finalize(self, partials, out):
         self._op(kernels.finalize, kernels.finalize_plain)(partials, out)
+
+    def close(self) -> None:
+        """Releases the buffers the engine holds outside the state (the
+        rdma exchange's; collective on a multi-rank mesh)."""
+        self.ex.close()
 
     # -- state ---------------------------------------------------------------
 
@@ -706,17 +729,28 @@ class SpmdEngine:
     def _leg(self, l: int, lvl: GridLevel, S: int, *, src_zero=False,
              coarse=None, **kw):
         """One trapezoid leg of ``S`` sweeps on level ``l``'s block into
-        its spare buffer, the ghost slabs exchanged once; returns the
-        consumer's norm partials or None."""
+        its spare buffer, the ghost slabs exchanged once (with
+        ``plan.rdma_active`` one exchange call for the leg's fields and one
+        for the coarse block, on one rank too, as the reference); returns
+        the consumer's norm partials or None."""
         slabs = None
-        if self.mesh.size > 1:
-            slabs = {"f": self.ex.slabs(lvl.f, sl.G)}
-            if not src_zero:
-                slabs["v"] = self.ex.slabs(lvl.v, sl.G)
-            if self.newton:
-                slabs["nv"] = self.ex.slabs(lvl.newton_v, sl.G)
-        if coarse is not None:
-            coarse = (coarse, self.ex.slabs(coarse, sl.GC))
+        fields = {"f": lvl.f}
+        if not src_zero:
+            fields["v"] = lvl.v
+        if self.newton:
+            fields["nv"] = lvl.newton_v
+        if self.plan.rdma_active:
+            exchange = self._op(rdma.rdma_exchange, rdma.rdma_exchange_plain)
+            slabs = dict(zip(fields, exchange(list(fields.values()),
+                                              self.ex, sl.G)))
+            if coarse is not None:
+                coarse = (coarse, exchange([coarse], self.ex, sl.GC)[0])
+        else:
+            if self.mesh.size > 1:
+                slabs = {name: self.ex.slabs(u, sl.G)
+                         for name, u in fields.items()}
+            if coarse is not None:
+                coarse = (coarse, self.ex.slabs(coarse, sl.GC))
         out = self._op(sl.leg_block, sl.leg_block_plain)(
             lvl.r, lvl.v, lvl.f, slabs, self.boxes[l], self.globs[l],
             self.params, self.hs[l], S, newton_v=lvl.newton_v,
@@ -951,8 +985,10 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
     ``apply_fas``); a per-op up leg one prolongation (at the FAS junction
     after a ``subtract``); a replicated level runs the single-device
     engine's ops; the cycle ends with a norm-only residual unless the
-    finest up leg gave the norm, and a finalize.  Counts the face-tap
-    kernel path (plain runs launch none)."""
+    finest up leg gave the norm, and a finalize.  With
+    ``plan.rdma_active`` each leg adds one ``rdma_exchange`` (the corr-first
+    leg two: its fields and its coarse block).  Counts the face-tap kernel
+    path (plain runs launch none)."""
     params = plan.params
     mode = params.mode
     pre, post = params.pre_smoothing, params.post_smoothing
@@ -963,9 +999,14 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
     def add(name, n=1):
         counts[name] = counts.get(name, 0) + n
 
+    def leg(corr=False):
+        add(v("leg_block", mode))
+        if plan.rdma_active:
+            add("rdma_exchange", 2 if corr else 1)
+
     def smooth(l, S):
         if plan.smooth_leg(l, S):
-            add(v("leg_block", mode))
+            leg()
         else:
             add(v("sweep_block", mode), S)
 
@@ -975,7 +1016,7 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
             continue
         form = plan.down_form(l) if step == "down" else plan.up_form(l)
         if form == "leg":
-            add(v("leg_block", mode))
+            leg(corr=step == "up")
         elif step == "down" and form == "replicated":
             add(v("jacobi_sweep", mode), pre)
             add(v("residual", mode))
@@ -1009,7 +1050,6 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
 
 
 _NOT_PORTED = {
-    ("halo", "rdma"): "ROADMAP Queue 2 row 12",
     ("tail", "pv2"): "ROADMAP Queue 1 item 3(c)",
 }
 
@@ -1048,17 +1088,20 @@ def build_spmd_solver(params: GridParams, mesh: Mesh, cutoff: int = 4,
     ``local_backend`` nor ``halo``, as the reference's).
     ``local_backend``: "auto" and "pallas" run the kernels and the legs
     where the gates allow, "xla" the per-op path on plain ops.
-    ``halo="ppermute"`` and ``tail`` "auto" or "off" (no tail either way)
-    are the forms ported."""
+    ``halo``: "ppermute" (point-to-point messages) or "rdma" (the legs' x
+    slabs through ``ops/rdma.py``'s peer writes; under a y split the
+    two-stage exchange runs and ``plan.rdma_active`` is False).  ``tail``
+    "auto" or "off" (no tail either way) are the forms ported."""
     _check_options(local_backend, halo, fuse, tail)
-    return _engine(params, mesh, cutoff, None, local_backend, fuse)
+    return _engine(params, mesh, cutoff, None, local_backend, fuse, halo)
 
 
 def _engine(params, mesh, cutoff, plan, local_backend,
-            fuse="leg") -> SpmdEngine:
+            fuse="leg", halo="ppermute") -> SpmdEngine:
     """The engine cached on ``plan`` when it was built for the same
-    cycle, mesh, cutoff, local backend and engine, else a new one, cached
-    there.  A pod plan passed in gives the pod engine its depth."""
+    cycle, mesh, cutoff, local backend, engine and halo, else a new one,
+    cached there.  A pod plan passed in gives the pod engine its depth;
+    the pod engine takes no halo."""
     from gpusolve_tpu_torch.dist.pod import PodEngine, PodPlan
 
     eng = getattr(plan, "_engine", None)
@@ -1067,13 +1110,14 @@ def _engine(params, mesh, cutoff, plan, local_backend,
         and eng.mesh == mesh and eng.cutoff == cutoff
         and eng.local_backend == local_backend
         and isinstance(eng, PodEngine) == (fuse == "pod")
+        and (fuse == "pod" or eng.halo == halo)
     ):
         return eng
     if fuse == "pod":
         npod = plan.npod if isinstance(plan, PodPlan) else None
         eng = PodEngine(params, mesh, cutoff, local_backend, npod)
     else:
-        eng = SpmdEngine(params, mesh, cutoff, local_backend)
+        eng = SpmdEngine(params, mesh, cutoff, local_backend, halo=halo)
     eng.plan._engine = eng
     return eng
 
@@ -1099,7 +1143,7 @@ def solve_spmd(
     every cycle, and a solve may run up to k−1 cycles past the threshold,
     as in the JAX package."""
     _check_options(local_backend, halo, fuse, tail)
-    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse)
+    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse, halo)
     plan = eng.plan
     if state is None:
         state = eng.init_state()
@@ -1186,7 +1230,7 @@ def newton_solve_spmd(
             f"newton_solve_spmd runs NEWTON mode, got {params.mode.name}"
         )
     _check_options(local_backend, halo, fuse, tail)
-    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse)
+    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse, halo)
     plan = eng.plan
     if timer is None and params.print_progress:
         timer = Timer()
@@ -1218,7 +1262,7 @@ def newton_solve_spmd(
         eng.restrict_newton_v(state)
         solve_spmd(inner, mesh, cutoff, state=state, plan=plan,
                    initial_residual=fn, local_backend=local_backend,
-                   check_every=check_every, fuse=fuse)
+                   check_every=check_every, halo=halo, fuse=fuse)
         lvl0 = state.levels[0]
         lvl0.newton_v.add_(lvl0.v)
         res = eng.comp_f(state, timer)

@@ -43,8 +43,9 @@
 // Bound: bytes by the table, as the legs (PERF.md); measured, the legs are
 // bound by instruction issue and shared memory, and so is the chain.  Only
 // the one-rank mesh runs here: the TPU kernels' in-kernel exchange between
-// legs writes the neighbours' memory, which needs a second card (ROADMAP
-// Queue 2, row 12), so every leg reads no slab.
+// legs writes the neighbours' memory and waits for it inside the launch,
+// which waits for a machine with two cards (ROADMAP Queue 2, rows 12-14
+// across cards), so every leg reads no slab.
 //
 // The entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError().

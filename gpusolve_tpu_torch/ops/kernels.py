@@ -7,8 +7,9 @@ whole-V-cycle cooperative kernel in ``vcycle_fused.cu`` (its wrapper is
 ``spmd_block.cu`` (their wrappers are ``ops/spmd_kernels.py``), their
 trapezoid leg in ``spmd_leg.cu`` (its wrapper is ``ops/spmd_leg.py``; its
 body in ``leg_device.cuh``), the pod engine's chains of legs in
-``pod.cu`` (``ops/pod.py``), their shared point arithmetic in
-``mg_device.cuh``.  On first use each source is
+``pod.cu`` (``ops/pod.py``), the in-kernel halo exchange and its CUDA IPC
+helpers in ``rdma_exchange.cu`` (``ops/rdma.py``), their shared point
+arithmetic in ``mg_device.cuh``.  On first use each source is
 compiled with ``nvcc
 -gencode arch=compute_90a,code=sm_90a``, the sources in parallel, and
 linked into one shared library with a plain C interface under
@@ -59,7 +60,7 @@ Dims = Tuple[int, int, int]
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "multigrid.cu", CSRC / "vcycle_fused.cu", CSRC / "spmd_block.cu",
-    CSRC / "spmd_leg.cu", CSRC / "pod.cu",
+    CSRC / "spmd_leg.cu", CSRC / "pod.cu", CSRC / "rdma_exchange.cu",
 )
 HEADERS = (CSRC / "mg_device.cuh", CSRC / "leg_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -81,6 +82,7 @@ KERNELS = (
     "leg_block", "leg_block_fas", "leg_block_newton",
     "pod_down", "pod_down_fas", "pod_down_newton",
     "pod_up", "pod_up_fas", "pod_up_newton",
+    "rdma_exchange",
 )
 # Launches of each kernel since the last reset_launches(): only the CUDA
 # launches count, never the plain versions.
@@ -215,6 +217,13 @@ def _bind(path: Path):
         "mg_leg_grid": ([p, p], i),
         "mg_leg_block": ([p, p, p, p, p, i, p], i),
         "mg_pod_chain": ([i, i, p, p, p, p, p, i, p, p], i),
+        "mg_rdma_exchange": ([p, p, p, i, p], i),
+        "mg_ipc_alloc": ([i, ll, p], i),
+        "mg_ipc_free": ([i, p], i),
+        "mg_ipc_handle_size": ([], i),
+        "mg_ipc_handle": ([i, p, p], i),
+        "mg_ipc_open": ([i, p, p], i),
+        "mg_ipc_close": ([i, p], i),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)

@@ -24,8 +24,9 @@ body, so the chain equals its legs launched one by one through
 separates the legs, or for a chain of one leg (the one-rank plan's depth
 1) one block a tile.  It runs on the one-rank mesh only: between legs on
 a larger mesh the TPU kernels exchange slabs by writing into the
-neighbours' memory, which needs a second card (ROADMAP Queue 2, row 12),
-so a chain with an ``exchange`` raises on CUDA.  On CPU tensors
+neighbours' memory inside the chain, whose in-kernel waits wait for a
+machine with two cards (ROADMAP Queue 2, rows 12-14 across cards), so a
+chain with an ``exchange`` raises on CUDA.  On CPU tensors
 the plain version chains ``leg_block_plain``, exchanging each leg's slabs
 on the host through ``exchange(t, depth)`` (``dist/spmd._Exchange.slabs``)
 on a multi-rank mesh.
@@ -234,8 +235,8 @@ def _chain_launch(legs: Sequence[Leg], params: GridParams, S: int, up: bool,
     if exchange is not None:
         raise ValueError(
             f"{name} runs on the one-rank mesh: the exchange between the "
-            "legs of a chain on a larger mesh needs peer-to-peer writes "
-            "into a second card (ROADMAP Queue 2, row 12)"
+            "legs of a chain on a larger mesh needs in-kernel peer "
+            "writes and waits (ROADMAP Queue 2, rows 12-14 across cards)"
         )
     if len(legs) > MAX_LEGS:
         raise ValueError(f"{name}: {len(legs)} legs, one launch takes "

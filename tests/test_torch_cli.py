@@ -1,9 +1,9 @@
 """The port's CLI on the CPU: the reference's output lines in every mode,
 the flags of the JAX CLI's single-device surface, --explain-backend's
-engine lines, and --mesh: the spmd engine (per leg, or pod) on the
-one-rank mesh with the JAX CLI's lines, and a clear exit 1 for the
-distributed engines and flags not ported yet and for a mesh larger than
-the world."""
+engine lines, and --mesh: the spmd engine (per leg, or pod; --halo
+rdma) on the one-rank mesh with the JAX CLI's lines, and a clear exit 1
+for the distributed engines and flags not ported yet and for a mesh
+larger than the world."""
 
 import os
 import re
@@ -211,10 +211,10 @@ def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--mesh", "1,1,1", "--halo", "rdma"], "not ported"),
     (["--mesh", "1,1,1", "--dist-engine", "gspmd"], "not ported"),
     (["--mesh", "1,1,1", "--refine"], "not ported"),
     (["--mesh", "1,1,1", "--save-state", "x.npz"], "not ported"),
+    (["--mesh", "1,1,1", "--load-state", "x.npz"], "not ported"),
     (["--mesh", "2,2,1"], "torchrun"),
     (["--mesh", "2,2"], "invalid --mesh"),
 ])
@@ -235,6 +235,49 @@ def test_cli_mesh_fuse_pod(small_conf, capsys):
     assert "backend: dist-engine=spmd fuse=pod halo=ppermute" in err
     assert "backend: pod depth 1" in err
     assert re.search(r"backend: level 0: .*\(fused-down, fused-up\)", err)
+
+
+def test_cli_mesh_halo_rdma(small_conf, capsys):
+    """--halo rdma with --mesh runs (it exited 1 as not ported): --fuse
+    auto takes the per-leg engine with the reference's reason, and the
+    progress lines are --fuse leg's, residual for residual."""
+    path = small_conf(mode=1, dims=(31, 31, 31), maxiter=2)
+    base = [path, "--mesh", "1,1,1", "--platform", "cpu",
+            "--explain-backend"]
+    assert cli.main([*base, "--halo", "rdma"]) == 0
+    out, err = capsys.readouterr()
+    assert ("backend: fuse=auto -> leg (--halo rdma is a per-leg engine "
+            "feature)") in err
+    assert "backend: dist-engine=spmd fuse=leg halo=rdma" in err
+    assert "note: --halo rdma" not in err
+    assert cli.main([*base, "--fuse", "leg"]) == 0
+    want = capsys.readouterr().out
+
+    def residuals(text):
+        return [ln.split(" Took")[0] for ln in text.splitlines()
+                if "residual" in ln]
+
+    assert len(residuals(out)) == 3
+    assert residuals(out) == residuals(want)
+
+
+def test_cli_rdma_y_split_note(capsys):
+    """Under a y split --halo rdma prints the reference's note: the
+    two-stage exchange runs instead (plan.rdma_active False)."""
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist import mesh as tmesh
+    from gpusolve_tpu_torch.dist import spmd as tsp
+
+    args = cli.build_argparser().parse_args(
+        [CONF, "--halo", "rdma", "--fuse", "leg"])
+    params = gt.parse_config(CONF, grid_dim=(31, 31, 31))
+    for shape, noted in (((2, 2, 1), True), ((2, 1, 1), False)):
+        mesh = tmesh.Mesh(shape, (0, 0, 0), 0, None, torch.device("cpu"))
+        eng = tsp.SpmdEngine(params, mesh, halo="rdma")
+        cli._spmd_notes(params, eng, args, lambda lines: None)
+        err = capsys.readouterr().err
+        assert ("note: --halo rdma carries x-face slabs only; the y-split "
+                "two-stage ppermute exchange runs instead" in err) == noted
 
 
 def test_cli_mesh_fused_tags(small_conf, capsys):

@@ -35,7 +35,7 @@ def test_import_leaves_jax_out():
         "gpusolve_tpu_torch.interop, gpusolve_tpu_torch.ops.vcycle_batch, "
         "gpusolve_tpu_torch.dist.spmd, gpusolve_tpu_torch.ops.spmd_kernels, "
         "gpusolve_tpu_torch.dist.pod, gpusolve_tpu_torch.ops.pod, "
-        "gpusolve_tpu_torch.ops.spmd_leg; "
+        "gpusolve_tpu_torch.ops.spmd_leg, gpusolve_tpu_torch.ops.rdma; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gpusolve_tpu' or m.startswith('gpusolve_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -139,3 +139,24 @@ def test_cpu_pod_solve_leaves_counters_at_zero():
         else:
             gt.solve_spmd(params, mesh, fuse="pod", check_every=2)
     assert all(n == 0 for n in kernels.launches.values())
+
+
+def test_cpu_rdma_solve_leaves_counters_at_zero():
+    """halo="rdma" on CPU tensors runs the plain exchange: no counter
+    moves, in any mode; its module sources are scanned above (ops/rdma.py,
+    csrc/rdma_exchange.cu)."""
+    names = {os.path.relpath(p, PKG) for p in port_sources()}
+    assert {"ops/rdma.py", "ops/csrc/rdma_exchange.cu"} <= names
+    kernels.reset_launches()
+    mesh = gt.make_mesh((1, 1, 1), device="cpu")
+    for mode in range(3):
+        params = gt.parse_config(
+            CONF, grid_dim=(15, 15, 15), maxiter=2, print_progress=False,
+            mode=mode,
+        )
+        if mode == 2:
+            gt.newton_solve_spmd(params, mesh, cutoff=3, halo="rdma")
+        else:
+            gt.solve_spmd(params, mesh, cutoff=3, halo="rdma", check_every=2)
+    assert all(n == 0 for n in kernels.launches.values())
+    assert kernels.launches["rdma_exchange"] == 0

@@ -377,9 +377,11 @@ def test_mesh_depths_and_refusals():
     assert not tpod.pod_supported(corner, (1, 1), 1)
     assert tpod.choose_npod(p.replace(pre_smoothing=6), (1, 1)) is None
     cuda = Mesh((2, 1, 1), (0, 0, 0), 0, None, torch.device("cuda"))
-    with pytest.raises(ValueError, match="ROADMAP Queue 2, row 12"):
+    with pytest.raises(ValueError,
+                       match="ROADMAP Queue 2, rows 12-14 across cards"):
         tpod.PodEngine(p, cuda)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2, row 12"):
+    with pytest.raises(ValueError,
+                       match="ROADMAP Queue 2, rows 12-14 across cards"):
         tsp.build_spmd_solver(p, cuda, fuse="pod")
 
 

@@ -13,6 +13,12 @@ XLA local path) on the same mesh, in float64 to rtol 1e-10:
     engine and the port's own single-device solve; the (2, 2, 1) spawn
     also runs V(6,6) on the per-op kernel route (the wrappers' plain
     versions on CPU tensors) and on the plain route;
+  * ``halo="rdma"`` in the same spawns (the cases named ``*_rdma``): on
+    (4, 1, 1) the legs' x slabs through ``ops/rdma.rdma_exchange``, whose
+    plain version runs on CPU tensors, bit-identical to ``halo="ppermute"``;
+    on (2, 2, 1) the y split leaves ``plan.rdma_active`` False; and the
+    plain exchange of two seeded fields on the (4, 1, 1) ranks against
+    JAX's ``pallas_spmd.rdma_exchange`` in interpret mode, exactly;
   * the interop converters, and a port solve resumed from a JAX state.
 
 The JAX package is imported inside the functions that use it, so the
@@ -31,13 +37,14 @@ import gpusolve_tpu_torch as gt
 from gpusolve_tpu_torch import interop
 from gpusolve_tpu_torch.dist import mesh as tmesh
 from gpusolve_tpu_torch.dist import spmd as tsp
-from gpusolve_tpu_torch.ops import kernels
+from gpusolve_tpu_torch.ops import kernels, rdma
 
 RTOL = 1e-10
 WORLD = 4
 # name -> (mode, dims, cycle, cutoff, check_every), per mesh.  Each case
 # distributes two levels or more, so the fused residual-restriction, the
-# junction and the replicated levels all run.
+# junction and the replicated levels all run.  A name ending in "_rdma"
+# runs halo="rdma" (else "ppermute"); RDMA_BASE names its ppermute twin.
 CASES = {
     (2, 2, 1): {
         "linear": (0, (31, 31, 31), "V", 4, 1),
@@ -56,6 +63,14 @@ CASES = {
         "fas": (1, (31, 31, 31), "V", 3, 1),
     },
 }
+RDMA_BASE = {(4, 1, 1): ("linear", "fas"), (2, 2, 1): ("fas",)}
+for _m, _names in RDMA_BASE.items():
+    for _n in _names:
+        CASES[_m][f"{_n}_rdma"] = CASES[_m][_n]
+# The plain exchange's fields on the (4, 1, 1) ranks: each rank's block of
+# two seeded (4·16, 8, 128) arrays (the smallest shape JAX's
+# rdma_exchange takes), slabs 8 planes deep.
+EXCHANGE_BLOCK, EXCHANGE_G = (16, 8, 128), 8
 
 
 # The card's per-op route on CPU tensors, in the (2, 2, 1) spawn: name ->
@@ -81,12 +96,20 @@ def _tparams(mode, dims, cycle="V", maxiter=4):
                          **_kw(mode, dims, cycle, maxiter))
 
 
-def _port_solve(params, mesh, cutoff, check_every=1):
+def _port_solve(params, mesh, cutoff, check_every=1, halo="ppermute"):
     if params.mode == gt.Mode.NEWTON:
         return gt.newton_solve_spmd(params, mesh, cutoff=cutoff,
-                                    check_every=check_every)
+                                    check_every=check_every, halo=halo)
     return gt.solve_spmd(params, mesh, cutoff=cutoff,
-                         check_every=check_every)
+                         check_every=check_every, halo=halo)
+
+
+def _exchange_fields(m):
+    """The two seeded global arrays of the plain exchange check."""
+    bx, by, bz = EXCHANGE_BLOCK
+    rng = np.random.default_rng(0)
+    return [rng.normal(size=(m * bx, by, bz)).astype(np.float32)
+            for _ in range(2)]
 
 
 # A 7-point stencil with one (1, 1, 0) edge tap in place of a face tap.
@@ -192,7 +215,7 @@ KEYWORDS = [
     ({"local_backend": "xla"}, None), ({"tail": "off"}, None),
     ({"halo": "ppermute", "fuse": "leg", "tail": "auto"}, None),
     ({"fuse": "pod"}, None),
-    ({"halo": "rdma"}, "halo='rdma' is not ported"),
+    ({"halo": "rdma"}, None),
     ({"tail": "pv2"}, "tail='pv2' is not ported"),
     ({"fuse": "wide"}, "fuse must be 'leg' or 'pod'"),
     ({"halo": "nccl"}, "halo must be 'ppermute' or 'rdma'"),
@@ -317,8 +340,9 @@ def _rank_main(rank, mesh_shape, store_path, out_dir):
     try:
         mesh = gt.make_mesh(mesh_shape, device="cpu")
         for name, (mode, dims, cycle, cutoff, k) in CASES[mesh_shape].items():
+            halo = "rdma" if name.endswith("_rdma") else "ppermute"
             state, hist, plan = _port_solve(
-                _tparams(mode, dims, cycle), mesh, cutoff, k
+                _tparams(mode, dims, cycle), mesh, cutoff, k, halo
             )
             sol = tsp.gather_solution(state, plan, mesh,
                                       which=2 if mode == 2 else 0)
@@ -327,7 +351,19 @@ def _rank_main(rank, mesh_shape, store_path, out_dir):
                          hist=np.asarray(hist), sol=sol,
                          launched=sum(kernels.launches.values()),
                          n_dist=plan.n_dist,
-                         fused=np.asarray(plan.fused_down_levels + (-1,)))
+                         fused=np.asarray(plan.fused_down_levels + (-1,)),
+                         rdma=plan.rdma_active)
+        if mesh_shape == (4, 1, 1):
+            # The wrapper on CPU tensors runs the plain exchange.
+            bx = EXCHANGE_BLOCK[0]
+            ex = tsp._Exchange(mesh, gt.SpmdPlan(
+                _tparams(0, (63, 63, 63)), mesh_shape, 3))
+            blocks = [torch.from_numpy(a[rank * bx:(rank + 1) * bx].copy())
+                      for a in _exchange_fields(WORLD)]
+            got = rdma.rdma_exchange(blocks, ex, EXCHANGE_G)
+            np.savez(os.path.join(out_dir, f"exchange{rank}.npz"),
+                     slabs=np.stack([t.numpy() for lo, hi, _, _ in got
+                                     for t in (lo, hi)]))
         for name, (mode, dims, cutoff) in (
             ROUTE_CASES.items() if mesh_shape == (2, 2, 1) else ()
         ):
@@ -367,7 +403,13 @@ def _spawn(mesh_shape, out):
     for name in CASES[mesh_shape]:
         with np.load(out / f"{name}.npz") as f:
             results[name] = (f["hist"], f["sol"], int(f["launched"]),
-                             int(f["n_dist"]), tuple(f["fused"][:-1]))
+                             int(f["n_dist"]), tuple(f["fused"][:-1]),
+                             bool(f["rdma"]))
+    if mesh_shape == (4, 1, 1):
+        results["exchange"] = []
+        for rank in range(WORLD):
+            with np.load(out / f"exchange{rank}.npz") as f:
+                results["exchange"].append(f["slabs"])
     for name in ROUTE_CASES if mesh_shape == (2, 2, 1) else ():
         with np.load(out / f"{name}.npz") as f:
             results[name] = (f["hist"], f["plain"], tuple(f["forms"]))
@@ -396,7 +438,7 @@ RANK_IDS = [f"{'x'.join(map(str, m))}-{name}" for m, name in RANK_CASES]
 @pytest.mark.parametrize("mesh_shape,name", RANK_CASES, ids=RANK_IDS)
 def test_ranks_match_jax(ranks, mesh_shape, name):
     mode, dims, cycle, cutoff, _ = CASES[mesh_shape][name]
-    hist, sol, launched, n_dist, fused = ranks(mesh_shape)[name]
+    hist, sol, launched, n_dist, fused, _ = ranks(mesh_shape)[name]
     want_hist, want_sol = _jax_run(mesh_shape, mode, dims, cycle, cutoff)
     _close(hist, want_hist, f"{name} history")
     _close(sol, want_sol, f"{name} solution")
@@ -433,3 +475,57 @@ def test_ranks_kernel_route(ranks, name):
     _, want = gt.solve(gt.build_grid(params, device="cpu"), params)
     _close(hist, want, f"{name} kernel route vs single device")
     _close(plain, want, f"{name} plain route vs single device")
+
+
+RDMA_CASES = [(m, f"{n}_rdma") for m, names in RDMA_BASE.items()
+              for n in names]
+
+
+@pytest.mark.parametrize(
+    "mesh_shape,name", RDMA_CASES,
+    ids=[f"{'x'.join(map(str, m))}-{name}" for m, name in RDMA_CASES])
+def test_ranks_rdma_matches_ppermute(ranks, mesh_shape, name):
+    """halo="rdma" gives the ppermute history bit for bit: on (4, 1, 1)
+    the legs' x slabs come through the rdma exchange (its plain version
+    on CPU tensors); under the (2, 2, 1) y split ``plan.rdma_active`` is
+    False and the two-stage exchange runs, as the JAX engine's
+    ``use_rdma``."""
+    res = ranks(mesh_shape)
+    hist, _, _, _, _, active = res[name]
+    base, _, _, _, _, base_active = res[name.removesuffix("_rdma")]
+    assert active == (mesh_shape[1] == 1) and not base_active
+    assert np.array_equal(hist, base), (hist, base)
+
+
+def test_ranks_rdma_exchange_matches_jax(ranks):
+    """The plain exchange on the (4, 1, 1) gloo ranks equals JAX's
+    ``pallas_spmd.rdma_exchange`` (interpret mode, the 4-device virtual
+    mesh) exactly: per field the lower neighbour's last and the upper
+    neighbour's first 8 planes, zeros at the global edges."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from gpusolve_tpu.dist.mesh import make_mesh
+    from gpusolve_tpu.dist.spmd import _shard_map, interpret_sync_capacity
+    from gpusolve_tpu.ops import pallas_spmd
+
+    if interpret_sync_capacity() < WORLD:
+        pytest.skip("4-device in-kernel RDMA exceeds host sync capacity")
+    g, (_, _, bz) = EXCHANGE_G, EXCHANGE_BLOCK
+    a, b = (jnp.asarray(x) for x in _exchange_fields(WORLD))
+
+    def body(u, w):
+        idx = jax.lax.axis_index("x").astype(jnp.int32).reshape(1, 1)
+        return tuple(pallas_spmd.rdma_exchange([u, w], idx, g, bz, WORLD,
+                                               interpret=True))
+
+    f = jax.jit(_shard_map(body, mesh=make_mesh((WORLD, 1, 1)),
+                           in_specs=(P("x"), P("x")),
+                           out_specs=tuple([P("x")] * 4)))
+    want = [np.asarray(o).reshape((WORLD, g) + EXCHANGE_BLOCK[1:])
+            for o in f(a, b)]
+    got = ranks((4, 1, 1))["exchange"]
+    for rank in range(WORLD):
+        for i in range(4):
+            assert np.array_equal(got[rank][i], want[i][rank]), (rank, i)
