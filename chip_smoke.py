@@ -12,7 +12,12 @@ Phases (any failure exits non-zero before the last line is printed):
      tensors at 15³, 16³, (31,15,63), 127³ and the 511³ level-0 shape:
      fields to rtol 1e-5 with atol 1e-5·max|plain|, Σr² to rel 1e-5,
      each printed with whether it is bit-identical; a set ``done`` flag
-     must leave every output untouched.  Then the v1 whole-cycle kernel
+     must leave every output untouched; subtract bit for bit against
+     subtract_plain at those shapes, 255³ and two coarsest-level shapes,
+     on aligned and on offset fields, with NaN halos whose bits v must
+     keep; finalize bit for bit against finalize_slots_plain (its slot
+     order) at n = 1, 1023, 1024, 1025, the 127³ and the 511³ partial
+     counts, and its stop flag.  Then the v1 whole-cycle kernel
      (``vcycle_fused``) against ``vcycle_fused_plain`` at 15³, 16³, 31³,
      (31,15,63), 127³ and 511³, V(3,3) and V(6,6), in the three modes
      (every field of every level and Σr², same tolerances), and one v1
@@ -45,8 +50,12 @@ Phases (any failure exits non-zero before the last line is printed):
      bound (the bytes of kernel_bytes over the card's memory rate, or
      operations over its float32 rate), its plain
      version's time and a PyTorch library call computing the same
-     function where there is one, and a one-field copy as the stream
-     ceiling; the v1 kernel's ms per cycle at V(3,3) and V(6,6) in the
+     function where there is one, each kernel and library call also by
+     its device time (torch.profiler over the same calls: no host part,
+     no launch gaps); finalize with a flag of its own, beside its launch
+     floor (the flag set) and torch.sum; subtract beside its 80 % target
+     and torch.sub; and a one-field copy as the stream ceiling; the v1
+     kernel's ms per cycle at V(3,3) and V(6,6) in the
      three modes beside the batch engine's at the same configuration,
      their bytes and bounds, the wall per cycle of a V(6,6) solve with
      its idle share, and the cost of one op and its grid barrier.
@@ -127,8 +136,11 @@ the per-leg engine):
      leg with the reference's reason, the --fuse leg run's residuals;
   5. device ms per 511³ cycle with halo="rdma" beside halo="ppermute".
 
-The line before the last is the JSON object {"kernels": [...]}; the last
-line is {"ok": true, "device": {...}}.
+At the end the zero done flag the wrappers lend launches given none
+must still read 0.  The line before the last is the JSON object
+{"kernels": [...]}, each kernel with its event ms and its device_ms (and
+library_ms, library_device_ms); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -245,6 +257,72 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
+# Tiny kernels (torch.cuda._sleep's spin_kernel) launched at each end of
+# a profiler window.  On the card the profiler withheld the last device
+# events of a window, more in each later window of a process; the fillers
+# take their place, and device_events leaves them out.
+FILLER_LAUNCHES = 256
+
+
+class Traced:
+    """torch.profiler over the host and the card, its window opened and
+    closed by FILLER_LAUNCHES filler kernels; ``as`` gives the profile."""
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self._fill()
+        return self.prof
+
+    def __exit__(self, *exc):
+        self._fill()
+        return self.prof.__exit__(*exc)
+
+    @staticmethod
+    def _fill():
+        import torch
+
+        torch.cuda.synchronize()
+        for _ in range(FILLER_LAUNCHES):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+
+
+def device_ms(fn, reps: int = 20):
+    """Mean device ms of one call of ``fn``: the device time of every
+    kernel and copy that ``reps`` back-to-back calls launched, from
+    torch.profiler (device_events), over ``reps``.  Unlike cuda_ms it
+    leaves out the host's part of the call and the gaps between launches.
+    A window whose event count is not a multiple of ``reps`` lost some
+    (its events are printed) and is taken again, up to 5 times; then None
+    (not measured), as when the profiler records no device event."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with Traced() as prof:
+            for _ in range(reps):
+                fn()
+        events = list(device_events(prof))
+        total = sum(us for _, us in events)
+        count = sum(ev.count for ev, _ in events)
+        if total > 0 and count % reps == 0:
+            return total / 1e3 / reps
+        print(f"profiler: {count} device events for {reps} calls "
+              f"({', '.join(f'{ev.count} {ev.key[:50]}' for ev, _ in events)}"
+              f"); taking the window again")
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def padded(dims):
     return (dims[0] + 2) * (dims[1] + 2) * (dims[2] + 2)
 
@@ -302,7 +380,8 @@ def print_ptxas(log):
         if name and "registers" in line:
             print(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}; "
                   f"{spills.get(name, '')}")
-    for lin in ("residual_kernel<0>", "jacobi_kernel<0>"):
+    for lin in ("residual_kernel<0>", "jacobi_kernel<0>", "finalize_kernel",
+                "subtract_kernel<0>", "subtract_kernel<1>"):
         line = spills.get(lin, "")
         check(not re.search(r"[1-9]\d* bytes spill", line),
               f"{lin} spills: {line}")
@@ -431,11 +510,17 @@ def check_mode_kernels(p, x, rec, lines):
     lines.append(rec.scalar(float(ss_k), float(ss_p),
                             f"{res} sum r^2 {tag}", res))
     if p.mode == Mode.LINEAR:
-        # finalize alone: the kernel's partials through both versions.
+        # finalize alone: the kernel's partials through both versions, and
+        # bit for bit through the plain reproduction of its slot order.
         fin_p = x.v.new_empty(1)
         K.finalize_plain(parts, fin_p)
         lines.append(rec.scalar(float(ss_k), float(fin_p),
                                 f"finalize {tag}", "finalize"))
+        slots = torch.tensor([float(K.finalize_slots_plain(parts))],
+                             dtype=torch.float32)
+        check(torch.equal(ss_k.cpu(), slots),
+              f"finalize {tag}: {float(ss_k)} != slot order "
+              f"{float(slots)}")
 
     jac = K.variant("jacobi_sweep", p.mode)
     out_k, out_p = torch.zeros_like(x.v), torch.zeros_like(x.v)
@@ -519,6 +604,104 @@ def check_transfer_kernels(x, rec, lines):
     lines.append(f"done-flag skip {tag} transfers: ok")
 
 
+# Halo bits of check_subtract: two quiet NaNs with payloads of their own.
+NAN_V, NAN_W = 0x7FC0_1234, 0x7FC0_5678
+SUBTRACT_SHAPES = [(1, 1, 1), (2, 3, 1), (15, 15, 15), (16, 16, 16),
+                   (31, 15, 63), (127, 127, 127), (255, 255, 255)]
+
+
+def check_subtract(rec):
+    """subtract against subtract_plain, bit for bit, at the phase-2 shapes,
+    the 255³ level the 511³ main paths give it and two of the coarsest
+    levels' shapes (rows of 3 floats: a group of 4 spans rows), with NaN
+    in the halo of v and of w: v's halo must keep its NaN bits (the
+    kernel writes the interior only).  Each shape twice: on 16-byte
+    aligned fields (the vector path) and on fields that start 1 and 3
+    floats into their buffers (the scalar path)."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    def field(dims, nan, offset, rng):
+        shape = tuple(d + 2 for d in dims)
+        buf = torch.full((math.prod(shape) + offset,), nan,
+                         dtype=torch.int32, device=DEVICE)
+        a = buf[offset:].view(torch.float32).view(shape)
+        a[1:-1, 1:-1, 1:-1] = torch.from_numpy(
+            rng.standard_normal(dims, dtype=np.float32)).to(DEVICE)
+        return a
+
+    for n, dims in enumerate(SUBTRACT_SHAPES):
+        for offsets in ((0, 0), (1, 3)):
+            rng = np.random.default_rng(600 + n)
+            v = field(dims, NAN_V, offsets[0], rng)
+            w = field(dims, NAN_W, offsets[1], rng)
+            v_p = v.clone()
+            K.subtract(v, w, dims)
+            K.subtract_plain(v_p, w, dims)
+            torch.cuda.synchronize()
+            bits, bits_p = v.view(torch.int32), v_p.view(torch.int32)
+            same = torch.equal(bits, bits_p)
+            halo = bits.clone()
+            halo[1:-1, 1:-1, 1:-1] = NAN_V
+            halo_kept = bool((halo == NAN_V).all())
+            err = float((v[1:-1, 1:-1, 1:-1] - v_p[1:-1, 1:-1, 1:-1])
+                        .abs().max())
+            rec.errs["subtract"] = max(rec.errs.get("subtract", 0.0), err)
+            rec.same["subtract"] = rec.same.get("subtract", True) and same
+            tag = f"{'x'.join(map(str, dims))} offsets {offsets}"
+            print(f"check subtract {tag} (NaN halos): max_abs_err={err:.3e} "
+                  f"bit-identical={same}; v's halo NaN bits kept="
+                  f"{halo_kept}")
+            check(same, f"subtract {tag}: not bit-identical to "
+                  "subtract_plain")
+            check(halo_kept, f"subtract {tag}: the halo of v was written")
+            del v, w, v_p, bits, bits_p, halo
+    torch.cuda.empty_cache()
+
+
+def check_finalize(rec):
+    """finalize against finalize_slots_plain (its slot order in float64 on
+    the CPU, rounded once to float32), bit for bit, on seeded positive
+    partials at n = 1, 1023, 1024, 1025, the 127³ residual's count and the
+    511³ count (65 536); and the stop flag: set when the sum is <= thr,
+    left when it is above."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    L = K.lib()
+    ns = (1, 1023, 1024, 1025, L.mg_residual_blocks(127, 127, 127),
+          L.mg_residual_blocks(*BIG))
+    check(ns[-1] == 65536, f"511^3 residual blocks {ns[-1]}")
+    for n in ns:
+        rng = np.random.default_rng(700 + n)
+        parts = torch.from_numpy(rng.random(n) * 1e3).to(DEVICE)
+        out = torch.empty(1, device=DEVICE)
+        flag = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+        K.finalize(parts, out, done=flag)
+        want = float(K.finalize_slots_plain(parts))
+        want32 = torch.tensor([want], dtype=torch.float32)
+        got = out.cpu()
+        same = torch.equal(got, want32)
+        err = abs(float(got) - float(want32))
+        rec.errs["finalize"] = max(rec.errs.get("finalize", 0.0), err)
+        rec.same["finalize"] = rec.same.get("finalize", True) and same
+        above, below = out.clone(), out.clone()
+        K.finalize(parts, above, float(want32) * 0.5, flag)
+        left = int(flag.item())
+        K.finalize(parts, below, float(want32) * 2.0, flag)
+        set_ = int(flag.item())
+        print(f"check finalize n={n}: {float(got)!r} vs slot order "
+              f"{float(want32)!r} bit-identical={same}; flag left {left} "
+              f"above thr, set {set_} below")
+        check(same, f"finalize n={n}: not bit-identical to the slot order")
+        check(left == 0 and set_ == 1 and torch.equal(above, out),
+              f"finalize n={n}: stop flag {left}/{set_}")
+
+
 def check_kernels(base, rec):
     import torch
 
@@ -535,6 +718,8 @@ def check_kernels(base, rec):
             print(f"check {line}")
         del x
         torch.cuda.empty_cache()
+    check_subtract(rec)
+    check_finalize(rec)
     print(f"check bit-identical over all shapes: {rec.same}")
 
 
@@ -1021,25 +1206,35 @@ def trilinear_filter(scale):
 
 
 def time_cases(cases, rate, rows):
-    """Each case's device time, bound, plain time and library time."""
+    """Each case's time (CUDA events over 20 back-to-back calls, the host's
+    part of each call included), its device time (device_ms: the
+    profiler's over 20 calls), bound, plain time, and the library call's
+    event and device times."""
     for name, (kern, plain, libcall, nbytes, flops, shape) in cases.items():
         ms = cuda_ms(kern, reps=20)
+        dev_ms = device_ms(kern, reps=20)
         plain_ms = cuda_ms(plain, reps=3)
         library_ms = cuda_ms(libcall, reps=5) if libcall else None
+        library_dev_ms = device_ms(libcall, reps=5) if libcall else None
         t_bytes = nbytes / rate * 1e3
         t_ops = flops / F32_PEAK * 1e3
         bound_ms = max(t_bytes, t_ops)
         rows[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            library_ms=library_ms, library_device_ms=library_dev_ms,
             bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
         )
-        lib = f"{library_ms:.3f} ms" if library_ms is not None else "—"
-        print(f"time {name} {shape}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        lib = (f"{library_ms:.4f} ms (device {fmt_ms(library_dev_ms)})"
+               if library_ms is not None else "—")
+        share = (f" = {100 * bound_ms / dev_ms:.1f}% of bound by device "
+                 "time" if dev_ms else "")
+        print(f"time {name} {shape}: {ms:.4f} ms, device "
+              f"{fmt_ms(dev_ms)}, bound {bound_ms:.4f} ms "
               f"({rows[name]['bound_by']}, {nbytes / 1e9:.3f} GB), "
               f"{nbytes / ms / 1e6:.1f} GB/s = "
-              f"{100 * bound_ms / ms:.1f}% of bound; plain {plain_ms:.3f} "
-              f"ms; library {lib}")
+              f"{100 * bound_ms / ms:.1f}% of bound{share}; plain "
+              f"{plain_ms:.3f} ms; library {lib}")
 
 
 def time_kernels(params, state, rate, rows):
@@ -1066,6 +1261,9 @@ def time_kernels(params, state, rate, rows):
     parts = K.residual(None, v, f, dims, params, h, write_r=False,
                        with_norm=True)
     ss = v.new_empty(1)
+    # The flags finalize is timed with: no allocation or fill in the call.
+    live = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    stopped = torch.ones(1, dtype=torch.int32, device=DEVICE)
     taps_w = stencil_filter(params, 1.0 / (h * h))
     restrict_w = trilinear_filter(0.125)
     prolong_w = trilinear_filter(1.0)
@@ -1082,7 +1280,7 @@ def time_kernels(params, state, rate, rows):
             kernel_bytes("residual", dims), (2 * ntaps + 1) * n, s,
         ),
         "finalize": (
-            lambda: K.finalize(parts, ss),
+            lambda: K.finalize(parts, ss, done=live),
             lambda: K.finalize_plain(parts, ss),
             lambda: torch.sum(parts),
             8 * parts.numel() + 4, parts.numel(), s,
@@ -1107,6 +1305,13 @@ def time_kernels(params, state, rate, rows):
         ),
     }
     time_cases(cases, rate, rows)
+    floor = lambda: K.finalize(parts, ss, done=stopped)
+    fin = rows["finalize"]
+    print(f"time finalize 511^3 (n={parts.numel()}): device "
+          f"{fmt_ms(fin['device_ms'])} (target 0.0030 ms), launch floor "
+          f"(done set, the kernel returns at once) device "
+          f"{fmt_ms(device_ms(floor))}, events {cuda_ms(floor, 20):.4f} "
+          f"ms; torch.sum device {fmt_ms(fin['library_device_ms'])}")
     norm_only = cuda_ms(
         lambda: K.residual(None, v, f, dims, params, h, write_r=False,
                            with_norm=True), reps=20)
@@ -1194,19 +1399,28 @@ def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
         ),
     }
     time_cases(cases, rate, rows)
+    sub = rows["subtract"]
+    dev = sub["device_ms"]
+    share = f"{100 * sub['bound_ms'] / dev:.1f}%" if dev else "not measured"
+    print(f"time subtract 255^3: device {fmt_ms(dev)} = {share} of the "
+          f"{sub['bound_ms']:.4f} ms bound (target >= 80%, <= "
+          f"{sub['bound_ms'] / 0.8:.4f} ms); torch.sub(out=) device "
+          f"{fmt_ms(sub['library_device_ms'])}")
 
 
 def device_events(prof):
     """(event, device µs) of each kernel or copy on the card, by name; the
     host ops that launched them (aten::…) carry the same device time and
-    are left out, so nothing is counted twice."""
+    are left out, so nothing is counted twice, and so are Traced's
+    fillers."""
     from torch.autograd import DeviceType
 
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0 and getattr(ev, "device_type", None) != DeviceType.CPU:
+        if (dev_us > 0 and getattr(ev, "device_type", None) != DeviceType.CPU
+                and "spin_kernel" not in ev.key):
             yield ev, dev_us
 
 
@@ -1276,7 +1490,6 @@ def fused_cycle_bytes(params):
 
 def time_cycles(params, state, rate, label):
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gpusolve_tpu_torch.ops import vcycle_batch
 
@@ -1302,8 +1515,7 @@ def time_cycles(params, state, rate, label):
         print(f"cycle 511^3 fused-leg bound: {fused / 1e9:.3f} GB/cycle -> "
               f"{fused / rate * 1e3:.3f} ms/cycle")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with Traced() as prof:
         t0 = time.perf_counter()
         vcycle_batch.run(state, params, maxk=k)
         torch.cuda.synchronize()
@@ -1324,7 +1536,6 @@ def time_newton_steps(params, steps=3):
     profiler breakdown of a third.  The inner cycles each step ran are
     the lengths of find_error's histories, which a wrapper records."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import gpusolve_tpu_torch as gt
 
@@ -1355,9 +1566,9 @@ def time_newton_steps(params, steps=3):
                   f"{steps} steps, the initial F included), "
                   f"{wall / steps:.3f} ms/step wall; inner cycles per step "
                   f"{steps_inner}; history {hist}")
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        _, wall_p, _, _ = run(prof)
+        window = Traced()
+        _, wall_p, _, _ = run(window)
+        prof = window.prof
     busy, any_rows = profile_rows(prof, steps, "step")
     if any_rows:
         print(f"profile newton busy {busy / steps:.3f} ms/step of "
@@ -1456,7 +1667,6 @@ def time_v1(base, rate, rows):
     Fills rows["vcycle_fused"] from the V(6,6) LINEAR numbers, the main
     path's configuration."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import gpusolve_tpu_torch as gt
     from gpusolve_tpu_torch.config import Mode
@@ -1493,12 +1703,16 @@ def time_v1(base, rate, rows):
                 # least bytes such a cycle moves (each leg one pass), not
                 # the sum over the per-op schedule v1 runs.
                 bf = fused_cycle_bytes(p)
+                v1_dev = device_ms(lambda: vf.vcycle_fused(state.levels, p),
+                                   reps=3)
                 rows["vcycle_fused"] = dict(
-                    ms=v1_ms, plain_ms=plain_ms, library_ms=None,
+                    ms=v1_ms, device_ms=v1_dev, plain_ms=plain_ms,
+                    library_ms=None, library_device_ms=None,
                     bound_ms=bf / rate * 1e3, bound_by="bytes",
                 )
                 print(f"time vcycle_fused 511^3 V(6,6) LINEAR: {v1_ms:.4f} "
-                      f"ms, bound {bf / rate * 1e3:.4f} ms (bytes, "
+                      f"ms, device {fmt_ms(v1_dev)}, bound "
+                      f"{bf / rate * 1e3:.4f} ms (bytes, "
                       f"{bf / 1e9:.3f} GB, a fused-leg cycle; "
                       f"{100 * bf / rate * 1e3 / v1_ms:.1f}%), per-op "
                       f"schedule bound {b1 / rate * 1e3:.4f} ms "
@@ -1511,9 +1725,7 @@ def time_v1(base, rate, rows):
                      maxiter=k, tol=1e-12, print_progress=False)
     state = gt.build_grid(p)
     gt.solve(state, p.replace(maxiter=1))  # warm
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    with Traced() as prof:
         t0 = time.perf_counter()
         _, hist = gt.solve(state, p)
         torch.cuda.synchronize()
@@ -2689,8 +2901,12 @@ def time_leg_kernels(base, rate, rows):
                   f"{bound:.3f} ms by {bound_by} ({100 * bound / ms:.1f}% "
                   f"of it), plain {plain:.3f} ms, library —")
             if label == "restrict":
-                rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                              "bound_by": bound_by, "library_ms": None}
+                dev = device_ms(lambda: leg_call(SL.leg_block, *args,
+                                                 **opts), 3)
+                print(f"time {name} {label}: device {fmt_ms(dev)}")
+                rows[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                              "bound_ms": bound, "bound_by": bound_by,
+                              "library_ms": None, "library_device_ms": None}
     del x
     torch.cuda.empty_cache()
 
@@ -2755,9 +2971,14 @@ def time_pod_kernels(base, rate, rows):
                       f"—; grid {blocks} blocks ({per_sm} resident an SM), "
                       f"{smem} bytes of shared memory a block")
                 if npod == 1:
-                    rows[name] = {"ms": ms, "plain_ms": plain,
-                                  "bound_ms": bound, "bound_by": bound_by,
-                                  "library_ms": None}
+                    dev = device_ms(lambda: run_chain(eng, st, "kernel", up),
+                                    3)
+                    print(f"time {name} (511^3, npod=1): device "
+                          f"{fmt_ms(dev)}")
+                    rows[name] = {"ms": ms, "device_ms": dev,
+                                  "plain_ms": plain, "bound_ms": bound,
+                                  "bound_by": bound_by, "library_ms": None,
+                                  "library_device_ms": None}
                 del st
             del eng, seeded
             torch.cuda.empty_cache()
@@ -2791,7 +3012,6 @@ def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
     glue, with the glue's launches a cycle; the idle share; peak memory.
     Returns the device ms a cycle."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import gpusolve_tpu_torch as gt
     from gpusolve_tpu_torch.dist.pod import PodEngine
@@ -2828,8 +3048,7 @@ def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
           f"{batch_ms:.3f} ms/cycle in this call ({what}/batch "
           f"{dev / batch_ms:.3f}){beside}; peak memory of the engine "
           f"{peak:.2f} GiB (state, buffers and temporaries)")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with Traced() as prof:
         t0 = time.perf_counter()
         for i in range(k):
             eng.cycle(state, sums[i:i + 1])
@@ -2922,6 +3141,8 @@ def check_rdma_kernel(base, rec, rate, rows):
         ms = cuda_ms(lambda: RD.rdma_exchange(fields, ex, g), 20)
         plain = cuda_ms(lambda: RD.rdma_exchange_plain(fields, ex, g), 20)
         lib_ms = cuda_ms(lambda: [t.zero_() for t in flat], 20)
+        dev = device_ms(lambda: RD.rdma_exchange(fields, ex, g))
+        lib_dev = device_ms(lambda: [t.zero_() for t in flat])
         nbytes = rdma_bytes(fields, g, 0)
         bound = nbytes / rate * 1e3
         print(f"time rdma_exchange ({plan.block[l]} block, {n} fields, "
@@ -2929,10 +3150,12 @@ def check_rdma_kernel(base, rec, rate, rows):
               f"{nbytes / 1e9:.4f} GB, bound {bound:.4f} ms by bytes "
               f"({100 * bound / ms:.1f}% of it), plain {plain:.4f} ms "
               f"(cached zeros), library {lib_ms:.4f} ms ({2 * n} zero_() "
-              "calls)")
-        rows["rdma_exchange"] = {"ms": ms, "plain_ms": plain,
-                                 "bound_ms": bound, "bound_by": "bytes",
-                                 "library_ms": lib_ms}
+              f"calls); device: kernel {fmt_ms(dev)}, library "
+              f"{fmt_ms(lib_dev)}")
+        rows["rdma_exchange"] = {"ms": ms, "device_ms": dev,
+                                 "plain_ms": plain, "bound_ms": bound,
+                                 "bound_by": "bytes", "library_ms": lib_ms,
+                                 "library_device_ms": lib_dev}
         del fields, got, want, flat
     ex.close()
     torch.cuda.empty_cache()
@@ -3156,6 +3379,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(path, HERE)}")
     print_ptxas(log)
+    print(f"finalize: one cluster of 8 blocks x 128 threads, "
+          f"{K.lib().mg_finalize_stage_bytes()} bytes of dynamic shared "
+          f"memory a block beside ptxas's static ones")
     rate = mem_rate(name)
 
     base = gt.parse_config(CONFS["linear"])
@@ -3272,6 +3498,13 @@ def main() -> int:
         time_spmd_cycles(p, label, batch_ms, rate, fuse="pod", npod=3,
                          others=(("per-leg", leg_ms), ("pod npod=1", pod_ms)))
 
+    # The one zero flag a device lends the launches given no done flag:
+    # no kernel may have written it.
+    flags = {str(d): int(t.item()) for d, t in K._zero_done.items()}
+    print(f"check cached zero done flag after the run: {flags}")
+    check(flags and not any(flags.values()),
+          f"the cached zero done flag was written: {flags}")
+
     kernels_line = []
     for kname in K.KERNELS:
         row = rows[kname]
@@ -3284,8 +3517,10 @@ def main() -> int:
                        SPMD_SRC if "_block" in kname else SRC),
             "replaces": REPLACES[kname], "launches": launched[kname],
             "max_abs_err": rec.errs[kname], "ms": row["ms"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
         })
     print(smi)
     print(json.dumps({"kernels": kernels_line}))

@@ -178,8 +178,10 @@ __device__ double block_sum(double x) {
 // The fixed-order float64 sum of the residual's per-tile partials, as
 // kFinThreads slots: slot q sums partials q, q + kFinThreads, ... in order,
 // then a halving tree adds the slots.  Any block size walks the same
-// slots, so the sum is the same bits whichever kernel takes it.  `s` is
-// kFinThreads doubles of shared memory; the result is valid in thread 0.
+// slots, so the sum is the same bits whichever kernel takes it; the per-op
+// finalize kernel (multigrid.cu) walks them as one cluster of blocks in
+// the same order.  `s` is kFinThreads doubles of shared memory; the result
+// is valid in thread 0.
 __device__ __forceinline__ double finalize_sum(const double* partials,
                                                long long n, double* s) {
   const int tid = threadIdx.x, nt = blockDim.x;

@@ -10,7 +10,8 @@
 //
 //   mg_residual       r = f - (A v / h^2 + mode term), optional r write,
 //                     per-block sum r^2
-//   mg_finalize       one block: sum the partials, write norms[i], set done
+//   mg_finalize       one cluster of 8 blocks: sum the partials, write
+//                     norms[i], set done
 //   mg_jacobi         one damped-Jacobi sweep, out of place, per mode
 //   mg_restrict_zero  coarse f = 27-point full weighting of r; coarse v = 0
 //   mg_restrict       out = full weighting of a fine field (FAS R(r), R(v)
@@ -49,7 +50,14 @@
 // Every entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError().
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
+#include <cstdint>
+
 #include "mg_device.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -57,6 +65,24 @@ namespace {
 // at 80 registers the unrolled taps held 3 blocks per SM and reached a
 // quarter of the byte bound.
 constexpr int kMinBlocks = 6;
+
+// finalize: one cluster of kFinCluster blocks, each owning kFinBlock of
+// the kFinThreads slots; a block copies kFinRows rows of its slots'
+// partials at a time into shared memory, in kFinGroups groups it waits for
+// in turn.
+constexpr int kFinCluster = 8;
+constexpr int kFinBlock = kFinThreads / kFinCluster;
+constexpr int kFinRows = 64;
+constexpr int kFinGroups = 4;
+constexpr int kFinStageBytes = kFinRows * kFinBlock * (int)sizeof(double);
+static_assert(kFinBlock == 128, "finalize's warp-0 tail adds 4 slots a lane");
+
+// subtract: groups of 4 floats (one 16-byte vector where v and w are
+// 16-byte aligned), kSubBatch groups a thread, one x-plane a grid row;
+// its 2 * kSubBatch vectors in registers need more than the stencil
+// kernels' 40 registers, and 4 blocks an SM keep 128 KB in flight.
+constexpr int kSubBatch = 4;
+constexpr int kSubMinBlocks = 4;
 
 template <int M>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -101,16 +127,124 @@ apply_fas_kernel(float* out, const float* __restrict__ v,
   }
 }
 
-__global__ void __launch_bounds__(kFinThreads)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Rows r0, r0 + kFinThreads, ... (kFinRows of them) of this block's
+// slots into stage, as 16-byte cp.async in kFinGroups commit groups:
+// thread tid copies pair tid % kPairs of rows 2k + tid / kPairs.  kWhole:
+// every row lies below n, so each copy is a pointer plus a constant.
+// Else past the end the copy fills +0.0, which leaves a slot's sum as it
+// is (it starts at +0.0, so it is never -0.0).
+template <bool kWhole>
+__device__ __forceinline__ void finalize_copy(double* stage,
+                                              const double* partials,
+                                              long long r0, long long n,
+                                              int tid) {
+  constexpr int kPairs = kFinBlock / 2;
+  constexpr int kPer = kFinRows / kFinGroups;
+  const long long t0 =
+      r0 + (long long)(tid / kPairs) * kFinThreads + 2 * (tid % kPairs);
+  double* dst = stage + (tid / kPairs) * kFinBlock + 2 * (tid % kPairs);
+#pragma unroll
+  for (int k = 0; k < kFinRows / 2; ++k) {
+    const long long t = t0 + 2LL * k * kFinThreads;
+    double* d = dst + 2 * k * kFinBlock;
+    if (kWhole || t + 1 < n) {
+      __pipeline_memcpy_async(d, partials + t, 2 * sizeof(double));
+    } else {
+      if (t < n) {
+        __pipeline_memcpy_async(d, partials + t, sizeof(double));
+      } else {
+        d[0] = 0.0;
+      }
+      d[1] = 0.0;
+    }
+    if (2 * (k + 1) % kPer == 0) __pipeline_commit();
+  }
+}
+
+// The norm as one thread-block cluster of kFinCluster blocks (the
+// portable cluster size) of kFinBlock threads, in finalize_sum's order
+// (mg_device.cuh), which v1's kernel keeps: slot q sums partials q,
+// q + kFinThreads, ... in order, then the halving tree s[q] += s[q + w]
+// for w = kFinThreads/2 ... 1, rounded once to float32.  Bound: latency.
+// One block of kFinThreads used to walk the slots on one SM, each thread
+// with one dependent load after another.  Here block b owns slots
+// kFinBlock*b ...: a row of its partials (kFinBlock doubles, 1 KB) is
+// contiguous, so its threads copy kFinRows rows into shared memory as
+// 16-byte cp.async (no registers held: all in flight at once), and each
+// thread adds its slot's column in order as each group of rows lands.
+// Eight SMs pull the partials at once.  Then each block writes its slot
+// sums into block 0's shared memory (distributed shared memory), one
+// cluster barrier, and block 0 runs the tree: w = 512, 256, 128 pair
+// slots that one thread holds (in registers), w = 64 and 32 in warp 0,
+// w < 32 as shuffles; the pairs and operand order are the tree's.  Every
+// block reads the same done flag at entry, so all return or none does (a
+// block that left alone would leave the others at the cluster barrier).
+__global__ void __cluster_dims__(kFinCluster, 1, 1)
+__launch_bounds__(kFinBlock)
 finalize_kernel(const double* __restrict__ partials, long long n,
                 float* __restrict__ out, float thr, int* done) {
   if (*done) return;
+  extern __shared__ __align__(16) double stage[];  // kFinRows x kFinBlock
   __shared__ double s[kFinThreads];
-  const double total = finalize_sum(partials, n, s);
-  if (threadIdx.x == 0) {
-    const float ss = (float)total;
-    *out = ss;
-    if (thr >= 0.0f && ss <= thr) *done = 1;
+  cg::cluster_group cluster = cg::this_cluster();
+  // Every block must have started before another writes its shared
+  // memory: arrive now, wait before the writes.
+  cluster_arrive_relaxed();
+  const int tid = threadIdx.x;
+  const int rank = (int)cluster.block_rank();
+  constexpr int kPer = kFinRows / kFinGroups;  // rows a group
+  double acc = 0.0;
+  for (long long r0 = (long long)kFinBlock * rank; r0 < n;
+       r0 += (long long)kFinRows * kFinThreads) {
+    if (r0 + (long long)(kFinRows - 1) * kFinThreads + kFinBlock <= n) {
+      finalize_copy<true>(stage, partials, r0, n, tid);
+    } else {
+      finalize_copy<false>(stage, partials, r0, n, tid);
+    }
+#pragma unroll
+    for (int grp = 0; grp < kFinGroups; ++grp) {
+      __pipeline_wait_prior(kFinGroups - 1 - grp);
+      __syncthreads();  // the group's rows, copied by every thread
+#pragma unroll
+      for (int b = grp * kPer; b < (grp + 1) * kPer; ++b) {
+        acc += stage[b * kFinBlock + tid];
+      }
+    }
+    __syncthreads();  // all reads done before the next rows land
+  }
+  cluster_wait();
+  cluster.map_shared_rank(s, 0)[kFinBlock * rank + tid] = acc;
+  cluster.sync();
+  if (rank != 0) return;
+  double y[kFinCluster];  // slots kFinBlock * r + tid
+#pragma unroll
+  for (int r = 0; r < kFinCluster; ++r) y[r] = s[kFinBlock * r + tid];
+#pragma unroll
+  for (int h = kFinCluster / 2; h > 0; h /= 2) {  // w = kFinBlock * h
+#pragma unroll
+    for (int r = 0; r < h; ++r) y[r] += y[r + h];
+  }
+  __syncthreads();  // every slot read before s[tid] is overwritten
+  s[tid] = y[0];
+  __syncthreads();
+  if (tid < 32) {
+    // w = 64 and 32, then w = 16 ... 1 (lane q: s[q] + s[q + w]).
+    double x = (s[tid] + s[tid + 64]) + (s[tid + 32] + s[tid + 96]);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) x += __shfl_down_sync(0xffffffffu, x, w);
+    if (tid == 0) {
+      const float ss = (float)x;
+      *out = ss;
+      if (thr >= 0.0f && ss <= thr) *done = 1;
+    }
   }
 }
 
@@ -160,19 +294,71 @@ prolong_add_kernel(float* __restrict__ vf, const float* __restrict__ vc,
 }
 
 // v -= w over the interior, in place: the FAS coarse v - rest_v that the
-// prolongation then reads (each point touches only itself).
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-subtract_kernel(float* v, const float* __restrict__ w,
+// prolongation then reads (each point touches only itself).  Bound:
+// bytes.  The pass is flat, as a copy's: grid row i - 1 covers x-plane
+// i from its first interior point to its last in groups of 4 floats
+// (element 4q ... 4q + 3 of the array), consecutive threads on
+// consecutive groups, each thread loading its kSubBatch groups of v and w
+// (16-byte vectors where kVec, 128 bytes in flight a thread) before any
+// store.  A group's points outside the interior (the row ends, the halo
+// rows between two planes' interiors) are read but never written: the
+// halo is not written, so the pod engine's tail root and the spmd
+// engine's replicated levels keep theirs.  Two planes' interiors lie
+// 2 nz + 7 >= 9 points apart, so no group belongs to two grid rows.  v is
+// __restrict__: the wrapper refuses v and w that share any memory.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if constexpr (kVec) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kSubMinBlocks)
+subtract_kernel(float* __restrict__ v, const float* __restrict__ w,
                 const int* __restrict__ done, Geom g) {
   if (*done) return;
-  const int k = blockIdx.x * kBZ + threadIdx.x + 1;
-  const int j = blockIdx.y * kBY + threadIdx.y + 1;
-  if (k > g.nz || j > g.ny) return;
-  const int i0 = blockIdx.z * kXCH + 1;
-  const int i1 = min(i0 + kXCH, g.nx + 1);
-  long long idx = i0 * g.sx + j * g.sy + k;
-  for (int i = i0; i < i1; ++i, idx += g.sx) {
-    v[idx] = __fsub_rn(v[idx], w[idx]);
+  const int i = blockIdx.y + 1;
+  const long long plane = i * g.sx;
+  const long long first = (plane + g.sy + 1) >> 2;
+  const long long last = (plane + g.ny * g.sy + g.nz) >> 2;
+  const long long q0 =
+      first + (long long)blockIdx.x * kThreads * kSubBatch + threadIdx.x;
+  float4 a[kSubBatch], b[kSubBatch];
+#pragma unroll
+  for (int m = 0; m < kSubBatch; ++m) {
+    const long long q = q0 + m * kThreads;
+    if (q <= last) {
+      a[m] = load4<kVec>(v + 4 * q);
+      b[m] = load4<kVec>(w + 4 * q);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kSubBatch; ++m) {
+    const long long q = q0 + m * kThreads;
+    if (q > last) continue;
+    const float4 d = make_float4(
+        __fsub_rn(a[m].x, b[m].x), __fsub_rn(a[m].y, b[m].y),
+        __fsub_rn(a[m].z, b[m].z), __fsub_rn(a[m].w, b[m].w));
+    // (j, k) of the group's first point within plane i.
+    const int rel = (int)(4 * q - plane);
+    int j = rel / (int)g.sy;
+    int k = rel - j * (int)g.sy;
+    if (kVec && k >= 1 && k + 3 <= g.nz && j >= 1 && j <= g.ny) {
+      *reinterpret_cast<float4*>(v + 4 * q) = d;
+      continue;
+    }
+    const float dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (j >= 1 && j <= g.ny && k >= 1 && k <= g.nz) v[4 * q + c] = dv[c];
+      if (++k == (int)g.sy) {
+        k = 0;
+        ++j;
+      }
+    }
   }
 }
 
@@ -228,9 +414,19 @@ int mg_apply_fas(float* out, const float* v, const int* done, int nx, int ny,
   return (int)cudaGetLastError();
 }
 
+// The dynamic shared memory of a finalize block (its staged partials).
+int mg_finalize_stage_bytes() { return kFinStageBytes; }
+
+// One cluster of kFinCluster blocks; a refused cluster launch returns its
+// error like any other.
 int mg_finalize(const double* partials, long long n, float* out, float thr,
                 int* done, cudaStream_t stream) {
-  finalize_kernel<<<1, kFinThreads, 0, stream>>>(partials, n, out, thr, done);
+  const cudaError_t e = cudaFuncSetAttribute(
+      finalize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFinStageBytes);
+  if (e != cudaSuccess) return (int)e;
+  finalize_kernel<<<kFinCluster, kFinBlock, kFinStageBytes, stream>>>(
+      partials, n, out, thr, done);
   return (int)cudaGetLastError();
 }
 
@@ -293,7 +489,16 @@ int mg_prolong_add(float* vf, const float* vc, const int* done, int fnx,
 int mg_subtract(float* v, const float* w, const int* done, int nx, int ny,
                 int nz, cudaStream_t stream) {
   const Geom g = make_geom(nx, ny, nz);
-  subtract_kernel<<<grid_for(g), dim3(kBZ, kBY), 0, stream>>>(v, w, done, g);
+  // Groups of one plane: its interior span, ny * (nz + 2) - 2 points, may
+  // start and end inside a group.
+  const long long groups = (g.ny * g.sy + 6) / 4 + 1;
+  const dim3 grid((unsigned)((groups + kThreads * kSubBatch - 1) /
+                             (kThreads * kSubBatch)), nx);
+  if ((((uintptr_t)v | (uintptr_t)w) & 15) == 0) {
+    subtract_kernel<true><<<grid, kThreads, 0, stream>>>(v, w, done, g);
+  } else {
+    subtract_kernel<false><<<grid, kThreads, 0, stream>>>(v, w, done, g);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -192,6 +192,7 @@ def _bind(path: Path):
         ),
         "mg_apply_fas": ([p, p, p, i, i, i, p, p, i, f, f, p], i),
         "mg_finalize": ([p, ll, p, f, p, p], i),
+        "mg_finalize_stage_bytes": ([], i),
         "mg_jacobi": (
             [p, p, p, p, p, i, i, i, p, p, i, f, f, f, f, f, i, p], i
         ),
@@ -317,9 +318,19 @@ def _newton_v_for(params: GridParams, newton_v):
     return newton_v
 
 
+# One zero flag per device for the launches given no ``done``.  Only the
+# finalize kernel writes a flag, and only with a stop threshold, which
+# ``finalize`` refuses without a flag of the caller's: so this one stays 0.
+_zero_done = {}
+
+
 def _done_or_zero(done: Optional[torch.Tensor], device) -> torch.Tensor:
     if done is None:
-        return torch.zeros(1, dtype=torch.int32, device=device)
+        flag = _zero_done.get(device)
+        if flag is None:
+            flag = torch.zeros(1, dtype=torch.int32, device=device)
+            _zero_done[device] = flag
+        return flag
     _check(done, "done", (1,), device, torch.int32)
     return done
 
@@ -471,12 +482,40 @@ def apply_fas(
 # ---------------------------------------------------------------------------
 # finalize — replaces the norm output and in-kernel early stop of
 # gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (cycle_body, :1370) and
-# the Σr² scalar of _residual_call.  Bound: launch latency (one block reads
-# the ~n/2048 partials, a few hundred KB at 511³).  Design: one block of
-# 1024 threads sums the partials in a fixed order in float64, rounds once
-# to float32, writes ``out[0]`` and sets ``done`` when
-# ``thr >= 0 and sumsq <= thr``.
+# the Σr² scalar of _residual_call.  Bound: latency (the partials are one
+# double per residual block, 512 KB at 511³: a few µs of one SM's L2
+# bandwidth).  Design: one thread-block cluster of 8 blocks × 128 threads
+# sums the partials in float64 in a fixed order (1024 slots, each summed
+# in order from rows that 16-byte cp.async copies land in shared memory,
+# all in flight at once; then a halving tree in block 0 over the slot sums
+# the blocks write into its shared memory), rounds once to float32,
+# writes ``out[0]`` and sets ``done`` when ``thr >= 0 and sumsq <= thr``.
+# ``finalize_slots_plain`` reproduces that order on the CPU;
+# ``finalize_plain`` (``torch.sum``) is the plain version the CPU path
+# runs.
 # ---------------------------------------------------------------------------
+
+FIN_SLOTS = 1024  # mg_device.cuh kFinThreads
+
+
+def finalize_slots_plain(partials: torch.Tensor) -> torch.Tensor:
+    """Σ partials in float64 in the finalize kernel's order: slot q sums
+    partials q, q + 1024, ... in order, then ``s[q] += s[q + w]`` for
+    w = 512 … 1; returns ``s[0]`` (a float64 scalar tensor, on the CPU).
+    The kernel rounds it once to float32."""
+    p = partials.detach().to("cpu", torch.float64).reshape(-1)
+    rows = -(-p.numel() // FIN_SLOTS)
+    # Trailing +0.0 leaves every slot's sum as it is: a slot sum starts
+    # at +0.0 and so is never −0.0.
+    padded = torch.zeros(rows * FIN_SLOTS, dtype=torch.float64)
+    padded[:p.numel()] = p
+    s = torch.zeros(FIN_SLOTS, dtype=torch.float64)
+    for row in padded.reshape(rows, FIN_SLOTS):
+        s = s + row
+    while s.numel() > 1:
+        w = s.numel() // 2
+        s = s[:w] + s[w:]
+    return s[0]
 
 
 def finalize_plain(partials, out, thr=-1.0, done=None) -> None:
@@ -502,6 +541,9 @@ def finalize(
         return finalize_plain(partials, out, thr, done)
     dev = _cuda_device(partials)
     _check(partials, "partials", None, dev, torch.float64)
+    if partials.data_ptr() % 16:
+        raise ValueError("partials must start on a 16-byte boundary (the "
+                         "kernel copies them 16 bytes at a time)")
     _check(out, "out", (1,), dev)
     if thr >= 0.0 and done is None:
         raise ValueError("a stop threshold needs a done flag to set")
@@ -745,14 +787,36 @@ def prolong_add(
 # gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (:527-528): the coarse
 # v becomes v − rest_v before the prolongation reads it, and keeps that
 # value, as in the JAX cycle.  Bound: bytes (reads v and w, writes v: 12
-# B/point of the coarse level, ⅛ of the fine).  Design: in place, one
-# thread per (y, z) column walking 8 x-planes; a fold into prolong_add
-# could not leave the coarse state, since its threads share coarse values.
+# B/point of the coarse level, ⅛ of the fine).  Design: in place, a flat
+# pass over each x-plane's interior span in groups of 4 floats (16-byte
+# vectors where v and w are 16-byte aligned), each thread loading 4
+# groups of v and of w before it stores, the points outside the interior
+# masked out of the stores (v is ``__restrict__``, hence the refusal of
+# any overlap of v and w); a fold into prolong_add could not leave the
+# coarse state, since its threads share coarse values.
 # ---------------------------------------------------------------------------
+
+
+def _span(t: torch.Tensor) -> Tuple[int, int]:
+    """The byte range [start, end) a tensor's elements lie in."""
+    start = t.data_ptr()
+    if t.numel() == 0:
+        return start, start
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return start, start + (last + 1) * t.element_size()
+
+
+def _refuse_overlap(v: torch.Tensor, w: torch.Tensor) -> None:
+    if v.device != w.device:
+        return
+    (a0, a1), (b0, b1) = _span(v), _span(w)
+    if a0 < b1 and b0 < a1:
+        raise ValueError("v and w must not share memory")
 
 
 def subtract_plain(v, w, dims, done=None) -> None:
     """Plain version of :func:`subtract`."""
+    _refuse_overlap(v, w)
     if _is_done(done):
         return
     ref.interior(v, dims).sub_(ref.interior(w, dims))
@@ -764,14 +828,14 @@ def subtract(
     dims: Dims,
     done: Optional[torch.Tensor] = None,
 ) -> None:
-    """``v −= w`` over the interior, in place."""
+    """``v −= w`` over the interior, in place; ``v`` and ``w`` share no
+    memory."""
+    _refuse_overlap(v, w)
     if v.device.type == "cpu":
         return subtract_plain(v, w, dims, done)
     dev = _cuda_device(v)
     _check(v, "v", _padded(dims), dev)
     _check(w, "w", _padded(dims), dev)
-    if v.data_ptr() == w.data_ptr():
-        raise ValueError("v and w must be distinct")
     done = _done_or_zero(done, dev)
     rc = lib().mg_subtract(
         v.data_ptr(), w.data_ptr(), done.data_ptr(), *dims, _stream(dev)
