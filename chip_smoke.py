@@ -61,7 +61,10 @@ Phases (any failure exits non-zero before the last line is printed):
      its idle share, and the cost of one op and its grid barrier.
 
 The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
-  1. the dynamic shared memory of each leg launch at 511³ (S = 3);
+  1. the dynamic shared memory of each leg launch at 511³ (S = 3) and
+     the blocks an SM holds of it, by shared memory and by the occupancy
+     calculator; no leg_kernel instantiation (mode x consumer x slabs x
+     tap order) and no rdma_kernel may spill;
   2. its four shard-local kernels (ops/spmd_kernels.py), in each mode,
      against their plain versions at the 511³ level-0 block (640³, the
      box 511³) and at small odd blocks whose boxes touch every face (same
@@ -71,8 +74,9 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
      trapezoid leg (ops/spmd_leg.py) against leg_block_plain, bit for bit,
      in every mode and variant (no consumer, norm, restriction with the
      FAS tau, from v = 0, corr-first) at the 511³ block and at the
-     one-rank blocks of 15³ and (33,17,9) grids, and against 3 launches of
-     sweep_block; then a 127³ field carved into the blocks of (2,1,1) and
+     one-rank blocks of 15³ and (33,17,9) grids (the last also with the
+     stencil's taps reordered: the kernel's generic tap path), and
+     against 3 launches of sweep_block; then a 127³ field carved into the blocks of (2,1,1) and
      (2,2,1) plans, each leg with slabs cut from the field, against the
      same leg on the whole field;
   3. solve_spmd (LINEAR and FAS V(3,3), check_every=10) and
@@ -89,7 +93,9 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
      leg and as they are (--fuse auto resolves to the pod engine), and the
      engine not ported (exit 1);
   5. each shard-local kernel's time, bound, plain and library time at the
-     511³ level-0 block, and each leg variant's; device ms per 511³ spmd
+     511³ level-0 block, and each leg variant's (event and device ms,
+     the launch alone), the level-0 down leg's slab-reading
+     instantiation beside the slab-free one; device ms per 511³ spmd
      cycle beside the batch engine's, a profiler split into the
      shard-local kernels, the replicated levels' kernels and the torch
      glue (launches a cycle), the idle share and peak memory.
@@ -119,7 +125,7 @@ the per-leg engine):
      for bit (the zero fill, the receive buffers NaN before), at the 511³
      plan's 640³ level-0 block (3 fields, G = 8) and 320³ level-1 block
      (1 field, GC = 5), with its ms, bytes, bound, plain ms and the
-     library's (one zero_() a slab); (b) 2 and 4 processes spawned on the
+     library's (one zero_() a slab), both blocks by device time; (b) 2 and 4 processes spawned on the
      one card (a gloo group over a FileStore carries the CUDA IPC handles
      and the barriers), each rank one shard of the (m,1,1) plan's 511³
      level-0 blocks and of odd (9,5,7) blocks: 50 exchanges with new
@@ -380,8 +386,13 @@ def print_ptxas(log):
         if name and "registers" in line:
             print(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}; "
                   f"{spills.get(name, '')}")
+    legs = sorted(k for k in spills if k.startswith("leg_kernel<"))
+    check(len(legs) == 36 and "rdma_kernel" in spills,
+          f"ptxas reported {len(legs)} of 36 leg_kernel instantiations "
+          f"and rdma_kernel {'rdma_kernel' in spills}")
     for lin in ("residual_kernel<0>", "jacobi_kernel<0>", "finalize_kernel",
-                "subtract_kernel<0>", "subtract_kernel<1>"):
+                "subtract_kernel<0>", "subtract_kernel<1>", "rdma_kernel",
+                *legs):
         line = spills.get(lin, "")
         check(not re.search(r"[1-9]\d* bytes spill", line),
               f"{lin} spills: {line}")
@@ -389,8 +400,9 @@ def print_ptxas(log):
 
 def print_leg_smem(base):
     """The dynamic shared memory of each leg launch of the 511³ main path
-    (S = 3; ptxas reports only the static part) and how many blocks of it
-    an SM holds (228 KB, 1 KB reserved per block)."""
+    (S = 3; ptxas reports only the static part), how many blocks of it an
+    SM holds (228 KB, 1 KB reserved per block), and the blocks an SM holds
+    by the occupancy calculator (registers too), with and without slabs."""
     import ctypes
 
     from gpusolve_tpu_torch.config import Mode
@@ -405,9 +417,18 @@ def print_leg_smem(base):
                     0, BIG[0], 0, BIG[1]] + [0] * 11
             out = (ctypes.c_longlong * 4)()
             K.lib().mg_leg_grid((ctypes.c_int * len(ints))(*ints), out)
+            occ = []
+            for slabs in (0, 1):
+                ints[2] = slabs
+                n = (ctypes.c_int * 1)()
+                rc = K.lib().mg_leg_occupancy(
+                    (ctypes.c_int * len(ints))(*ints), n)
+                K._check_rc(rc, "mg_leg_occupancy")
+                occ.append(n[0])
             print(f"leg smem: leg_kernel<{int(mode)},{c}> {cname} S=3: "
                   f"{out[3]} bytes, {233472 // (out[3] + 1024)} blocks/SM by "
-                  f"shared memory; grid {out[0]}x{out[1]}x{out[2]}")
+                  f"shared memory, {occ[0]} by occupancy ({occ[1]} with "
+                  f"slabs); grid {out[0]}x{out[1]}x{out[2]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2041,10 +2062,11 @@ def leg_variants(mode):
 
 
 def leg_call(fn, p, plan, l, x, kw, slabs=None, cslabs=None, box=None,
-             glob=None, cbox=None, S=3):
+             glob=None, cbox=None, S=3, outs=None):
     """One leg of ``fn`` (leg_block or its plain version) on the inputs
     ``x`` (v, f, ũ, coarse v) of level ``l``; returns the output fields
-    and the norm partials."""
+    and the norm partials.  ``outs``: the output fields of an earlier call
+    to write again (a timed call allocates nothing)."""
     import torch
 
     from gpusolve_tpu_torch.config import Mode
@@ -2052,13 +2074,14 @@ def leg_call(fn, p, plan, l, x, kw, slabs=None, cslabs=None, box=None,
 
     v, f, nv, vc = x
     fas = p.mode == Mode.NONLINEAR
-    out = torch.zeros_like(v)
+    out = torch.zeros_like(v) if outs is None else outs[0]
     kw = dict(kw)
     corr = kw.pop("corr", False)
     extra = {}
     couts = []
     if kw.get("consumer") == "restrict":
-        couts = [torch.zeros_like(vc) for _ in range(3 if fas else 1)]
+        couts = [torch.zeros_like(vc) for _ in range(3 if fas else 1)] \
+            if outs is None else list(outs[1:])
         extra = dict(
             cout=tuple(couts) if fas else (couts[0], None, None),
             cbox=cbox, cdims=plan.dims[l + 1],
@@ -2097,32 +2120,60 @@ def leg_inputs(block, cblock, box, cbox, seed):
 def check_leg_kernels(base, rec):
     """leg_block against leg_block_plain on CUDA tensors, every mode and
     variant, at the (1,1,1)-mesh 511³ level-0 block (640³, the box 511³)
-    and at the one-rank blocks of 15³ and (33, 17, 9) grids; and the leg
-    with no consumer against S launches of sweep_block.  Bit for bit."""
+    and at the one-rank blocks of 15³ and (33, 17, 9) grids, the last also
+    with the stencil's taps reordered (with and without zero slabs); and
+    the leg with no consumer against S launches of sweep_block.  Bit for
+    bit."""
+    import itertools
+
     import torch
 
-    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.config import Mode, Stencil
     from gpusolve_tpu_torch.dist.spmd import SpmdPlan
     from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops import spmd_kernels as SK
     from gpusolve_tpu_torch.ops import spmd_leg as SL
 
-    for n, dims in enumerate((BIG, (15, 15, 15), (33, 17, 9))):
+    # The examples' stencil (taps in the order the kernel reads from
+    # registers and immediate offsets), and the same taps in another order
+    # with other values, which the kernel reads by offsets (33x17x9 only).
+    perm = Stencil(values=(6.2, -1.1, -0.9, -1.05, -0.97, -1.0, -1.13),
+                   offsets=((0, 0, 0), (0, 0, -1), (0, 1, 0), (-1, 0, 0),
+                            (0, 0, 1), (1, 0, 0), (0, -1, 0)))
+    cases = [(BIG, base.stencil), ((15, 15, 15), base.stencil),
+             ((33, 17, 9), base.stencil), ((33, 17, 9), perm)]
+    for n, (dims, stencil) in enumerate(cases):
         plan = SpmdPlan(base.replace(grid_dim=dims), (1, 1, 1))
         box, cbox = plan.box(0, (0, 0, 0)), plan.box(1, (0, 0, 0))
         glob = (0, dims[0], 0, dims[1])
         x = leg_inputs(plan.block[0], plan.block[1], box, cbox, 800 + n)
         tag = f"{'x'.join(map(str, plan.block[0]))} block, box {SK.box_dims(box)}"
+        if stencil is perm:
+            tag += ", taps reordered"
         lines = []
         for mode in Mode:
-            p = base.replace(mode=mode, grid_dim=dims, print_progress=False)
+            p = base.replace(mode=mode, grid_dim=dims, print_progress=False,
+                             stencil=stencil)
             name = K.variant("leg_block", mode)
-            for label, kw in leg_variants(mode):
+            # The reordered taps also with zero slabs: the generic-tap
+            # slab-reading instantiations.
+            slab_runs = [(None, None, "")]
+            if stencil is perm:
+                zx = torch.zeros((SL.G,) + tuple(plan.block[0][1:]),
+                                 device=DEVICE)
+                zc = torch.zeros((SL.GC,) + tuple(plan.block[1][1:]),
+                                 device=DEVICE)
+                slab_runs.append(({k: (zx, zx, None, None)
+                                   for k in ("v", "f", "nv")},
+                                  (zc, zc, None, None), ", zero slabs"))
+            for (slabs, cslabs, stag), (label, kw) in itertools.product(
+                    slab_runs, leg_variants(mode)):
                 args = (p, plan, 0, x, kw)
-                got, pk = leg_call(SL.leg_block, *args, box=box, glob=glob,
-                                   cbox=cbox)
-                want, pp = leg_call(SL.leg_block_plain, *args, box=box,
-                                    glob=glob, cbox=cbox)
+                opts = dict(slabs=slabs, cslabs=cslabs, box=box, glob=glob,
+                            cbox=cbox)
+                got, pk = leg_call(SL.leg_block, *args, **opts)
+                want, pp = leg_call(SL.leg_block_plain, *args, **opts)
+                label += stag
                 lines.append(rec.fields(got, want,
                                         f"{name} {label} {tag}", name))
                 check(rec.same[name], f"{name} {label} {tag} not bit-identical")
@@ -2867,10 +2918,14 @@ def leg_bytes(mode, kw, box, cbox, S):
 
 def time_leg_kernels(base, rate, rows):
     """Each leg variant at the (1,1,1)-mesh 511³ level-0 block (S = 3, as
-    V(3,3) runs it; the corr-first leg too): its ms, bytes and bound, and
-    its plain version's ms.  No single PyTorch call computes S sweeps and
-    a restriction, so library_ms is null.  A mode's row in the kernels
-    line is its level-0 down leg (the restriction), the largest."""
+    V(3,3) runs it; the corr-first leg too): its ms and device ms (the
+    launch alone: the timed calls write the outputs of a first call
+    again), bytes and bound, and its plain version's ms; and the level-0
+    down leg's slab-reading instantiation (zero slabs, as the one-rank
+    halo="rdma" path gives it) by device time beside the slab-free one.
+    No single PyTorch call computes S sweeps and a restriction, so
+    library_ms is null.  A mode's row in the kernels line is its level-0
+    down leg (the restriction), the largest."""
     import torch
 
     from gpusolve_tpu_torch.config import Mode
@@ -2889,24 +2944,39 @@ def time_leg_kernels(base, rate, rows):
         for label, kw in leg_variants(mode):
             args = (p, plan, 0, x, kw)
             opts = dict(box=box, glob=glob, cbox=cbox, S=S)
+            opts["outs"] = leg_call(SL.leg_block, *args, **opts)[0]
             ms = cuda_ms(lambda: leg_call(SL.leg_block, *args, **opts), 5)
             plain = cuda_ms(lambda: leg_call(SL.leg_block_plain, *args,
                                              **opts), 1)
+            torch.cuda.synchronize()
             nbytes, ops = leg_bytes(mode, kw, box, cbox, S)
             by_bytes, by_ops = nbytes / rate * 1e3, ops / F32_PEAK * 1e3
             bound = max(by_bytes, by_ops)
             bound_by = "bytes" if by_bytes >= by_ops else "operations"
+            dev = device_ms(lambda: leg_call(SL.leg_block, *args, **opts),
+                            3)
+            share = f", {100 * bound / dev:.1f}% of it by device" \
+                if dev else ""
             print(f"time {name} {label} (511^3 box of a 640^3 block, S={S}"
-                  f"): {ms:.3f} ms, {nbytes / 1e9:.3f} GB, bound "
-                  f"{bound:.3f} ms by {bound_by} ({100 * bound / ms:.1f}% "
-                  f"of it), plain {plain:.3f} ms, library —")
-            if label == "restrict":
-                dev = device_ms(lambda: leg_call(SL.leg_block, *args,
-                                                 **opts), 3)
-                print(f"time {name} {label}: device {fmt_ms(dev)}")
-                rows[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
-                              "bound_ms": bound, "bound_by": bound_by,
-                              "library_ms": None, "library_device_ms": None}
+                  f"): {ms:.3f} ms, device {fmt_ms(dev)}, {nbytes / 1e9:.3f}"
+                  f" GB, bound {bound:.3f} ms by {bound_by} "
+                  f"({100 * bound / ms:.1f}% of it{share}), plain "
+                  f"{plain:.3f} ms, library —")
+            if label != "restrict":
+                continue
+            rows[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "library_ms": None, "library_device_ms": None}
+            zx = torch.zeros((SL.G,) + tuple(plan.block[0][1:]),
+                             device=DEVICE)
+            slabs = {k: (zx, zx, None, None) for k in
+                     ("v", "f") + (("nv",) if mode == Mode.NEWTON else ())}
+            sdev = device_ms(lambda: leg_call(SL.leg_block, *args,
+                                              slabs=slabs, **opts), 3)
+            ratio = f" ({sdev / dev:.3f}x the slab-free one)" \
+                if sdev and dev else ""
+            print(f"time {name} {label} with zero slabs (the slab-reading "
+                  f"instantiation): device {fmt_ms(sdev)}{ratio}")
     del x
     torch.cuda.empty_cache()
 
@@ -3137,6 +3207,13 @@ def check_rdma_kernel(base, rec, rate, rows):
         print(f"check {line}")
         check(rec.same["rdma_exchange"], "rdma_exchange: not bit-identical")
         if l:
+            dev = device_ms(lambda: RD.rdma_exchange(fields, ex, g))
+            lib_dev = device_ms(lambda: [t.zero_() for t in flat])
+            bound = rdma_bytes(fields, g, 0) / rate * 1e3
+            print(f"time rdma_exchange ({plan.block[l]} block, {n} field, "
+                  f"g={g}, one rank: the zero fill): device: kernel "
+                  f"{fmt_ms(dev)}, library {fmt_ms(lib_dev)} ({2 * n} "
+                  f"zero_() calls), bound {bound:.4f} ms by bytes")
             continue
         ms = cuda_ms(lambda: RD.rdma_exchange(fields, ex, g), 20)
         plain = cuda_ms(lambda: RD.rdma_exchange_plain(fields, ex, g), 20)

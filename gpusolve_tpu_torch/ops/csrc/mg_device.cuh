@@ -313,6 +313,33 @@ __device__ __forceinline__ void restrict_tile(int bx, int by, int bz, int tz,
   }
 }
 
+// Shared memory by 32-bit address: a loop that reads many cells at one
+// uniform offset from each keeps every cell's address in a register and
+// adds the offset, one add a load (trapezoid leg, leg_device.cuh).
+// Volatile, so the compiler keeps their order among themselves: a thread
+// reads back what it stored to its own cells in the same step.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ float lds(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// The float kOff >= 0 bytes past address a (an immediate offset).
+template <int kOff>
+__device__ __forceinline__ float lds_at(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1+%2];" : "=f"(v) : "r"(a), "n"(kOff));
+  return v;
+}
+
+__device__ __forceinline__ void sts(unsigned a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v));
+}
+
 __device__ __forceinline__ float mid(float a, float b) {
   return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b));
 }

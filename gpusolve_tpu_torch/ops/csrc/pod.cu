@@ -25,24 +25,27 @@
 // every block walks the tiles of leg 0 in a grid-stride loop, a grid-wide
 // barrier (cooperative_groups::this_grid().sync()) closes the leg, and so
 // on down the chain.  A chain of one leg (the one-rank plan's depth 1)
-// needs no barrier: it launches one block a tile, as the per-leg kernel.  The body reads the leg's parameters as constant
-// operands only at a fixed offset: the chain's largest leg (level a, the
-// one-rank plan's only leg) runs from such a copy, the others through a
-// call.  Measured on the card, a second inlined body or parameters at a
-// run-time offset made the largest leg markedly slower (spills at the
-// 128-register cap).  A leg reads what the previous one wrote in this
-// launch, so every load is a plain load (leg_device.cuh).  No leg writes
-// what it reads: each leg's v goes to the level's spare buffer, as in the
-// per-leg engine (the TPU kernel updates v in place, relying on its
-// sequential grid; blocks here run in no order, so a tile could overwrite
-// planes a neighbouring tile has still to read).  The level table rides
-// in the kernel parameters (over 4 KB: CUDA 12.1's large kernel
-// parameters).  A grid that cannot be resident fails and the wrapper
-// raises.
+// needs no barrier: it launches one block a tile, as the per-leg kernel,
+// and runs at its leg's speed.  The body reads the leg's parameters as
+// constant operands only at a fixed offset: the chain's largest leg
+// (level a, the one-rank plan's only leg) runs from such a copy, the
+// others through a call.  Measured on the card, a second inlined body or
+// parameters at a run-time offset made the largest leg markedly slower
+// (spills at the 128-register cap).  Every chain, NEWTON's down chain
+// too, runs two blocks an SM since the leg's rings fit two blocks' shared
+// memory.  A leg reads what the previous one wrote in this
+// launch, so every global load is a plain load (leg_device.cuh).  No leg
+// writes what it reads: each leg's v goes to the level's spare buffer, as
+// in the per-leg engine (the TPU kernel updates v in place, relying on
+// its sequential grid; blocks here run in no order, so a tile could
+// overwrite planes a neighbouring tile has still to read).  The level
+// table rides in the kernel parameters (over 4 KB: CUDA 12.1's large
+// kernel parameters).  A grid that cannot be resident fails and the
+// wrapper raises.
 //
 // Bound: bytes by the table, as the legs (PERF.md); measured, the legs are
-// bound by instruction issue and shared memory, and so is the chain.  Only
-// the one-rank mesh runs here: the TPU kernels' in-kernel exchange between
+// bound by instruction issue and latency, and so is the chain.  Only the
+// one-rank mesh runs here: the TPU kernels' in-kernel exchange between
 // legs writes the neighbours' memory and waits for it inside the launch,
 // which waits for a machine with two cards (ROADMAP Queue 2, rows 12-14
 // across cards), so every leg reads no slab.
@@ -75,11 +78,11 @@ static_assert(sizeof(PodArgs) <= 32764, "kernel parameters over 32764 B");
 // through the norm body, whose norm a leg without partials skips
 // (leg_device.cuh), so the kernel holds one body: two bodies in one
 // kernel share its 128 registers, and spill.
-template <int M, bool kUp>
+template <int M, bool kUp, bool kCanon>
 __device__ __forceinline__ void run_leg(const LegArgs& a, float* sm, int gz,
                                         int gy, int nt) {
   for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-    leg_tile<M, kUp ? kNorm : kRestrict, false>(
+    leg_tile<M, kUp ? kNorm : kRestrict, false, kCanon>(
         a, sm, t % gz, (t / gz) % gy, t / (gz * gy), t);
     __syncthreads();  // the next tile reuses shared memory
   }
@@ -89,19 +92,18 @@ __device__ __forceinline__ void run_leg(const LegArgs& a, float* sm, int gz,
 // known only at run time, so each tile is a call, whose body keeps its
 // registers to itself (the inlined head pays for a second inlined body
 // in spills).
-template <int M, bool kUp>
+template <int M, bool kUp, bool kCanon>
 __device__ __noinline__ void tile_call(const LegArgs& a, float* sm, int tz,
                                        int ty, int tx, int t) {
-  leg_tile<M, kUp ? kNorm : kRestrict, false>(a, sm, tz, ty, tx, t);
+  leg_tile<M, kUp ? kNorm : kRestrict, false, kCanon>(a, sm, tz, ty, tx, t);
 }
 
 // The chain.  kUp: the up legs, corr-first, the last with the norm;
 // else the down legs, with the restriction.  kSingle: a chain of one leg
 // (the one-rank plan's depth 1), which needs no loop over legs.  Two
-// blocks an SM where the legs fit two, as the per-leg kernel; the NEWTON
-// restriction one.
-template <int M, bool kUp, bool kSingle>
-__global__ void __launch_bounds__(kLegThreads, M == kNewton && !kUp ? 1 : 2)
+// blocks an SM, as the per-leg kernel.
+template <int M, bool kUp, bool kSingle, bool kCanon>
+__global__ void __launch_bounds__(kLegThreads, 2)
 pod_kernel(const __grid_constant__ PodArgs p) {
   extern __shared__ float sm[];
   if constexpr (kSingle) {
@@ -109,7 +111,7 @@ pod_kernel(const __grid_constant__ PodArgs p) {
     // no grid barrier, and a block that loops over tiles keeps the body's
     // loop-invariant values live across it (spills at the 128-register
     // cap).
-    leg_tile<M, kUp ? kNorm : kRestrict, false>(
+    leg_tile<M, kUp ? kNorm : kRestrict, false, kCanon>(
         p.lv[0], sm, blockIdx.x, blockIdx.y, blockIdx.z,
         blockIdx.x + gridDim.x * (blockIdx.y + (long long)gridDim.y *
                                                    blockIdx.z));
@@ -119,10 +121,10 @@ pod_kernel(const __grid_constant__ PodArgs p) {
       const int gz = p.tiles_z[i], gy = p.tiles_y[i];
       const int nt = gz * gy * p.tiles_x[i];
       if (i == p.head_index) {
-        run_leg<M, kUp>(p.head, sm, gz, gy, nt);
+        run_leg<M, kUp, kCanon>(p.head, sm, gz, gy, nt);
       } else {
         for (int t = blockIdx.x; t < nt; t += gridDim.x) {
-          tile_call<M, kUp>(p.lv[i], sm, t % gz, (t / gz) % gy,
+          tile_call<M, kUp, kCanon>(p.lv[i], sm, t % gz, (t / gz) % gy,
                             t / (gz * gy), t);
           __syncthreads();
         }
@@ -132,27 +134,34 @@ pod_kernel(const __grid_constant__ PodArgs p) {
   }
 }
 
-template <int M>
+template <int M, bool kCanon>
 void* kernel_of(bool up, bool single) {
   if (up) {
-    return single ? (void*)pod_kernel<M, true, true>
-                  : (void*)pod_kernel<M, true, false>;
+    return single ? (void*)pod_kernel<M, true, true, kCanon>
+                  : (void*)pod_kernel<M, true, false, kCanon>;
   }
-  return single ? (void*)pod_kernel<M, false, true>
-                : (void*)pod_kernel<M, false, false>;
+  return single ? (void*)pod_kernel<M, false, true, kCanon>
+                : (void*)pod_kernel<M, false, false, kCanon>;
 }
 
-void* pick(int mode, bool up, bool single) {
+// kCanon: the canonical tap order (LegArgs::canon).
+template <bool kCanon>
+void* pick_mode(int mode, bool up, bool single) {
   switch (mode) {
     case kLinear:
-      return kernel_of<kLinear>(up, single);
+      return kernel_of<kLinear, kCanon>(up, single);
     case kNonlinear:
-      return kernel_of<kNonlinear>(up, single);
+      return kernel_of<kNonlinear, kCanon>(up, single);
     case kNewton:
-      return kernel_of<kNewton>(up, single);
+      return kernel_of<kNewton, kCanon>(up, single);
     default:
       return nullptr;
   }
+}
+
+void* pick(int mode, bool up, bool single, bool canon) {
+  return canon ? pick_mode<true>(mode, up, single)
+               : pick_mode<false>(mode, up, single);
 }
 
 // The cooperative grid of a chain at `smem` bytes of dynamic shared
@@ -230,7 +239,7 @@ int mg_pod_chain(int up, int n, const void* const* ptrs, const int* iv,
     smem = s > smem ? s : smem;
   }
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  void* kernel = pick(mode, up != 0, n == 1);
+  void* kernel = pick(mode, up != 0, n == 1, p.lv[0].canon != 0);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   long long grid[2];
   cudaError_t e = coop_grid(kernel, smem, grid);

@@ -26,11 +26,25 @@
 // semaphore pairs) is not carried over.
 //
 // Bound: bytes (each slab sent is read once and written once, each edge
-// slab written once; no arithmetic).  Design: a grid-stride copy, 16 bytes
-// a thread where the job's pointers and length allow (4 bytes else), the
-// jobs on grid y so every slab is in flight together, about one wave of
-// blocks in all.  Every thread ends with a system-scope fence, so the
-// peer writes are performed before the launch ends.
+// slab written once; no arithmetic).  On one rank the launch is the edge
+// zero fill alone (six 13.1 MB slabs at the 511^3 plan's level-0 block),
+// so the design is that of a fill at the copy rate.  One flat index space
+// of tiles over all jobs: each job is cut into tiles of kRdmaThreads x
+// kUnroll units (16 bytes where the job's pointers and length allow, 4
+// bytes else), a tile belongs to one job, and the blocks walk the tiles
+// in a grid-stride loop, so no block idles on a short job; the grid is
+// sized from the total tiles, at most kWaveBlocks.  A thread keeps kUnroll
+// stores (and their loads) in flight, neighbouring threads on neighbouring
+// units.
+//
+// Fences.  A zero fill writes this rank's own buffer, which its next leg
+// reads after the launch ends on the same stream: no fence.  A block that
+// wrote a neighbour's buffer ends with one system-scope fence, issued by
+// one thread after a block barrier: the barrier orders the block's writes
+// before that thread's fence, and the fence (cumulative) makes them
+// visible beyond the card before the launch ends.  The host-ordered
+// barrier after the launch (stream sync, then the group barrier) is what
+// the neighbour waits on before it reads.
 //
 // The entry points return a cudaError_t as int; the launch allocates
 // nothing and runs on the given stream.
@@ -43,45 +57,75 @@
 namespace {
 
 constexpr int kRdmaThreads = 256;
+constexpr int kUnroll = 4;            // units a thread keeps in flight
+constexpr int kTile = kRdmaThreads * kUnroll;  // units a tile
 constexpr int kMaxJobs = 16;
 constexpr int kWaveBlocks = 132 * 8;  // 132 SMs x 8 blocks of 256 threads
 
 struct RdmaJob {
   void* dst;
-  const void* src;  // null: zero-fill dst
-  long long bytes;  // a multiple of 4
+  const void* src;   // null: zero-fill dst
+  long long units;   // 16-byte units (vec) or 4-byte units
+  long long tile0;   // the job's first tile in the flat space
+  int vec;
 };
 
 struct RdmaArgs {
   RdmaJob job[kMaxJobs];
+  int njobs;
+  long long tiles;
 };
 
+// One tile of units (u0 its first) of a job: kUnroll units a thread, the
+// loads (a copy) all issued before the stores.
 template <class T>
-__device__ void copy_range(T* dst, const T* src, long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (src != nullptr) {
-    for (; i < n; i += step) dst[i] = src[i];
-  } else {
+__device__ __forceinline__ void tile_units(T* dst, const T* src, long long u0,
+                                           long long n) {
+  long long i[kUnroll];
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    i[k] = u0 + k * kRdmaThreads + threadIdx.x;
+  }
+  if (src == nullptr) {
     const T zero{};
-    for (; i < n; i += step) dst[i] = zero;
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (i[k] < n) dst[i[k]] = zero;
+    }
+    return;
+  }
+  T v[kUnroll];
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    if (i[k] < n) v[k] = src[i[k]];
+  }
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    if (i[k] < n) dst[i[k]] = v[k];
   }
 }
 
 __global__ void __launch_bounds__(kRdmaThreads)
 rdma_kernel(const __grid_constant__ RdmaArgs a) {
-  const RdmaJob j = a.job[blockIdx.y];
-  const uintptr_t align = reinterpret_cast<uintptr_t>(j.dst) |
-                          reinterpret_cast<uintptr_t>(j.src) |
-                          static_cast<uintptr_t>(j.bytes);
-  if ((align & 15) == 0) {
-    copy_range(static_cast<int4*>(j.dst), static_cast<const int4*>(j.src),
-               j.bytes >> 4);
-  } else {
-    copy_range(static_cast<int*>(j.dst), static_cast<const int*>(j.src),
-               j.bytes >> 2);
+  bool peer = false;  // uniform over the block: tiles are per block
+  int j = 0;
+  for (long long t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+    while (j + 1 < a.njobs && t >= a.job[j + 1].tile0) ++j;
+    const RdmaJob& b = a.job[j];
+    const long long u0 = (t - b.tile0) * kTile;
+    if (b.vec) {
+      tile_units(static_cast<int4*>(b.dst), static_cast<const int4*>(b.src),
+                 u0, b.units);
+    } else {
+      tile_units(static_cast<int*>(b.dst), static_cast<const int*>(b.src),
+                 u0, b.units);
+    }
+    peer |= b.src != nullptr;
   }
-  __threadfence_system();
+  if (peer) {
+    __syncthreads();
+    if (threadIdx.x == 0) __threadfence_system();
+  }
 }
 
 }  // namespace
@@ -95,19 +139,23 @@ int mg_rdma_exchange(void* const* dst, const void* const* src,
   if (njobs < 1 || njobs > kMaxJobs) return (int)cudaErrorInvalidValue;
   RdmaArgs a;
   memset(&a, 0, sizeof a);
-  long long most = 0;
+  a.njobs = njobs;
+  long long tiles = 0;
   for (int i = 0; i < njobs; ++i) {
     if (dst[i] == nullptr || bytes[i] < 0 || bytes[i] % 4 != 0)
       return (int)cudaErrorInvalidValue;
-    a.job[i] = RdmaJob{dst[i], src[i], bytes[i]};
-    if (bytes[i] > most) most = bytes[i];
+    const uintptr_t align = reinterpret_cast<uintptr_t>(dst[i]) |
+                            reinterpret_cast<uintptr_t>(src[i]) |
+                            static_cast<uintptr_t>(bytes[i]);
+    const int vec = (align & 15) == 0;
+    const long long units = bytes[i] / (vec ? 16 : 4);
+    a.job[i] = RdmaJob{dst[i], src[i], units, tiles, vec};
+    tiles += (units + kTile - 1) / kTile;
   }
-  const long long need = (most / 16 + kRdmaThreads - 1) / kRdmaThreads;
-  long long per_job = kWaveBlocks / njobs;
-  if (need < per_job) per_job = need;
-  if (per_job < 1) per_job = 1;
-  rdma_kernel<<<dim3((unsigned)per_job, (unsigned)njobs), kRdmaThreads, 0,
-                stream>>>(a);
+  a.tiles = tiles;
+  const long long grid =
+      tiles < 1 ? 1 : tiles < kWaveBlocks ? tiles : kWaveBlocks;
+  rdma_kernel<<<(unsigned)grid, kRdmaThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

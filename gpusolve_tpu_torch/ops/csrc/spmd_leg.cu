@@ -31,22 +31,41 @@
 //
 // Bound: bytes by the table (reads v, f, NEWTON also u~, once per leg and
 // writes v: 12 or 16 B per point, the coarse outputs 0.5-1.5 B more;
-// ~17-45 flops per point per sweep).  Design: 2.5-D temporal blocking.  A block of 256
-// threads owns a kTY x kTZ (y, z) tile of the box and a chunk of kCX
-// x-planes, and marches along x through the chunk and R = S + e planes
-// either side (e = 0 no consumer, 1 norm, 2 restrict, 3 FAS restrict: the
-// consumer's reach past generation S).  Shared memory holds, over the tile
-// and an R-cell ring around it, a three-plane ring per generation 0..S, a
-// ring of S + 3 planes of f (and u~), and for the restriction a residual
-// ring, the FAS restricted-v ring and a staging pair for R(r).  Each step
-// stores plane p of generation 0, f and u~ (fetched into registers during
-// the step before), then computes generation k at plane p - k over an
-// (R - k)-cell ring for k = 1..S, then the consumer; the ring cells are
-// recomputed by the neighbouring tiles too.  A thread owns the same cells
-// of every ring plane (described once: depth, interior and ownership
-// bits), so the per-cell work is the taps and the point formula.  The
-// generations never reach device memory.  Measured (PERF.md, PR 6): it is
-// bound by instruction issue and shared memory, not bytes.
+// ~17-45 flops per point per sweep).  Measured (PERF.md), the leg is
+// bound by instruction issue and by how well its warps hide latency, not
+// by bytes; the design spends its instructions on the sweeps.
+// 2.5-D temporal blocking: a block of kLegThreads threads owns a kTY x
+// kTZ (y, z) tile of the box and a chunk of kCX x-planes, and marches
+// along x through the chunk and R = S + e planes either side (e = 0 no
+// consumer, 1 norm, 2 restrict, 3 FAS restrict: the consumer's reach past
+// generation S), over the tile and an R-cell ring around it.  Shared
+// memory holds a three-plane ring per generation 0..S-1 and for
+// generation S where a consumer reads it, rings of f (and u~) that only
+// their own thread reads, and for the restriction the residual's last two
+// planes (their own thread's), the plane of the residual weighted along x
+// (FAS: of generation S too), the FAS restricted-v ring and a staging
+// pair for R(r).  The ring plane's cells are dealt to the threads in
+// onion order (the tile first, then each ring of cells one shallower),
+// odd slots counting the threads backwards, so generation k, computed
+// over the cells of depth >= k, is a prefix of every thread's slots, a
+// warp outside it skips it whole, and the partly filled slots of the
+// generations fall on different warps.  A thread keeps its cells for the
+// whole leg, described once (ring cell and its shared address, interior
+// and ownership bits, its offset in the block's and the slabs' planes),
+// so generation 0, f and u~ of the next plane are loaded with one offset
+// and no per-cell branch on the slabs, into registers a step ahead, and
+// a tap is one add to the cell's address.  A face-tap stencil's x taps
+// read the thread's own cells, and every in-plane tap a plane finished in
+// an earlier step, so each step has one barrier: it stores plane p of
+// generation 0, f and u~, computes generation k at plane p - k for k =
+// 1..S (two slots at a time, so their loads overlap), the residual at
+// p - S - 1, and the restriction's parts that read other threads' cells
+// (its y and z passes, the tau fold) one step after their planes were
+// written.  The examples' tap order (centre, x + 1, x - 1, y + 1, y - 1,
+// z + 1, z - 1) is a template case: its z taps are immediate offsets and
+// its x + 1 tap the value the thread just computed.  The ring cells are
+// recomputed by the neighbouring tiles too; the generations never reach
+// device memory.
 //
 // Rounding: every product, sum and quotient as its own operation, in the
 // order of the plain version (ops/spmd_leg.py, through ops/ref.py's point
@@ -63,27 +82,29 @@
 namespace {
 
 // One launch a leg, one block a tile.  Two blocks an SM, so at most 128
-// registers, where shared memory allows two; the NEWTON restriction's
-// rings take more than half of it.
-template <int M, int C, bool kSlabs>
-__global__ void __launch_bounds__(kLegThreads,
-                                  M == kNewton && C == kRestrict ? 1 : 2)
+// registers: the S = 3 legs of every mode fit two blocks' shared memory.
+// kCanon: the canonical tap order (LegArgs::canon), read from registers
+// and immediate offsets; else the taps by their offsets.
+template <int M, int C, bool kSlabs, bool kCanon>
+__global__ void __launch_bounds__(kLegThreads, 2)
 leg_kernel(const __grid_constant__ LegArgs a) {
   extern __shared__ float sm[];
-  leg_tile<M, C, kSlabs>(
+  leg_tile<M, C, kSlabs, kCanon>(
       a, sm, blockIdx.x, blockIdx.y, blockIdx.z,
       blockIdx.x + gridDim.x * (blockIdx.y + (long long)gridDim.y *
                                                  blockIdx.z));
 }
 
 template <class F>
-int dispatch(int mode, int consumer, bool slabs, F&& launch) {
+int dispatch(int mode, int consumer, bool slabs, bool canon, F&& launch) {
   auto with_c = [&](auto m) {
     auto with_s = [&](auto mm, auto c) {
-      if (slabs) {
-        return launch(mm, c, std::true_type{});
-      }
-      return launch(mm, c, std::false_type{});
+      auto with_k = [&](auto s) {
+        if (canon) return launch(mm, c, s, std::true_type{});
+        return launch(mm, c, s, std::false_type{});
+      };
+      if (slabs) return with_k(std::true_type{});
+      return with_k(std::false_type{});
     };
     switch (consumer) {
       case kNone:
@@ -124,6 +145,30 @@ int mg_leg_grid(const int* iv, long long* out) {
   return 0;
 }
 
+// *out: the blocks an SM holds of the leg kernel these int arguments name
+// (mode, consumer, slabs; the canonical taps) at its launch's shared
+// memory, by the occupancy calculator.
+int mg_leg_occupancy(const int* iv, int* out) {
+  LegArgs a;
+  leg_geometry(iv, a);
+  const long long smem = 4 * leg_smem_floats(iv[0], iv[1], a.S, a.PY * a.PZ);
+  return dispatch(iv[0], iv[1], iv[2] != 0, true,
+                  [&](auto m, auto c, auto s, auto k) {
+    auto kernel =
+        leg_kernel<decltype(m)::value, decltype(c)::value, decltype(s)::value,
+                   decltype(k)::value>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, kernel, kLegThreads, (size_t)smem);
+  });
+}
+
 // ptrs (26): v_out; v, f, nv, coarse v, each followed by its slabs xlo,
 // xhi, ylo, yhi (null where absent); partials, coarse f, coarse v, coarse
 // rest_v; rest_v to subtract from the output (FAS sub_rv) or null.
@@ -141,9 +186,11 @@ int mg_leg_block(const void* const* ptrs, const int* iv, const float* fv,
   const dim3 grid =
       leg_args(ptrs, iv, fv, tap_val, tap_off3, ntaps, a, &smem);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  return dispatch(iv[0], iv[1], iv[2] != 0, [&](auto m, auto c, auto s) {
+  return dispatch(iv[0], iv[1], iv[2] != 0, a.canon != 0,
+                  [&](auto m, auto c, auto s, auto k) {
     auto kernel =
-        leg_kernel<decltype(m)::value, decltype(c)::value, decltype(s)::value>;
+        leg_kernel<decltype(m)::value, decltype(c)::value, decltype(s)::value,
+                   decltype(k)::value>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;

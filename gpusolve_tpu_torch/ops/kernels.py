@@ -216,6 +216,7 @@ def _bind(path: Path):
         ),
         "mg_prolong_add_block": ([p, p] + [i] * 11 + [p], i),
         "mg_leg_grid": ([p, p], i),
+        "mg_leg_occupancy": ([p, p], i),
         "mg_leg_block": ([p, p, p, p, p, i, p], i),
         "mg_pod_chain": ([i, i, p, p, p, p, p, i, p, p], i),
         "mg_rdma_exchange": ([p, p, p, i, p], i),

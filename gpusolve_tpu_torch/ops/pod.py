@@ -108,20 +108,23 @@ def pod_levels(params: GridParams, mesh_xy, npod: int
 
 def leg_smem_bytes(mode: Mode, consumer: Optional[str], S: int) -> int:
     """The dynamic shared memory of one leg launch (csrc/leg_device.cuh
-    ``leg_smem_floats``): per generation 0..S a three-plane ring, S + 3
-    planes of f (and ũ), for the restriction a residual ring and in FAS
-    the restricted-v ring and its staging."""
-    reach = {None: 0, "norm": 1}.get(
-        consumer, 3 if mode == Mode.NONLINEAR else 2
-    )
+    ``leg_smem_floats``): a three-plane ring per generation 0..S−1 and for
+    generation S (none with no consumer), S + 2 planes of f (and ũ; S + 1
+    with no consumer), for the restriction the residual's two planes and
+    the x-restricted plane (FAS two), and in FAS the restricted-v ring and
+    the R(r) staging."""
+    fas_restrict = mode == Mode.NONLINEAR and consumer == "restrict"
+    reach = {None: 0, "norm": 1}.get(consumer, 3 if fas_restrict else 2)
     R = S + reach
     ps = (_TY + 2 * R) * (_TZ + 2 * R)
-    n = 3 * (S + 1) * ps + (S + 3) * ps
+    gen_s = 0 if consumer is None else 3
+    nf = S + (1 if consumer is None else 2)
+    n = (3 * S + gen_s) * ps + nf * ps
     if mode == Mode.NEWTON:
-        n += (S + 3) * ps
+        n += nf * ps
     if consumer == "restrict":
-        n += 3 * ps
-        if mode == Mode.NONLINEAR:
+        n += (4 if fas_restrict else 3) * ps
+        if fas_restrict:
             n += 3 * (_TY // 2 + 2) * (_TZ // 2 + 2) \
                 + 2 * (_TY // 2) * (_TZ // 2)
     return 4 * n

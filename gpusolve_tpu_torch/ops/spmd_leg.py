@@ -251,13 +251,16 @@ def leg_block_plain(
 # Design: 2.5-D temporal blocking.  A thread block owns a 16(y) x 32(z)
 # tile of the box and a chunk of 64 x-planes; it marches along x through
 # the chunk and a halo of R = S + e planes (e = 0 none, 1 norm, 2 restrict,
-# 3 FAS restrict), keeping a three-plane ring per generation 0..S and a
-# ring of S+3 f (and ũ) planes in shared memory over the tile and an R-cell
-# ring around it, which it recomputes redundantly; generation k is
-# computed one cell less deep each.  The generations never reach device
-# memory; the residual and the restricted planes live in rings of their
-# own.  Templated on mode x consumer x slab-reading (one-rank launches read
-# no slab); the producers are flags.
+# 3 FAS restrict) over the tile and an R-cell ring around it, which it
+# recomputes redundantly; generation k is computed one cell less deep
+# each.  The ring's cells go to the threads in onion order (the tile, then
+# each ring one cell shallower), so a generation's cells are a prefix of
+# each thread's and whole warps skip the rings it does not reach.  The
+# stencil's x taps read the thread's own cells, so one barrier a step
+# suffices (csrc/spmd_leg.cu).  The generations never reach device memory;
+# the residual and the restricted planes live in rings of their own.
+# Templated on mode x consumer x slab-reading (one-rank launches read no
+# slab); the producers are flags.
 # ---------------------------------------------------------------------------
 
 
