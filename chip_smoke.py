@@ -19,9 +19,10 @@ Phases (any failure exits non-zero before the last line is printed):
      order) at n = 1, 1023, 1024, 1025, the 127³ and the 511³ partial
      counts, and its stop flag.  Then the v1 whole-cycle kernel
      (``vcycle_fused``) against ``vcycle_fused_plain`` at 15³, 16³, 31³,
-     (31,15,63), 127³ and 511³, V(3,3) and V(6,6), in the three modes
-     (every field of every level and Σr², same tolerances), and one v1
-     cycle against one batch-engine cycle at 511³ V(6,6);
+     (31,15,63), 47³ (its coarse tail from 5³), 127³ and 511³, V(3,3) and
+     V(6,6), in the three modes (every field of every level and Σr², same
+     tolerances), and one v1 cycle against one batch-engine cycle at 511³
+     V(6,6);
   3. the main paths, each with the launch counters zeroed just before it
      and read just after; the counts must equal what the engine's
      schedule implies, and the same run on the plain ops (backend="ref")
@@ -57,8 +58,11 @@ Phases (any failure exits non-zero before the last line is printed):
      and torch.sub; and a one-field copy as the stream ceiling; the v1
      kernel's ms per cycle at V(3,3) and V(6,6) in the
      three modes beside the batch engine's at the same configuration,
-     their bytes and bounds, the wall per cycle of a V(6,6) solve with
-     its idle share, and the cost of one op and its grid barrier.
+     their bytes and bounds, each level-0 op inside it beside the per-op
+     kernel of the same mode and function, its coarse tail on one block
+     beside the same ops on the whole grid, the wall per cycle of a
+     V(6,6) solve with its idle share, and the cost of one op and its
+     grid barrier.
 
 The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
   1. the dynamic shared memory of each leg launch at 511³ (S = 3) and
@@ -176,7 +180,7 @@ RDMA_SRC = "gpusolve_tpu_torch/ops/csrc/rdma_exchange.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
           (511, 511, 511)]
 V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
-             (127, 127, 127), (511, 511, 511)]
+             (47, 47, 47), (127, 127, 127), (511, 511, 511)]
 V1_SWEEPS = [(3, 3), (6, 6)]
 BIG = (511, 511, 511)
 RTOL = 1e-5
@@ -369,7 +373,8 @@ def kernel_bytes(name, dims, cdims=None, outputs=2):
 
 def print_ptxas(log):
     """One line per kernel instantiation: registers and spills.  The
-    LINEAR instantiations must not spill."""
+    LINEAR per-op instantiations, the leg, the rdma kernel and every
+    instantiation of the v1 kernel must not spill."""
     name = None
     spills = {}
     for line in log.splitlines():
@@ -392,6 +397,7 @@ def print_ptxas(log):
           f"and rdma_kernel {'rdma_kernel' in spills}")
     for lin in ("residual_kernel<0>", "jacobi_kernel<0>", "finalize_kernel",
                 "subtract_kernel<0>", "subtract_kernel<1>", "rdma_kernel",
+                "vcycle_kernel<0>", "vcycle_kernel<1>", "vcycle_kernel<2>",
                 *legs):
         line = spills.get(lin, "")
         check(not re.search(r"[1-9]\d* bytes spill", line),
@@ -1643,39 +1649,68 @@ def v1_cycle_bytes(params):
 
 
 def v1_op_times(p, state, rows):
-    """Inside the cooperative kernel at 511³ LINEAR: ms per op of each
-    kind on level 0 (ten of one kind in one launch, a grid barrier after
-    each), beside the per-op kernel's time for the same op, and the cost
-    of a bare op and barrier (a hundred ZERO ops on the 1³ coarsest
-    level, one tile each)."""
+    """Inside the cooperative kernel at 511³, in p's mode: ms per op of
+    each kind on level 0 (ten of one kind in one launch, a grid barrier
+    after each) beside the per-op kernel of the same mode computing the
+    same function (the restriction: ``restrict`` with one output, as v1
+    writes only f; ``restrict_zero``, the batch engine's, beside it; the
+    FAS prolongation also subtracts rest_v, which ``subtract`` does apart
+    in the batch engine), and the ratio; the coarse tail (the cycle's ops
+    from the restriction into the tail level down and back, on block 0
+    with a block barrier between them) beside the same ops on the whole
+    grid with a grid barrier after each; a bare op and barrier (a
+    hundred ZERO ops on the 1³ coarsest level, one tile each)."""
     import torch
 
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops import vcycle_fused as vf
 
-    def per(ops_list):
-        ops = torch.tensor(ops_list, dtype=torch.int32, device=DEVICE)
+    def per(ops_list, reps=3):
+        ops = tuple(ops_list)
         return cuda_ms(lambda: vf.launch(state.levels, p, ops),
-                       reps=3) / len(ops_list)
+                       reps=reps) / len(ops)
 
+    mode = Mode(p.mode)
+    dims, cdims = BIG, p.level_dims()[1]
+    lvl0, lvl1 = state.levels[0], state.levels[1]
+    h = p.level_h(0)
+    nv = {"newton_v": lvl0.newton_v} if mode == Mode.NEWTON else {}
+    fc = torch.zeros_like(lvl1.f)
+    norm_alone = cuda_ms(
+        lambda: K.residual(None, lvl0.v, lvl0.f, dims, p, h, write_r=False,
+                           with_norm=True, **nv), reps=20)
+    restrict_alone = cuda_ms(
+        lambda: K.restrict(fc, lvl0.r, dims, cdims), reps=20)
     kinds = {
         "sweep": ([(vf.SMOOTH, 0, k % 2, 1 - k % 2) for k in range(10)],
-                  "jacobi_sweep"),
-        "residual": ([(vf.RESIDUAL, 0, 0, 1)] * 10, "residual"),
-        "norm-only residual": ([(vf.NORM, 0, 0, 0)] * 10, None),
-        "restriction": ([(vf.RESTRICT, 0, 1, 0)] * 10, "restrict_zero"),
+                  rows[K.variant("jacobi_sweep", mode)]["ms"]),
+        "residual": ([(vf.RESIDUAL, 0, 0, 1)] * 10,
+                     rows[K.variant("residual", mode)]["ms"]),
+        "norm-only residual": ([(vf.NORM, 0, 0, 0)] * 10, norm_alone),
+        "restriction": ([(vf.RESTRICT, 0, 1, 0)] * 10, restrict_alone),
         "prolongation": ([(vf.PROLONG, 1, 0, k % 2) for k in range(10)],
-                         "prolong_add"),
+                         rows["prolong_add"]["ms"]),
     }
     parts = []
-    for label, (ops_list, kernel) in kinds.items():
+    for label, (ops_list, alone) in kinds.items():
         ms = per(ops_list)
-        alone = f" (per-op kernel {rows[kernel]['ms']:.4f})" if kernel \
-            else ""
-        parts.append(f"{label} {ms:.4f}{alone}")
+        parts.append(f"{label} {ms:.4f} (per-op kernel {alone:.4f}, "
+                     f"{ms / alone:.3f}x)")
+    split = vf.tail_level(p.level_dims())
+    ops, _ = vf.schedule(p.num_levels, mode, p.pre_smoothing,
+                         p.post_smoothing)
+    tail_ops = [op for op in ops if vf._pass_level(op) >= split]
+    on_block = per(vf.mark_tail(tail_ops, split), reps=20) * len(tail_ops)
+    on_grid = per(tail_ops, reps=20) * len(tail_ops)
     barrier = per([(vf.ZERO, p.num_levels - 1, 0, 0)] * 100)
-    print(f"v1 ops at 511^3 LINEAR, ms per level-0 op with its barrier: "
-          f"{'; '.join(parts)}; a bare op and barrier "
-          f"{barrier * 1e3:.2f} us")
+    print(f"v1 ops at 511^3 {mode.name}, ms per level-0 op with its "
+          f"barrier: {'; '.join(parts)}; restrict_zero "
+          f"{rows['restrict_zero']['ms']:.4f}; the coarse tail from level "
+          f"{split} ({'x'.join(map(str, p.level_dims()[split]))}, "
+          f"{len(tail_ops)} ops) {on_block * 1e3:.1f} us on block 0, "
+          f"{on_grid * 1e3:.1f} us on the grid; a bare op and grid "
+          f"barrier {barrier * 1e3:.2f} us")
 
 
 def time_v1(base, rate, rows):
@@ -1716,8 +1751,9 @@ def time_v1(base, rate, rows):
                   f"{batch_ms:.3f} ms/cycle, {launches} launches, "
                   f"{bb / 1e9:.3f} GB -> bound {bb / rate * 1e3:.3f} ms; "
                   f"v1/batch {v1_ms / batch_ms:.3f}")
-            if pre == 6 and mode == Mode.LINEAR:
+            if pre == 6:
                 v1_op_times(p, state, rows)
+            if pre == 6 and mode == Mode.LINEAR:
                 plain_ms = cuda_ms(
                     lambda: vf.vcycle_fused_plain(state.levels, p), reps=1)
                 # The function is one whole V-cycle: its bound is the

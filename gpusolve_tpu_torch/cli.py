@@ -70,7 +70,7 @@ from typing import Optional
 
 # Distributed engines and options not ported yet, with --mesh.
 _MESH_NOT_PORTED = {
-    ("dist_engine", "gspmd"): "ROADMAP Queue 1 item 13, sharding.py",
+    ("dist_engine", "gspmd"): "ROADMAP Queue 1 item 3(f), sharding.py",
 }
 _MESH_NOT_PORTED_FLAGS = {
     "save_state": "save_state_spmd", "load_state": "load_state_spmd",
@@ -442,7 +442,7 @@ def _mesh_shape(args):
             flag = "--" + name.replace("_", "-")
             return None, (f"{flag} with --mesh is not ported to "
                           f"gpusolve_tpu_torch yet ({func}, ROADMAP Queue 1 "
-                          "item 13)")
+                          "item 3(a))")
     return shape, None
 
 

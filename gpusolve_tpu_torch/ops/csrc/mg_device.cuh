@@ -10,11 +10,13 @@
 // equals the per-op kernels' V-cycle bit for bit.
 //
 // Loads go through a policy:
-//   LdNC     stencil and transfer taps through the read-only cache (__ldg):
-//            the per-op kernels, whose inputs no launch writes;
-//   LdPlain  plain loads: the cooperative kernel, which writes every buffer
-//            it reads at some point of the cycle (the read-only cache is
-//            not coherent with writes made during the same launch);
+//   LdNC     through the read-only cache (__ldg): the per-op kernels'
+//            stencil and transfer taps, whose inputs no launch writes, and
+//            the cooperative kernel's loads of a field that no op of the
+//            cycle writes (level 0's f, NEWTON's u~);
+//   LdPlain  plain loads: the cooperative kernel's loads of a field that
+//            some op of the cycle writes (the read-only cache is not
+//            coherent with writes made during the same launch);
 //   LdZero   every v value is 0 without a load: the first sweep of a level
 //            that starts from v = 0.
 //
@@ -118,17 +120,25 @@ struct LdZero {
   static __device__ __forceinline__ float at(const float*) { return 0.0f; }
 };
 
+// A v / h^2 in tap order, tap(k) giving the value at tap k (the first t.n
+// taps).  tap is called as the sum needs each value, so a caller that
+// loads there keeps its loads in this order.
+template <class Tap>
+__device__ __forceinline__ float stencil_sum(Tap tap, const Taps& t,
+                                             float inv_h2) {
+  float acc = __fmul_rn(t.val[0], tap(0));
+#pragma unroll
+  for (int k = 1; k < kMaxTaps; ++k) {
+    if (k < t.n) acc = __fadd_rn(acc, __fmul_rn(t.val[k], tap(k)));
+  }
+  return __fmul_rn(acc, inv_h2);
+}
+
 template <class Ld>
 __device__ __forceinline__ float stencil_at(const float* v, long long idx,
                                             const Taps& t, float inv_h2) {
-  float acc = __fmul_rn(t.val[0], Ld::tap(v + idx + t.off[0]));
-#pragma unroll
-  for (int k = 1; k < kMaxTaps; ++k) {
-    if (k < t.n) {
-      acc = __fadd_rn(acc, __fmul_rn(t.val[k], Ld::tap(v + idx + t.off[k])));
-    }
-  }
-  return __fmul_rn(acc, inv_h2);
+  return stencil_sum([&](int k) { return Ld::tap(v + idx + t.off[k]); }, t,
+                     inv_h2);
 }
 
 // FAS term gamma * v * e^v, as (gamma * v) * e^v.
@@ -136,25 +146,34 @@ __device__ __forceinline__ float fas_term(float v, float ex, float gamma) {
   return __fmul_rn(__fmul_rn(gamma, v), ex);
 }
 
-// A v / h^2 plus the mode's nonlinear term, in the plain version's order:
+// av = A v / h^2 plus the mode's nonlinear term at a point whose v is vc()
+// (and u~ n()), in the plain version's order:
 //   NONLINEAR  av + (gamma v) e^v
-//   NEWTON     av + ((gamma (1 + nv)) v) e^nv
+//   NEWTON     av + ((gamma (1 + n)) v) e^n
+// vc and n give their values as the arithmetic needs them (loads stay in
+// this order).
+template <int M, class VC, class N>
+__device__ __forceinline__ float operator_point(float av, VC vc, N n,
+                                                float gamma) {
+  if constexpr (M == kNonlinear) {
+    const float v = vc();
+    return __fadd_rn(av, fas_term(v, expf(v), gamma));
+  } else if constexpr (M == kNewton) {
+    const float nn = n();
+    const float lin0 = __fmul_rn(gamma, __fadd_rn(1.0f, nn));
+    return __fadd_rn(av, __fmul_rn(__fmul_rn(lin0, vc()), expf(nn)));
+  } else {
+    return av;
+  }
+}
+
 template <int M, class Ld>
 __device__ __forceinline__ float operator_at(const float* v, const float* nv,
                                              long long idx, const Taps& t,
                                              float inv_h2, float gamma) {
-  const float av = stencil_at<Ld>(v, idx, t, inv_h2);
-  if constexpr (M == kNonlinear) {
-    const float vc = Ld::at(v + idx);
-    return __fadd_rn(av, fas_term(vc, expf(vc), gamma));
-  } else if constexpr (M == kNewton) {
-    const float n = nv[idx];
-    const float lin0 = __fmul_rn(gamma, __fadd_rn(1.0f, n));
-    return __fadd_rn(av, __fmul_rn(__fmul_rn(lin0, Ld::at(v + idx)),
-                                   expf(n)));
-  } else {
-    return av;
-  }
+  return operator_point<M>(
+      stencil_at<Ld>(v, idx, t, inv_h2), [&] { return Ld::at(v + idx); },
+      [&] { return nv[idx]; }, gamma);
 }
 
 // Fixed-order block sum of one double per thread; the result is valid in
@@ -223,15 +242,43 @@ __device__ __forceinline__ double residual_tile(
   return ss;
 }
 
-// One tile of a damped-Jacobi sweep, in the order of ops/ref.py::jacobi:
+// One damped-Jacobi update at a point whose v is vc(), A v / h^2 av, f
+// fv() (and u~ n()), in the order of ops/ref.py::jacobi:
 //   LINEAR     v + omega (alpha r),  r = f - av
 //   NONLINEAR  ex = e^v; r = f - (av + (gamma v) ex);
 //              v + omega (r / (pre_fac + (gamma (1 + v)) ex))
-//   NEWTON     ex = e^nv; lin = (gamma (1 + nv)) ex; r = f - (av + lin v);
+//   NEWTON     ex = e^n; lin = (gamma (1 + n)) ex; r = f - (av + lin v);
 //              v + omega (r / (pre_fac + lin))
 // Newton's lin * v is ordered otherwise than the Newton residual's term.
-// With Ld = LdZero every v value is 0, which is what a sweep over a zeroed
-// v reads (+0 everywhere), so the result is that sweep's bit for bit.
+// The getters give their values as the arithmetic needs them (loads stay
+// in this order).
+template <int M, class VC, class FV, class N>
+__device__ __forceinline__ float jacobi_point(float av, VC vc, FV fv, N n,
+                                              float alpha, float omega,
+                                              const ModeArgs& ma) {
+  if constexpr (M == kLinear) {
+    const float res = __fsub_rn(fv(), av);
+    return __fadd_rn(vc(), __fmul_rn(omega, __fmul_rn(alpha, res)));
+  } else {
+    const float v = vc();
+    float ex, term, lin;
+    if constexpr (M == kNonlinear) {
+      ex = expf(v);
+      term = fas_term(v, ex, ma.gamma);
+      lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, v)), ex);
+    } else {
+      const float nn = n();
+      ex = expf(nn);
+      lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, nn)), ex);
+      term = __fmul_rn(lin, v);
+    }
+    const float res = __fsub_rn(fv(), __fadd_rn(av, term));
+    const float denom = __fadd_rn(ma.pre_fac, lin);
+    return __fadd_rn(v, __fmul_rn(omega, __fdiv_rn(res, denom)));
+  }
+}
+
+// One tile of a damped-Jacobi sweep (jacobi_point at every point).
 template <int M, class Ld>
 __device__ __forceinline__ void jacobi_tile(
     int bx, int by, int bz, int tz, int ty, float* v_out, const float* v,
@@ -244,28 +291,9 @@ __device__ __forceinline__ void jacobi_tile(
   const int i1 = min(i0 + kXCH, g.nx + 1);
   long long idx = i0 * g.sx + j * g.sy + k;
   for (int i = i0; i < i1; ++i, idx += g.sx) {
-    const float av = stencil_at<Ld>(v, idx, taps, inv_h2);
-    if constexpr (M == kLinear) {
-      const float res = __fsub_rn(f[idx], av);
-      v_out[idx] =
-          __fadd_rn(Ld::at(v + idx), __fmul_rn(omega, __fmul_rn(alpha, res)));
-    } else {
-      const float vc = Ld::at(v + idx);
-      float ex, term, lin;
-      if constexpr (M == kNonlinear) {
-        ex = expf(vc);
-        term = fas_term(vc, ex, ma.gamma);
-        lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, vc)), ex);
-      } else {
-        const float n = nv[idx];
-        ex = expf(n);
-        lin = __fmul_rn(__fmul_rn(ma.gamma, __fadd_rn(1.0f, n)), ex);
-        term = __fmul_rn(lin, vc);
-      }
-      const float res = __fsub_rn(f[idx], __fadd_rn(av, term));
-      const float denom = __fadd_rn(ma.pre_fac, lin);
-      v_out[idx] = __fadd_rn(vc, __fmul_rn(omega, __fdiv_rn(res, denom)));
-    }
+    v_out[idx] = jacobi_point<M>(
+        stencil_at<Ld>(v, idx, taps, inv_h2), [&] { return Ld::at(v + idx); },
+        [&] { return f[idx]; }, [&] { return nv[idx]; }, alpha, omega, ma);
   }
 }
 
@@ -344,6 +372,30 @@ __device__ __forceinline__ float mid(float a, float b) {
   return __fadd_rn(__fmul_rn(0.5f, a), __fmul_rn(0.5f, b));
 }
 
+// The prolongation's corrections at fine plane i (parity io), fine row j
+// (parity jo) for coarse z column kc, whose coarse index at rows (i >> 1,
+// j >> 1) is col: yv[dk] is the value at fine z 2 (kc + dk), the x
+// midpoints taken first, then y (see prolong_tile).
+template <class CV>
+__device__ __forceinline__ void prolong_corr(CV cv, long long col, bool io,
+                                             bool jo, const Geom& c,
+                                             float yv[2]) {
+#pragma unroll
+  for (int dk = 0; dk < 2; ++dk) {
+    // x midpoints at coarse rows jc and jc+1 (the second only when j is
+    // odd), then the y midpoint.
+    const float a = cv(col + dk);
+    const float xa = io ? mid(a, cv(col + c.sx + dk)) : a;
+    float yk = xa;
+    if (jo) {
+      const float b = cv(col + c.sy + dk);
+      const float xb = io ? mid(b, cv(col + c.sx + c.sy + dk)) : b;
+      yk = mid(xa, xb);
+    }
+    yv[dk] = yk;
+  }
+}
+
 // One tile of the prolongation onto fine level fg from coarse level c:
 // out(idx, e) receives the correction e at fine index idx.  Fine point
 // (i, j, k) gets the reference's 4-pass interpolation in closed form: along
@@ -369,25 +421,49 @@ __device__ __forceinline__ void prolong_tile(int bx, int by, int bz, int tz,
   const bool even_ok = kc >= 1, odd_ok = 2 * kc + 1 <= fg.nz;
   long long idx = i0 * fg.sx + j * fg.sy + 2 * kc;
   for (int i = i0; i < i1; ++i, idx += fg.sx) {
-    const bool io = i & 1;
-    const long long col = (i >> 1) * c.sx + jc * c.sy + kc;
     float yv[2];
-#pragma unroll
-    for (int dk = 0; dk < 2; ++dk) {
-      // x midpoints at coarse rows jc and jc+1 (the second only when j is
-      // odd), then the y midpoint.
-      const float a = cv(col + dk);
-      const float xa = io ? mid(a, cv(col + c.sx + dk)) : a;
-      float yk = xa;
-      if (jo) {
-        const float b = cv(col + c.sy + dk);
-        const float xb = io ? mid(b, cv(col + c.sx + c.sy + dk)) : b;
-        yk = mid(xa, xb);
-      }
-      yv[dk] = yk;
-    }
+    prolong_corr(cv, (i >> 1) * c.sx + jc * c.sy + kc, i & 1, jo, c, yv);
     if (even_ok) out(idx, yv[0]);
     if (odd_ok) out(idx + 1, mid(yv[0], yv[1]));
+  }
+}
+
+// prolong_tile's tile with the fine values added: put(idx, fine(idx) + e)
+// at every fine point.  Each plane's coarse and fine values are loaded
+// before the plane below it is stored (the cooperative kernel's loads are
+// plain, so the compiler keeps them after any store before them).
+template <class CV, class Fine, class Put>
+__device__ __forceinline__ void prolong_add_tile(int bx, int by, int bz,
+                                                 int tz, int ty,
+                                                 const Geom& fg,
+                                                 const Geom& c, CV cv,
+                                                 Fine fine, Put put) {
+  const int kc = bx * kBZ + tz;
+  const int j = by * kBY + ty + 1;
+  if (kc > fg.nz / 2 || j > fg.ny) return;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, fg.nx + 1);
+  const int jc = j >> 1;
+  const bool jo = j & 1;
+  const bool even_ok = kc >= 1, odd_ok = 2 * kc + 1 <= fg.nz;
+  long long idx = i0 * fg.sx + j * fg.sy + 2 * kc;
+  // Plane i's corrections and fine values (zero where a point is off).
+  float yv[2], fe, fo;
+  auto load = [&](int i, long long at, float (&y)[2], float& e, float& o) {
+    prolong_corr(cv, (i >> 1) * c.sx + jc * c.sy + kc, i & 1, jo, c, y);
+    e = even_ok ? fine(at) : 0.0f;
+    o = odd_ok ? fine(at + 1) : 0.0f;
+  };
+  load(i0, idx, yv, fe, fo);
+  for (int i = i0; i < i1; ++i, idx += fg.sx) {
+    float yn[2] = {0.0f, 0.0f}, ne = 0.0f, no = 0.0f;
+    if (i + 1 < i1) load(i + 1, idx + fg.sx, yn, ne, no);
+    if (even_ok) put(idx, __fadd_rn(fe, yv[0]));
+    if (odd_ok) put(idx + 1, __fadd_rn(fo, mid(yv[0], yv[1])));
+    yv[0] = yn[0];
+    yv[1] = yn[1];
+    fe = ne;
+    fo = no;
   }
 }
 

@@ -9,24 +9,59 @@
 // table (buffer pointers, geometry, stencil, scalars) rides in the kernel
 // parameters.  Every block walks the ops in order; each op is a grid-stride
 // loop over the per-op kernels' tiles (mg_device.cuh), and a grid-wide
-// barrier (cooperative_groups::this_grid().sync()) separates every pair of
-// ops.  So the ~80 launches of a per-op V(3,3) cycle at 511^3 become one
-// launch with ~80 barriers; the coarse levels, a few tiles each, leave most
-// blocks waiting at those barriers.
+// barrier (cooperative_groups::this_grid().sync()) follows each op.
 //
 // Bound: bytes, as the per-op kernels (each op streams its fields once at a
 // few flops per point).  The design moves the same bytes as the per-op
 // cycle, less the coarse-level zero fill: a level that starts from v = 0
-// takes its first sweep without reading v (LdZero), as the TPU kernel's
-// specialised first sweep does.
+// takes its first sweep without reading v (LdZero).  What it must do is run
+// each op at its per-op kernel's speed, inside one launch:
 //
-// Rounding: the per-op kernels' point functions (mg_device.cuh), so every
-// field equals the per-op cycle's bit for bit, and the norm too: the final
+//   * Fixed levels.  Levels 0 and 1 (nearly all the bytes) with the
+//     canonical taps (the examples' 7-point order, kCanonOff) run bodies
+//     compiled for that level and for each choice of buffers (by_buffer):
+//     every pointer, stride and tap value is a constant-bank operand and
+//     uniform across the block, as in a per-op kernel, where an index into
+//     the level table costs registers and instructions on every load.  Any
+//     other level, and any other tap order, runs one body that indexes the
+//     table (run_op<M, -1>).
+//   * Loads.  Within one op no buffer it writes is one it reads, so every
+//     field is __restrict__.  Level 0's f and NEWTON's u~ are written by no
+//     op of the cycle (launch() in ops/vcycle_fused.py refuses fields that
+//     overlap), so they go through the read-only cache (LdNC), which is
+//     safe only for data no thread writes while the kernel runs; v, r, the
+//     coarse levels' f and FAS's rest_v are written by some op, so they
+//     are plain loads, which the compiler keeps after any store before
+//     them.  So the fixed sweeps and residuals (canon_tile) read each
+//     value of v once, carry x - 1 and the centre in registers and load
+//     the next plane's x + 1 tap and f before the store, and the fixed
+//     prolongation loads a plane ahead (prolong_add_tile).
+//   * Registers.  Each mode runs at the most blocks an SM with which no
+//     path spills (kVMinBlocks): LINEAR 6 blocks of 256 threads (40
+//     registers), NEWTON 5 (48), FAS 4 (64).  The op loop keeps its state
+//     in shared memory, not in registers through the ops, and the ops
+//     that index the level table load each point's values before its
+//     arithmetic (sweep_tile, residual_tile_v1): with these they fit.
+//   * Barriers.  From the first level whose passes are one tile (7^3 on
+//     2^k - 1 grids, tail_level in ops/vcycle_fused.py) block 0 runs the
+//     rest of the cycle, down and back up, with __syncthreads between ops,
+//     while the other blocks wait at one grid barrier: 43-46 of a V(6,6)
+//     cycle's ops at 511^3.  (A cluster of 8 blocks with barrier.cluster
+//     would cost the cooperative grid blocks: a launch of 8-block clusters
+//     holds fewer resident blocks than the SMs do; and these levels are one
+//     tile, one block's work.)  The norm's per-tile partials take one
+//     block barrier a tile, not two (partials_add).
+//
+// Rounding: the per-op kernels' point functions (mg_device.cuh:
+// stencil_sum, jacobi_point, operator_point, restrict_at, prolong_corr),
+// each product and sum its own __f*_rn, in the same order, so every field
+// equals the per-op cycle's bit for bit, and the norm too: the final
 // level-0 residual writes each tile's partial at the index residual_kernel
-// uses, and block 0 sums them as finalize_kernel does.  The TPU kernel
-// rounds otherwise (taps that share a coefficient summed before the
-// multiply, (omega alpha) f for a zero-start sweep, a Kahan sum of plane
-// sums); the port keeps its own order throughout.
+// uses, summed as block_sum sums a tile, and block 0 sums them as
+// finalize_kernel does.  The TPU kernel rounds otherwise (taps that share
+// a coefficient summed before the multiply, (omega alpha) f for a
+// zero-start sweep, a Kahan sum of plane sums); the port keeps its own
+// order throughout.
 //
 // FAS: the up leg prolongs v - rest_v computed on the fly and leaves the
 // coarse v as it is, as the TPU kernel does (the per-op cycle subtracts in
@@ -36,10 +71,12 @@
 // The launch needs every block resident (cudaLaunchCooperativeKernel); a
 // grid larger than that fails with cudaErrorCooperativeLaunchTooLarge and
 // the wrapper raises.  Grid: SMs x the occupancy calculator's blocks per
-// SM, 256 threads a block.  grid.sync() needs <cooperative_groups.h> but no
-// relocatable device code with the CUDA 12 toolkit.
+// SM.  grid.sync() needs <cooperative_groups.h> but no relocatable device
+// code with the CUDA 12 toolkit.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "mg_device.cuh"
 
@@ -48,17 +85,18 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxLevels = 16;
-// As the per-op kernels: at most 40 registers, 6 blocks of 256 threads per
-// SM.  LINEAR fits without spills; FAS and Newton spill a little.  At 64
-// registers (4 blocks per SM) nothing spills, and the cycle is no faster.
-constexpr int kVMinBlocks = 6;
+// Blocks of 256 threads an SM, each mode's most with which ptxas spills
+// nothing: LINEAR 6 (40 registers), NEWTON 5 (48), FAS 4 (64; at 5 its
+// coarse levels' transfers spill).
+template <int M>
+constexpr int kVMinBlocks = M == kLinear ? 6 : M == kNewton ? 5 : 4;
 
 // Op kinds; ops/vcycle_fused.py numbers them the same.  An op is int4
 // {kind, level, a, b}:
 //   ZERO      v buffer a of level = 0 (a zero start with no sweep)
 //   SMOOTH0   sweep from v = 0 into buffer a
-//   SMOOTH    sweep from buffer a into buffer b
-//   RESIDUAL  r of v in buffer a into buffer b
+//   SMOOTH    sweep from buffer a into the other one (b = 1 - a)
+//   RESIDUAL  r of v in buffer a into the other one (b = 1 - a)
 //   RESTRICT  coarse f = R(buffer a)                    (LINEAR, NEWTON)
 //   RESTRICTV coarse v buffer 0 = coarse rest_v = R(buffer a)      (FAS)
 //   FASF      coarse f = R(buffer a) + A_c(coarse rest_v)          (FAS)
@@ -66,6 +104,8 @@ constexpr int kVMinBlocks = 6;
 //             [- rest_v in FAS]); `level` is the coarse level
 //   NORM      level-0 residual of v in buffer a: per-tile sums of r^2
 //   FINALIZE  block 0: the sum of the partials into norm_out
+// (The host's TAIL marker never reaches the kernel: it passes the coarse
+// tail as a range of the table instead.)
 enum : int {
   kOpZero = 0,
   kOpSmooth0 = 1,
@@ -93,163 +133,519 @@ struct Args {
   float omega, gamma;
   double* partials;  // one per level-0 tile
   float* norm_out;   // sum r^2 of the final residual, float32
+  int tail_begin, tail_end;  // the coarse tail: ops [begin, end), block 0
+  int canon;  // the taps are the canonical 7-point order (kCanonOff)
+};
+
+// The canonical tap order, the examples' 7-point stencil: the centre, x + 1,
+// x - 1, y + 1, y - 1, z + 1, z - 1 (as (x, y, z) offsets).
+constexpr int kCanonOff[3 * kMaxTaps] = {0, 0, 0, 1, 0, 0, -1, 0, 0, 0, 1,
+                                         0, 0, -1, 0, 0, 0, 1, 0, 0, -1};
+
+// The taps an op of level L evaluates.  kC: the canonical order, its
+// offsets made from L's strides here (the z neighbours fold into the
+// loads' immediate offsets, the others are uniform) and all seven taps
+// present; the same values and order as L.taps.
+template <bool kC>
+__device__ __forceinline__ Taps op_taps(const Level& L) {
+  if constexpr (kC) {
+    Taps t;
+    t.n = kMaxTaps;
+#pragma unroll
+    for (int q = 0; q < kMaxTaps; ++q) t.val[q] = L.taps.val[q];
+    const int sx = (int)L.g.sx, sy = (int)L.g.sy;
+    t.off[0] = 0;
+    t.off[1] = sx;
+    t.off[2] = -sx;
+    t.off[3] = sy;
+    t.off[4] = -sy;
+    t.off[5] = 1;
+    t.off[6] = -1;
+    return t;
+  } else {
+    return L.taps;
+  }
+}
+
+// Which tiles of a pass a block takes: first, first + stride, ...  The
+// whole grid deals them round-robin (blockIdx.x, gridDim.x); the coarse
+// tail's one block takes them all (0, 1).
+struct Deal {
+  unsigned first, stride;
 };
 
 // Calls body(t, bx, by, bz) for this block's tiles of a pass over grid gr.
 template <class Body>
-__device__ __forceinline__ void for_tiles(const dim3 gr, Body body) {
+__device__ __forceinline__ void for_tiles(const dim3 gr, const Deal d,
+                                          Body body) {
   const unsigned n = gr.x * gr.y * gr.z;
-  for (unsigned t = blockIdx.x; t < n; t += gridDim.x) {
+  for (unsigned t = d.first; t < n; t += d.stride) {
     const unsigned rest = t / gr.x;
     body(t, t % gr.x, rest % gr.y, rest / gr.y);
   }
 }
 
-template <int M>
-__device__ __forceinline__ void run_op(const int4 op, const Args& a, int tz,
-                                       int ty) {
-  const Level& L = a.lv[op.y];
-  const ModeArgs ma{a.gamma, L.pre_fac};
-  switch (op.x) {
-    case kOpZero: {
-      float* d = L.buf[op.z];
-      for_tiles(grid_for(L.g), [&](unsigned, int bx, int by, int bz) {
-        const int k = bx * kBZ + tz + 1;
-        const int j = by * kBY + ty + 1;
-        if (k > L.g.nz || j > L.g.ny) return;
-        const int i1 = min(bz * kXCH + 1 + kXCH, L.g.nx + 1);
-        for (int i = bz * kXCH + 1; i < i1; ++i) {
-          d[i * L.g.sx + j * L.g.sy + k] = 0.0f;
-        }
-      });
-      break;
+// The stencil tile (bx, by, bz) of an op over the canonical taps
+// (kCanonOff), plane by plane as jacobi_tile and residual_tile walk it,
+// each value of v read once: plane i's x - 1 and centre taps are plane
+// i - 1's centre and x + 1 taps, kept in registers, and plane i + 1's x + 1
+// tap and f, the lines no earlier plane brought into L1, are loaded before
+// plane i is stored.  (v is read with plain loads, which the compiler keeps
+// after any store before them.)  point(idx, g, fv, n) gets the point's
+// taps in tap order, its f and u~ (NEWTON).
+template <int M, class LdF, class Point>
+__device__ __forceinline__ void canon_tile(int bx, int by, int bz, int tz,
+                                           int ty,
+                                           const float* __restrict__ v,
+                                           const float* __restrict__ f,
+                                           const float* __restrict__ nv,
+                                           const Geom& gm, Point point) {
+  const int k = bx * kBZ + tz + 1;
+  const int j = by * kBY + ty + 1;
+  if (k > gm.nz || j > gm.ny) return;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, gm.nx + 1);
+  long long idx = i0 * gm.sx + j * gm.sy + k;
+  float xm = v[idx - gm.sx], c = v[idx], xp = v[idx + gm.sx];
+  float fv = LdF::tap(f + idx);
+  for (int i = i0; i < i1; ++i, idx += gm.sx) {
+    const float g[kMaxTaps] = {c,
+                               xp,
+                               xm,
+                               v[idx + gm.sy],
+                               v[idx - gm.sy],
+                               v[idx + 1],
+                               v[idx - 1]};
+    float n = 0.0f;
+    if constexpr (M == kNewton) n = LdNC::tap(nv + idx);
+    const float fi = fv;
+    xm = c;
+    c = xp;
+    if (i + 1 < i1) {
+      xp = v[idx + 2 * gm.sx];
+      fv = LdF::tap(f + idx + gm.sx);
     }
+    point(idx, g, fi, n);
+  }
+}
+
+// jacobi_tile's and residual_tile's tiles for the ops that index the level
+// table, each point's values loaded before its arithmetic starts (the
+// per-op kernels load them as the arithmetic needs them): a schedule with
+// which the cooperative kernel's paths fit their registers.  With Ld =
+// LdZero every v value is 0, which is what a sweep over a zeroed v reads
+// (+0 everywhere), so the result is that sweep's bit for bit; s is then
+// never read, and may be d.  Otherwise d is not s, f or nv.
+template <int M, class Ld, class LdF>
+__device__ __forceinline__ void sweep_tile(int bx, int by, int bz, int tz,
+                                           int ty, float* __restrict__ d,
+                                           const float* __restrict__ s,
+                                           const float* __restrict__ f,
+                                           const float* __restrict__ nv,
+                                           const Geom& g, const Taps& taps,
+                                           float inv_h2, float alpha,
+                                           float omega, const ModeArgs& ma) {
+  const int k = bx * kBZ + tz + 1;
+  const int j = by * kBY + ty + 1;
+  if (k > g.nz || j > g.ny) return;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, g.nx + 1);
+  long long idx = i0 * g.sx + j * g.sy + k;
+  for (int i = i0; i < i1; ++i, idx += g.sx) {
+    const float av = stencil_at<Ld>(s, idx, taps, inv_h2);
+    const float n = M == kNewton ? LdNC::tap(nv + idx) : 0.0f;
+    const float vc = Ld::at(s + idx), fv = LdF::tap(f + idx);
+    d[idx] = jacobi_point<M>(
+        av, [&] { return vc; }, [&] { return fv; }, [&] { return n; }, alpha,
+        omega, ma);
+  }
+}
+
+// r (where given) and the thread's sum of r^2 over its column, in x order.
+template <int M, class LdF>
+__device__ __forceinline__ double residual_tile_v1(
+    int bx, int by, int bz, int tz, int ty, const float* __restrict__ v,
+    const float* __restrict__ f, const float* __restrict__ nv,
+    float* __restrict__ r, const Geom& g, const Taps& taps, float inv_h2,
+    float gamma) {
+  const int k = bx * kBZ + tz + 1;
+  const int j = by * kBY + ty + 1;
+  if (k > g.nz || j > g.ny) return 0.0;
+  const int i0 = bz * kXCH + 1;
+  const int i1 = min(i0 + kXCH, g.nx + 1);
+  long long idx = i0 * g.sx + j * g.sy + k;
+  double ss = 0.0;
+  for (int i = i0; i < i1; ++i, idx += g.sx) {
+    const float av = stencil_at<LdPlain>(v, idx, taps, inv_h2);
+    const float vc = M == kLinear ? 0.0f : v[idx];
+    const float n = M == kNewton ? LdNC::tap(nv + idx) : 0.0f;
+    const float res = __fsub_rn(
+        LdF::tap(f + idx),
+        operator_point<M>(av, [&] { return vc; }, [&] { return n; }, gamma));
+    if (r != nullptr) r[idx] = res;
+    ss += (double)res * (double)res;
+  }
+  return ss;
+}
+
+// A v / h^2 plus the mode term at a point of canon_tile: its taps g (g[0]
+// its v) and u~ n.
+template <int M>
+__device__ __forceinline__ float canon_operator(const float* g, float n,
+                                                const Taps& taps,
+                                                float inv_h2, float gamma) {
+  return operator_point<M>(
+      stencil_sum([&](int k) { return g[k]; }, taps, inv_h2),
+      [&] { return g[0]; }, [&] { return n; }, gamma);
+}
+
+// The op bodies.  Each takes its fields as __restrict__ pointers: within
+// one op no buffer it writes is one it reads (ops/vcycle_fused.py).  LdF
+// is the load policy of f; kC: the canonical taps (canon_tile), taps then
+// holds their values.
+
+template <int M, class Ld, class LdF, bool kC>
+__device__ __forceinline__ void smooth_op(float* __restrict__ d,
+                                          const float* __restrict__ s,
+                                          const float* __restrict__ f,
+                                          const float* __restrict__ nv,
+                                          const Level& L, const Taps& taps,
+                                          float omega, float gamma, int tz,
+                                          int ty, const Deal dl) {
+  const ModeArgs ma{gamma, L.pre_fac};
+  const dim3 gr = grid_for(L.g);
+  if constexpr (kC) {
+    for_tiles(gr, dl, [&](unsigned, int bx, int by, int bz) {
+      canon_tile<M, LdF>(
+          bx, by, bz, tz, ty, s, f, nv, L.g,
+          [&](long long idx, const float* g, float fv, float n) {
+            d[idx] = jacobi_point<M>(
+                stencil_sum([&](int k) { return g[k]; }, taps, L.inv_h2),
+                [&] { return g[0]; }, [&] { return fv; }, [&] { return n; },
+                L.alpha, omega, ma);
+          });
+    });
+  } else {
+    for_tiles(gr, dl, [&](unsigned, int bx, int by, int bz) {
+      sweep_tile<M, Ld, LdF>(bx, by, bz, tz, ty, d, s, f, nv, L.g, taps,
+                             L.inv_h2, L.alpha, omega, ma);
+    });
+  }
+}
+
+template <int M, class LdF, bool kC>
+__device__ __forceinline__ void residual_op(float* __restrict__ r,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ f,
+                                            const float* __restrict__ nv,
+                                            const Level& L, const Taps& taps,
+                                            float gamma, int tz, int ty,
+                                            const Deal dl) {
+  const dim3 gr = grid_for(L.g);
+  if constexpr (kC) {
+    for_tiles(gr, dl, [&](unsigned, int bx, int by, int bz) {
+      canon_tile<M, LdF>(
+          bx, by, bz, tz, ty, v, f, nv, L.g,
+          [&](long long idx, const float* g, float fv, float n) {
+            r[idx] = __fsub_rn(fv, canon_operator<M>(g, n, taps, L.inv_h2,
+                                                     gamma));
+          });
+    });
+  } else {
+    for_tiles(gr, dl, [&](unsigned, int bx, int by, int bz) {
+      residual_tile_v1<M, LdF>(bx, by, bz, tz, ty, v, f, nv, r, L.g, taps,
+                               L.inv_h2, gamma);
+    });
+  }
+}
+
+// partials[t] = the block's sum of ss, in block_sum's order: each warp's
+// shuffle tree, then the warp sums added in warp order onto 0.0.  A
+// block's successive tiles take alternate slots (slot), so one barrier a
+// tile does: a warp writes a slot again only past the next tile's
+// barrier, which thread 0 reaches after it has read the slot.
+__device__ __forceinline__ void partials_add(double* __restrict__ partials,
+                                             unsigned t, double ss,
+                                             int slot) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ double ws[2][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_down_sync(0xffffffffu, ss, o);
+  if (lane == 0) ws[slot][warp] = ss;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double total = 0.0;
+    for (int w = 0; w < kWarps; ++w) total += ws[slot][w];
+    partials[t] = total;
+  }
+}
+
+template <int M, class LdF, bool kC>
+__device__ __forceinline__ void norm_op(double* __restrict__ partials,
+                                        const float* __restrict__ v,
+                                        const float* __restrict__ f,
+                                        const float* __restrict__ nv,
+                                        const Level& L, const Taps& taps,
+                                        float gamma, int tz, int ty,
+                                        const Deal dl) {
+  int slot = 0;
+  for_tiles(grid_for(L.g), dl, [&](unsigned t, int bx, int by, int bz) {
+    double ss = 0.0;
+    if constexpr (kC) {
+      canon_tile<M, LdF>(
+          bx, by, bz, tz, ty, v, f, nv, L.g,
+          [&](long long, const float* g, float fv, float n) {
+            const float res = __fsub_rn(
+                fv, canon_operator<M>(g, n, taps, L.inv_h2, gamma));
+            ss += (double)res * (double)res;
+          });
+    } else {
+      ss = residual_tile_v1<M, LdF>(bx, by, bz, tz, ty, v, f, nv, nullptr,
+                                    L.g, taps, L.inv_h2, gamma);
+    }
+    partials_add(partials, t, ss, slot);
+    slot ^= 1;
+  });
+}
+
+__device__ __forceinline__ void zero_op(float* __restrict__ d, const Geom& g,
+                                        int tz, int ty, const Deal dl) {
+  for_tiles(grid_for(g), dl, [&](unsigned, int bx, int by, int bz) {
+    const int k = bx * kBZ + tz + 1;
+    const int j = by * kBY + ty + 1;
+    if (k > g.nz || j > g.ny) return;
+    const int i1 = min(bz * kXCH + 1 + kXCH, g.nx + 1);
+    for (int i = bz * kXCH + 1; i < i1; ++i) d[i * g.sx + j * g.sy + k] = 0.0f;
+  });
+}
+
+// out = R(in); out2 too when given (FAS: the coarse v and rest_v).
+__device__ __forceinline__ void restrict_op(float* __restrict__ out,
+                                            float* __restrict__ out2,
+                                            const float* __restrict__ in,
+                                            const Geom& c, const Geom& fg,
+                                            int tz, int ty, const Deal dl) {
+  for_tiles(grid_for(c), dl, [&](unsigned, int bx, int by, int bz) {
+    restrict_tile(bx, by, bz, tz, ty, c, fg,
+                  [&](long long cidx, long long center) {
+                    const float acc = restrict_at<LdPlain>(in, center, fg);
+                    out[cidx] = acc;
+                    if (out2 != nullptr) out2[cidx] = acc;
+                  });
+  });
+}
+
+// The FAS tau fold: out = R(in) + A_c(rv), rounded as restrict + apply_fas.
+__device__ __forceinline__ void fas_f_op(float* __restrict__ out,
+                                         const float* __restrict__ in,
+                                         const float* __restrict__ rv,
+                                         const Level& C, const Taps& ctaps,
+                                         const Geom& fg, float gamma, int tz,
+                                         int ty, const Deal dl) {
+  for_tiles(grid_for(C.g), dl, [&](unsigned, int bx, int by, int bz) {
+    restrict_tile(bx, by, bz, tz, ty, C.g, fg,
+                  [&](long long cidx, long long center) {
+                    const float rr = restrict_at<LdPlain>(in, center, fg);
+                    out[cidx] = __fadd_rn(
+                        rr, operator_at<kNonlinear, LdPlain>(
+                                rv, nullptr, cidx, ctaps, C.inv_h2, gamma));
+                  });
+  });
+}
+
+// d = fv + P(cv [- rv in FAS]).  kAhead: each plane's values loaded
+// before the plane below it is stored (prolong_add_tile): the fixed levels,
+// and LINEAR's coarse levels too; FAS's and NEWTON's coarse levels keep
+// prolong_tile's fewer live values (with the other, their kernels spill).
+template <int M, bool kAhead>
+__device__ __forceinline__ void prolong_op(float* __restrict__ d,
+                                           const float* __restrict__ fv,
+                                           const float* __restrict__ cv,
+                                           const float* __restrict__ rv,
+                                           const Geom& fg, const Geom& c,
+                                           int tz, int ty, const Deal dl) {
+  auto coarse = [&](long long q) {
+    if constexpr (M == kNonlinear) {
+      return __fsub_rn(cv[q], rv[q]);
+    } else {
+      return cv[q];
+    }
+  };
+  for_tiles(prolong_grid_for(fg), dl, [&](unsigned, int bx, int by, int bz) {
+    if constexpr (kAhead) {
+      prolong_add_tile(
+          bx, by, bz, tz, ty, fg, c, coarse,
+          [&](long long idx) { return fv[idx]; },
+          [&](long long idx, float x) { d[idx] = x; });
+    } else {
+      prolong_tile(bx, by, bz, tz, ty, fg, c, coarse,
+                   [&](long long idx, float e) {
+                     d[idx] = __fadd_rn(fv[idx], e);
+                   });
+    }
+  });
+}
+
+// Calls fn(buffer z of level L, its other buffer).  Where the level is
+// fixed (K >= 0) each of the two calls reads its pointers at fixed offsets
+// of the kernel parameters, so they are uniform across the block, as the
+// per-op kernels' are, and so is every tap address made from them.
+template <int K, class Fn>
+__device__ __forceinline__ void by_buffer(const Level& L, int z, Fn&& fn) {
+  if constexpr (K >= 0) {
+    if (z == 0) {
+      fn(L.buf[0], L.buf[1]);
+    } else {
+      fn(L.buf[1], L.buf[0]);
+    }
+  } else {
+    fn(L.buf[z], L.buf[1 - z]);
+  }
+}
+
+// One op whose fine level is K (0 or 1: the level's fields and geometry
+// are read at fixed offsets of the kernel parameters, as the per-op
+// kernels read theirs), or fl when K < 0.  The fine level of a
+// prolongation is the one below its coarse level op.y.  kC: the taps are
+// the canonical order (op_taps).
+template <int M, int K>
+__device__ __forceinline__ void run_op(const int4 op, const Args& a, int fl,
+                                       int tz, int ty, const Deal dl) {
+  constexpr bool kC = K >= 0;
+  const int l = K >= 0 ? K : fl;
+  const Level& L = a.lv[l];
+  // The coarse level, for the transfers (never past the table: a
+  // transfer's fine level is not the last).
+  const Level& C = a.lv[min(l + 1, kMaxLevels - 1)];
+  // Level 0's f is written by no op of the cycle: the read-only cache.
+  using LdF = std::conditional_t<K == 0, LdNC, LdPlain>;
+  switch (op.x) {
+    case kOpZero:
+      zero_op(L.buf[op.z], L.g, tz, ty, dl);
+      break;
     case kOpSmooth0: {
       float* d = L.buf[op.z];
-      for_tiles(grid_for(L.g), [&](unsigned, int bx, int by, int bz) {
-        jacobi_tile<M, LdZero>(bx, by, bz, tz, ty, d, d, L.f, L.aux, L.g,
-                               L.taps, L.inv_h2, L.alpha, a.omega, ma);
-      });
+      smooth_op<M, LdZero, LdF, false>(d, d, L.f, L.aux, L, L.taps, a.omega,
+                                       a.gamma, tz, ty, dl);
       break;
     }
-    case kOpSmooth: {
-      const float* s = L.buf[op.z];
-      float* d = L.buf[op.w];
-      for_tiles(grid_for(L.g), [&](unsigned, int bx, int by, int bz) {
-        jacobi_tile<M, LdPlain>(bx, by, bz, tz, ty, d, s, L.f, L.aux, L.g,
-                                L.taps, L.inv_h2, L.alpha, a.omega, ma);
+    case kOpSmooth:
+      by_buffer<K>(L, op.z, [&](const float* s, float* d) {
+        smooth_op<M, LdPlain, LdF, kC>(d, s, L.f, L.aux, L, op_taps<kC>(L),
+                                       a.omega, a.gamma, tz, ty, dl);
       });
       break;
-    }
-    case kOpResidual: {
-      const float* v = L.buf[op.z];
-      float* r = L.buf[op.w];
-      for_tiles(grid_for(L.g), [&](unsigned, int bx, int by, int bz) {
-        residual_tile<M, LdPlain>(bx, by, bz, tz, ty, v, L.f, L.aux, r, L.g,
-                                  L.taps, L.inv_h2, a.gamma, true);
+    case kOpResidual:
+      by_buffer<K>(L, op.z, [&](const float* v, float* r) {
+        residual_op<M, LdF, kC>(r, v, L.f, L.aux, L, op_taps<kC>(L), a.gamma,
+                                tz, ty, dl);
       });
       break;
-    }
-    case kOpRestrict: {
-      const Level& C = a.lv[op.y + 1];
-      const float* in = L.buf[op.z];
-      for_tiles(grid_for(C.g), [&](unsigned, int bx, int by, int bz) {
-        restrict_tile(bx, by, bz, tz, ty, C.g, L.g,
-                      [&](long long cidx, long long center) {
-                        C.f[cidx] = restrict_at<LdPlain>(in, center, L.g);
-                      });
+    case kOpRestrict:
+      by_buffer<K>(L, op.z, [&](const float* in, float*) {
+        restrict_op(C.f, nullptr, in, C.g, L.g, tz, ty, dl);
       });
       break;
-    }
-    case kOpRestrictV: {
+    case kOpRestrictV:
       if constexpr (M == kNonlinear) {
-        const Level& C = a.lv[op.y + 1];
-        const float* in = L.buf[op.z];
-        for_tiles(grid_for(C.g), [&](unsigned, int bx, int by, int bz) {
-          restrict_tile(bx, by, bz, tz, ty, C.g, L.g,
-                        [&](long long cidx, long long center) {
-                          const float acc =
-                              restrict_at<LdPlain>(in, center, L.g);
-                          C.buf[0][cidx] = acc;
-                          C.aux[cidx] = acc;
-                        });
+        by_buffer<K>(L, op.z, [&](const float* in, float*) {
+          restrict_op(C.buf[0], C.aux, in, C.g, L.g, tz, ty, dl);
         });
       }
       break;
-    }
-    case kOpFasF: {
+    case kOpFasF:
       if constexpr (M == kNonlinear) {
-        const Level& C = a.lv[op.y + 1];
-        const float* in = L.buf[op.z];
-        for_tiles(grid_for(C.g), [&](unsigned, int bx, int by, int bz) {
-          restrict_tile(
-              bx, by, bz, tz, ty, C.g, L.g,
-              [&](long long cidx, long long center) {
-                const float rr = restrict_at<LdPlain>(in, center, L.g);
-                C.f[cidx] = __fadd_rn(
-                    rr, operator_at<kNonlinear, LdPlain>(
-                            C.aux, nullptr, cidx, C.taps, C.inv_h2, a.gamma));
-              });
+        by_buffer<K>(L, op.z, [&](const float* in, float*) {
+          fas_f_op(C.f, in, C.aux, C, op_taps<kC>(C), L.g, a.gamma, tz, ty,
+                   dl);
         });
       }
       break;
-    }
-    case kOpProlong: {
-      const Level& F = a.lv[op.y - 1];
-      const float* cv = L.buf[op.z];
-      const float* rv = L.aux;
-      const float* fv = F.buf[op.w];
-      float* d = F.buf[1 - op.w];
-      for_tiles(prolong_grid_for(F.g), [&](unsigned, int bx, int by,
-                                           int bz) {
-        prolong_tile(
-            bx, by, bz, tz, ty, F.g, L.g,
-            [&](long long q) {
-              if constexpr (M == kNonlinear) {
-                return __fsub_rn(cv[q], rv[q]);
-              } else {
-                return cv[q];
-              }
-            },
-            [&](long long idx, float e) { d[idx] = __fadd_rn(fv[idx], e); });
+    case kOpProlong:
+      by_buffer<K>(L, op.w, [&](const float* fv, float* d) {
+        by_buffer<K>(C, op.z, [&](const float* cv, float*) {
+          prolong_op<M, kC || M == kLinear>(d, fv, cv, C.aux, L.g, C.g, tz,
+                                            ty, dl);
+        });
       });
       break;
-    }
-    case kOpNorm: {
-      const float* v = L.buf[op.z];
-      for_tiles(grid_for(L.g), [&](unsigned t, int bx, int by, int bz) {
-        const double ss = residual_tile<M, LdPlain>(
-            bx, by, bz, tz, ty, v, L.f, L.aux, nullptr, L.g, L.taps,
-            L.inv_h2, a.gamma, false);
-        const double total = block_sum(ss);
-        if (threadIdx.x == 0) a.partials[t] = total;
-        __syncthreads();  // block_sum's shared slots are reused next tile
-      });
-      break;
-    }
-    case kOpFinalize: {
-      if (blockIdx.x == 0) {
-        __shared__ double s[kFinThreads];
-        const dim3 gr = grid_for(a.lv[0].g);
-        const double total =
-            finalize_sum(a.partials, (long long)gr.x * gr.y * gr.z, s);
-        if (threadIdx.x == 0) *a.norm_out = (float)total;
+    case kOpNorm:
+      if constexpr (K == 0) {
+        by_buffer<K>(L, op.z, [&](const float* v, float*) {
+          norm_op<M, LdF, kC>(a.partials, v, L.f, L.aux, L, op_taps<kC>(L),
+                              a.gamma, tz, ty, dl);
+        });
       }
       break;
-    }
+    case kOpFinalize:
+      if constexpr (K == 0) {
+        if (blockIdx.x == 0) {
+          __shared__ double s[kFinThreads];
+          const dim3 gr = grid_for(L.g);
+          const double total =
+              finalize_sum(a.partials, (long long)gr.x * gr.y * gr.z, s);
+          if (threadIdx.x == 0) *a.norm_out = (float)total;
+        }
+      }
+      break;
     default:
       break;
   }
 }
 
+// Levels 0 and 1 with the canonical taps run their fixed-level bodies;
+// every other op runs the body that indexes the level table.
 template <int M>
-__global__ void __launch_bounds__(kThreads, kVMinBlocks)
-vcycle_kernel(const int4* __restrict__ ops, int nops, Args a) {
-  cg::grid_group grid = cg::this_grid();
+__device__ __forceinline__ void dispatch(const int4 op, const Args& a, int tz,
+                                         int ty, const Deal dl) {
+  const int fl = op.x == kOpProlong ? op.y - 1 : op.y;
+  if (fl == 0 && a.canon) {
+    run_op<M, 0>(op, a, 0, tz, ty, dl);
+  } else if (fl == 1 && a.canon) {
+    run_op<M, 1>(op, a, 1, tz, ty, dl);
+  } else {
+    run_op<M, -1>(op, a, fl, tz, ty, dl);
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads, kVMinBlocks<M>)
+vcycle_kernel(const int4* __restrict__ ops, int nops,
+              const __grid_constant__ Args a) {
+  // The op loop's state is kept in shared memory, not in registers
+  // through the ops: the op to run next, and the barrier after this one
+  // (0 none, 1 the block's, within the tail, 2 the grid's).  Thread 0
+  // writes each before a barrier that every thread passes after reading
+  // the old value.
+  __shared__ int next_op, barrier_kind;
   const int tz = threadIdx.x % kBZ, ty = threadIdx.x / kBZ;
-  for (int q = 0; q < nops; ++q) {
-    run_op<M>(ops[q], a, tz, ty);
-    if (q + 1 < nops) grid.sync();
+  if (threadIdx.x == 0) next_op = 0;
+  __syncthreads();
+  for (;;) {
+    const int q = next_op;
+    if (q >= nops) break;
+    const bool tail = q >= a.tail_begin && q < a.tail_end;
+    const int4 op = ops[q];
+    __syncthreads();  // every thread has read next_op and barrier_kind
+    if (threadIdx.x == 0) {
+      next_op = q + 1;
+      barrier_kind = q + 1 == nops                      ? 0
+                     : tail && q + 1 < a.tail_end ? 1
+                                                        : 2;
+    }
+    if (!tail) {
+      dispatch<M>(op, a, tz, ty, Deal{blockIdx.x, gridDim.x});
+    } else if (blockIdx.x == 0) {
+      dispatch<M>(op, a, tz, ty, Deal{0, 1});
+    }
+    __syncthreads();  // thread 0's writes are seen
+    const int kind = barrier_kind;
+    if (kind == 2) {
+      cg::this_grid().sync();
+    } else if (kind == 1) {
+      __syncthreads();
+    }
   }
 }
 
@@ -313,8 +709,9 @@ int mg_vcycle_fused_grid(int mode, int* grid) {
 // h^2/values[0], values[0]/h^2.  partials: device float64, one per level-0
 // tile (mg_residual_blocks); norm_out: device float32.  mode: 0 LINEAR, 1
 // NONLINEAR, 2 NEWTON.
-int mg_vcycle_fused(const int* ops, int nops, int mode, int nlev,
-                    const long long* ptrs, const int* dims, const float* scal,
+int mg_vcycle_fused(const int* ops, int nops, int tail_begin, int tail_end,
+                    int mode, int nlev, const long long* ptrs,
+                    const int* dims, const float* scal,
                     const float* tap_val, const int* tap_off3, int ntaps,
                     float omega, float gamma, double* partials,
                     float* norm_out, cudaStream_t stream) {
@@ -338,6 +735,12 @@ int mg_vcycle_fused(const int* ops, int nops, int mode, int nlev,
   a.gamma = gamma;
   a.partials = partials;
   a.norm_out = norm_out;
+  a.tail_begin = tail_begin;
+  a.tail_end = tail_end;
+  a.canon = ntaps == kMaxTaps;
+  for (int t = 0; t < 3 * ntaps; ++t) {
+    a.canon = a.canon && tap_off3[t] == kCanonOff[t];
+  }
   const int4* op4 = reinterpret_cast<const int4*>(ops);
   switch (mode) {
     case kLinear:

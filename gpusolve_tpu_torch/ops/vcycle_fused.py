@@ -27,18 +27,34 @@ no sweep at all (pre = 0, or pre + post = 0 at the coarsest): the TPU
 kernel then reads the previous cycle's v; here a ZERO op clears it, as the
 XLA cycle does (ROADMAP Queue 3).
 
+The coarse tail (``tail_level``, ``mark_tail``): from the first level on
+which every pass is one tile (7³ for 2^k − 1 grids), one block runs the
+cycle's ops, from the restriction into that level down to the coarsest
+and back to its last post-sweep, with a block barrier between them; the
+other blocks wait at one grid barrier.  A TAIL marker in the table says
+so; the kernel takes the ops without it and the tail's range
+(``_device_table``).  The split is a function of the level dims alone.
+
+Within one op no buffer it writes is one it reads (the ping-pong above;
+a restriction writes the coarse level, a prolongation the fine spare),
+and no field of one level is another level's (``launch`` checks that no
+two overlap): the kernel takes every field ``__restrict__``, and reads
+level 0's f and NEWTON's ũ, which no op of the cycle writes, through the
+read-only cache.
+
 ``vcycle_fused_plain`` runs the same schedule over the plain ops
 (``ops/kernels.py``'s plain versions, built on ``ops/ref.py``) on the same
-buffers; the tests and ``chip_smoke.py`` hold the kernel against it.  The
-fields equal the batch engine's one-cycle fields bit for bit, but for the
-FAS coarse v (here v, there v − rest_v) and every level's spare buffer.
+buffers, TAIL markers skipped; the tests and ``chip_smoke.py`` hold the
+kernel against it.  The fields equal the batch engine's one-cycle fields
+bit for bit, but for the FAS coarse v (here v, there v − rest_v) and every
+level's spare buffer.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,11 +64,17 @@ from gpusolve_tpu_torch.ops import kernels, ref
 
 NAME = "vcycle_fused"
 
-# Op kinds, numbered as csrc/vcycle_fused.cu numbers them.
+# Op kinds, numbered as csrc/vcycle_fused.cu numbers them.  TAIL marks
+# the coarse tail: (TAIL, level, n, 0) says that the next n ops run on
+# one block.
 ZERO, SMOOTH0, SMOOTH, RESIDUAL, RESTRICT, RESTRICT_V, FAS_F, PROLONG, \
-    NORM, FINALIZE = range(10)
+    NORM, FINALIZE, TAIL = range(11)
 
 Op = Tuple[int, int, int, int]  # (kind, level, a, b)
+
+# A tile: the 32 (z) x 8 (y) x 8 (x) box one block covers in one pass
+# (csrc/mg_device.cuh, grid_for).
+_TZ, _TY, _TX = 32, 8, 8
 
 
 def supported(params: GridParams) -> bool:
@@ -104,11 +126,57 @@ def schedule(
     return tuple(ops), tuple(locs)
 
 
+def tiles(dims: Sequence[int]) -> int:
+    """Tiles of a stencil pass over a level of interior ``dims``."""
+    nx, ny, nz = dims
+    return -(-nz // _TZ) * -(-ny // _TY) * -(-nx // _TX)
+
+
+def tail_level(dims: Sequence[Sequence[int]]) -> Optional[int]:
+    """The first level from which every level is one tile: one block runs
+    the cycle's passes over them (the coarse tail), from the restriction
+    into this level down and back up to its last post-sweep, with a block
+    barrier between them.  A prolongation onto such a level is one tile
+    too (it walks nz / 2 + 1 <= 32 coarse z columns).  None when the
+    coarsest level is more than a tile."""
+    split = None
+    for lvl in range(len(dims) - 1, -1, -1):
+        if tiles(dims[lvl]) > 1:
+            break
+        split = lvl
+    return split
+
+
+def _pass_level(op: Op) -> int:
+    """The level whose tiles an op's pass walks."""
+    kind, lvl = op[0], op[1]
+    if kind in (RESTRICT, RESTRICT_V, FAS_F):
+        return lvl + 1
+    if kind == PROLONG:
+        return lvl - 1
+    if kind == FINALIZE:
+        return 0
+    return lvl
+
+
+def mark_tail(ops: Sequence[Op], split: Optional[int]) -> Tuple[Op, ...]:
+    """``ops`` with the TAIL marker before the run of ops whose passes
+    walk level ``split`` or a coarser one (a V-cycle visits them in one
+    run); ``ops`` as they are when ``split`` is None."""
+    if split is None:
+        return tuple(ops)
+    run = [q for q, op in enumerate(ops) if _pass_level(op) >= split]
+    first, n = run[0], len(run)
+    assert run == list(range(first, first + n)), "the tail is one run"
+    return (*ops[:first], (TAIL, split, n, 0), *ops[first:])
+
+
 def _schedule_for(params: GridParams):
-    return schedule(
+    ops, final_locs = schedule(
         params.num_levels, Mode(params.mode), params.pre_smoothing,
         params.post_smoothing,
     )
+    return mark_tail(ops, tail_level(params.level_dims())), final_locs
 
 
 def _aux(lvl: GridLevel, params: GridParams):
@@ -187,6 +255,7 @@ def vcycle_fused_plain(
             )
         elif kind == FINALIZE:
             kernels.finalize_plain(partials, sumsq)
+        # TAIL says only which blocks run the ops after it.
     _hand_over(levels, bufs, final_locs)
     return sumsq
 
@@ -215,8 +284,20 @@ def _table(params: GridParams) -> _LevelTable:
 
 
 @functools.lru_cache(maxsize=None)
-def _ops_tensor(ops: Tuple[Op, ...], device: str) -> torch.Tensor:
-    return torch.tensor(ops, dtype=torch.int32, device=device)
+def _device_table(
+    ops: Tuple[Op, ...], device: str
+) -> Tuple[torch.Tensor, int, int]:
+    """The kernel's form of a table: the ops without the TAIL marker, as
+    a device int32 ``(n, 4)`` tensor, and the coarse tail's range
+    ``[begin, end)`` in it (empty when there is no marker)."""
+    begin = end = 0
+    plain = []
+    for op in ops:
+        if op[0] == TAIL:
+            begin, end = len(plain), len(plain) + op[2]
+        else:
+            plain.append(op)
+    return torch.tensor(plain, dtype=torch.int32, device=device), begin, end
 
 
 def grid_blocks(mode: Mode) -> int:
@@ -229,22 +310,23 @@ def grid_blocks(mode: Mode) -> int:
 
 
 def launch(
-    levels: Sequence[GridLevel], params: GridParams, ops: torch.Tensor
+    levels: Sequence[GridLevel], params: GridParams, ops: Sequence[Op]
 ) -> torch.Tensor:
     """One launch of the cooperative kernel over the op table ``ops`` (a
-    CUDA int32 ``(n, 4)`` tensor of :func:`schedule`'s ops): the cycle's
-    own table, or a table of chosen ops (``chip_smoke.py`` times one op
-    kind at a time with it).  Returns the one-element float32 Σr² the
-    table's FINALIZE writes; hands no buffer over."""
+    tuple of :func:`schedule`'s ops, with or without a TAIL marker): the
+    cycle's own table, or a table of chosen ops (``chip_smoke.py`` times
+    one op kind at a time with it).  Returns the one-element float32 Σr²
+    the table's FINALIZE writes; hands no buffer over."""
     dev = kernels._cuda_device(levels[0].v)
     dims = params.level_dims()
     if len(levels) != len(dims):
         raise ValueError(
             f"{len(levels)} levels given, the configuration has {len(dims)}"
         )
-    kernels._check(ops, "ops", (ops.shape[0], 4), dev, torch.int32)
+    table, tail_begin, tail_end = _device_table(tuple(ops), str(dev))
     tab = _table(params.replace(maxiter=0, tol=0.0, print_progress=False))
     ptrs = (ctypes.c_longlong * (4 * tab.nlev))()
+    spans = []
     for i, (lvl, d) in enumerate(zip(levels, dims)):
         shape = kernels._padded(d)
         aux = _aux(lvl, params)
@@ -257,9 +339,15 @@ def launch(
         for what, t in named:
             kernels._check(t, f"level {i} {what}", shape, dev)
         addr = [t.data_ptr() for _, t in named]
-        if len(set(addr)) != len(addr):
-            raise ValueError(f"level {i}'s fields must be distinct tensors")
+        spans += [(a, a + 4 * t.numel(), f"level {i} {what}")
+                  for a, (what, t) in zip(addr, named)]
         ptrs[4 * i: 4 * i + 4] = addr + [0] * (4 - len(addr))
+    # The kernel takes every field __restrict__ and reads level 0's f and
+    # NEWTON's ũ through the read-only cache: no two fields may overlap.
+    spans.sort()
+    for (_, end, what), (start, _, other) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError(f"{what} and {other} overlap")
     L = kernels.lib()
     partials = torch.empty(
         L.mg_residual_blocks(*dims[0]), dtype=torch.float64, device=dev
@@ -267,7 +355,8 @@ def launch(
     sumsq = torch.empty(1, dtype=torch.float32, device=dev)
     t = kernels._taps(params.stencil)
     rc = L.mg_vcycle_fused(
-        ops.data_ptr(), ops.shape[0], int(params.mode), tab.nlev, ptrs,
+        table.data_ptr(), table.shape[0], tail_begin, tail_end,
+        int(params.mode), tab.nlev, ptrs,
         tab.dims, tab.scal, t.val, t.off, t.n, params.omega, params.gamma,
         partials.data_ptr(), sumsq.data_ptr(), kernels._stream(dev),
     )
@@ -292,6 +381,6 @@ def vcycle_fused(
         )
     ops, final_locs = _schedule_for(params)
     bufs = [(lvl.v, lvl.r) for lvl in levels]
-    sumsq = launch(levels, params, _ops_tensor(ops, str(levels[0].v.device)))
+    sumsq = launch(levels, params, ops)
     _hand_over(levels, bufs, final_locs)
     return sumsq

@@ -23,7 +23,7 @@ NONLINEAR / NEWTON modes, inexact-Newton defect correction on
 
 The scaling ``s = ‖r‖₂`` keeps the inner problem O(1) as the defect
 shrinks.  The distributed variant (``solve_refine_spmd``) waits for the
-distributed engines (ROADMAP Queue 1 item 13).
+distributed engines (ROADMAP Queue 1 item 3(a)).
 """
 
 from __future__ import annotations

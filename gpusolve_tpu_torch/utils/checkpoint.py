@@ -15,7 +15,7 @@ every coarse v is restarted and every coarse f rewritten by the cycle, so
 a resumed solve, given the original run's initial residual for its stop
 test, repeats the uninterrupted run's remaining iterations exactly.  The
 distributed engines' checkpoints (``save_state_spmd``) wait for those
-engines (ROADMAP Queue 1 item 13).
+engines (ROADMAP Queue 1 item 3(a)).
 """
 
 from __future__ import annotations

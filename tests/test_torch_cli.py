@@ -223,6 +223,17 @@ def test_cli_mesh_exits_1(small_conf, capsys, args, message):
     assert message in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("args,item", [
+    (["--dist-engine", "gspmd"], "ROADMAP Queue 1 item 3(f), sharding.py"),
+    (["--refine"], "ROADMAP Queue 1 item 3(a)"),
+])
+def test_cli_mesh_refusal_names_roadmap_item(small_conf, capsys, args, item):
+    """Each refusal with --mesh names the ROADMAP item that ports it."""
+    assert cli.main([small_conf(), "--platform", "cpu", "--mesh", "1,1,1",
+                     *args]) == 1
+    assert item in capsys.readouterr().err
+
+
 def test_cli_mesh_fuse_pod(small_conf, capsys):
     """--fuse pod with --mesh runs the pod engine (it exited 1 as not
     ported): the progress lines, the pod depth and each pod level's

@@ -258,3 +258,97 @@ def test_solve_v1_loop_matches_jax_solve(monkeypatch):
     assert got == pytest.approx(want, rel=2e-4)
     assert got == batch
     assert torch.equal(state.levels[0].v, batch_state.levels[0].v)
+
+
+@pytest.mark.parametrize("grid, split", [
+    ((15, 15, 15), 1), ((31, 31, 31), 2), ((31, 15, 63), 2),
+    ((47, 47, 47), 3), ((127, 127, 127), 4), ((511, 511, 511), 6),
+])
+def test_tail_level(grid, split):
+    """The coarse tail starts at the first level from which every level
+    is one tile (32 z x 8 y x 8 x points): 7³ for 2^k − 1 grids, 5³ for
+    47³."""
+    _, pt = params_pair(grid)
+    dims = pt.level_dims()
+    assert vf.tail_level(dims) == split
+    assert [vf.tiles(d) == 1 for d in dims] == [
+        lvl >= split for lvl in range(len(dims))
+    ]
+
+
+def test_tail_level_edges():
+    """No tail when the coarsest level is more than a tile; a tile is 32
+    points along z and 8 along x and y."""
+    assert vf.tail_level([(63, 63, 63), (31, 31, 31)]) is None
+    assert vf.tiles((8, 8, 32)) == 1
+    assert vf.tiles((8, 8, 33)) == vf.tiles((9, 8, 32)) == 2
+    assert vf.tiles((8, 9, 32)) == 2
+    assert vf.tail_level([(16, 8, 64), (8, 4, 32), (4, 2, 16)]) == 1
+    assert vf.tail_level([(8, 8, 32)]) == 0
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.name)
+@pytest.mark.parametrize("grid", [(15, 15, 15), (47, 47, 47)])
+def test_mark_tail(grid, mode):
+    """The marker stands before the restriction into the split level and
+    covers every op down to the coarsest and back up to the split level's
+    last post-sweep; the kernel's table drops it and keeps the range."""
+    _, pt = params_pair(grid, mode)
+    ops, _ = vf.schedule(pt.num_levels, mode, 6, 6)
+    split = vf.tail_level(pt.level_dims())
+    marked, _ = vf._schedule_for(pt)
+    q = [op[0] for op in marked].index(vf.TAIL)
+    _, lvl, n, _ = marked[q]
+    assert lvl == split and len(marked) == len(ops) + 1
+    run = marked[q + 1: q + 1 + n]
+    assert run[0][0] in (vf.RESTRICT, vf.RESTRICT_V)
+    assert run[0][1] == split - 1
+    assert run[-1][:2] == (vf.SMOOTH, split)
+    assert marked[q + 1 + n][:2] == (vf.PROLONG, split)
+    assert min(op[1] for op in run) >= split - 1
+    table, begin, end = vf._device_table(marked, "cpu")
+    assert table.tolist() == [list(op) for op in ops]
+    assert (begin, end) == (q, q + n)
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.name)
+def test_plain_v1_tail_at_odd_level_equals_batch_cycle(mode):
+    """47³ V(6,6), whose tail starts at 5³ (odd, not a multiple of 8):
+    two cycles of the plain v1 over the marked table and of the batch
+    engine, bit for bit (FAS coarse v as v − rest_v)."""
+    _, pt = params_pair((47, 47, 47), mode)
+    assert vf.tail_level(pt.level_dims()) == 3
+    a = tgrid.build_grid(pt, device="cpu")
+    b = tgrid.build_grid(pt, device="cpu")
+    rng = np.random.default_rng(5)
+    v0 = torch.from_numpy(rng.standard_normal((47,) * 3, np.float32) * 0.05)
+    for s in (a, b):
+        s.levels[0].v[1:-1, 1:-1, 1:-1] = v0
+        if mode == Mode.NEWTON:
+            s.levels[0].newton_v[1:-1, 1:-1, 1:-1] = v0 * 4
+    for _ in range(2):
+        got = vf.vcycle_fused_plain(a.levels, pt)
+        want = vcycle_batch.run(b, pt, maxk=1)
+        assert float(got[0]) == float(want[0])
+        for i, (la, lb) in enumerate(zip(a.levels, b.levels)):
+            va = la.v - la.rest_v if mode == Mode.NONLINEAR and i else la.v
+            assert torch.equal(va, lb.v) and torch.equal(la.f, lb.f)
+
+
+def test_plain_v1_tail_at_odd_level_matches_jax_vcycle():
+    """47³ V(6,6) LINEAR against the JAX package's vcycle, with the
+    tolerances of test_plain_v1_matches_jax_vcycle."""
+    dims = (47, 47, 47)
+    pj, pt = params_pair(dims, Mode.LINEAR)
+    jstate, tstate = seeded_pair(pj, pt)
+    want_state, want_res = jvc.vcycle(
+        jstate, params=jvc.trace_params(pj), shardings=None
+    )
+    sumsq = vf.vcycle_fused_plain(tstate.levels, pt)
+    got_res = float(np.sqrt(np.float32(sumsq[0])))
+    assert got_res == pytest.approx(float(want_res), rel=2e-4)
+    want_v = crop(want_state.levels[0].v, dims)
+    scale = np.abs(want_v).max()
+    np.testing.assert_allclose(
+        tstate.levels[0].v.numpy(), want_v, rtol=2e-4, atol=2e-5 * scale
+    )
