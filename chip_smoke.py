@@ -21,7 +21,9 @@ Phases (any failure exits non-zero before the last line is printed):
      (``vcycle_fused``) against ``vcycle_fused_plain`` at 15³, 16³, 31³,
      (31,15,63), 47³ (its coarse tail from 5³), 127³ and 511³, V(3,3) and
      V(6,6), in the three modes (every field of every level and Σr², same
-     tolerances), and one v1 cycle against one batch-engine cycle at 511³
+     tolerances), at 15³ and (33,17,9) also with the taps reordered and
+     with five taps (the body that indexes the level table, the norm
+     included), and one v1 cycle against one batch-engine cycle at 511³
      V(6,6);
   3. the main paths, each with the launch counters zeroed just before it
      and read just after; the counts must equal what the engine's
@@ -182,6 +184,16 @@ SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
 V1_SHAPES = [(15, 15, 15), (16, 16, 16), (31, 31, 31), (31, 15, 63),
              (47, 47, 47), (127, 127, 127), (511, 511, 511)]
 V1_SWEEPS = [(3, 3), (6, 6)]
+# Stencils whose taps are not the canonical 7-point order, as (values,
+# offsets): the v1 kernel and the leg run them through their generic-tap
+# code.
+OTHER_TAPS = {
+    "reordered": ((6.2, -1.1, -0.9, -1.05, -0.97, -1.0, -1.13),
+                  ((0, 0, 0), (0, 0, -1), (0, 1, 0), (-1, 0, 0), (0, 0, 1),
+                   (1, 0, 0), (0, -1, 0))),
+    "five": ((4.0, -1.0, -1.0, -1.0, -1.0),
+             ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0))),
+}
 BIG = (511, 511, 511)
 RTOL = 1e-5
 DEVICE = "cuda"
@@ -331,6 +343,10 @@ def device_ms(fn, reps: int = 20):
 
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def fmt_us(us):
+    return "not measured" if us is None else f"{us:.1f} us"
 
 
 def padded(dims):
@@ -807,31 +823,41 @@ def check_vcycle_fused(base, rec):
     v − rest_v)."""
     import torch
 
-    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.config import Mode, Stencil
     from gpusolve_tpu_torch.ops import vcycle_batch
     from gpusolve_tpu_torch.ops import vcycle_fused as vf
 
-    for n, dims in enumerate(V1_SHAPES):
-        for pre, post in V1_SWEEPS:
-            for mode in Mode:
-                p = base.replace(grid_dim=dims, mode=mode,
-                                 pre_smoothing=pre, post_smoothing=post,
-                                 print_progress=False)
-                a = seeded_state(p, 200 + n)
-                b = clone_state(a)
-                for _ in range(1 if dims == BIG else 2):
-                    ss_k = vf.vcycle_fused(a.levels, p)
-                    ss_p = vf.vcycle_fused_plain(b.levels, p)
-                torch.cuda.synchronize()
-                tag = (f"vcycle_fused {'x'.join(map(str, dims))} "
-                       f"V({pre},{post}) {mode.name}")
-                fields = rec.fields(level_fields(a), level_fields(b), tag,
-                                    "vcycle_fused")
-                norm = rec.scalar(float(ss_k), float(ss_p), "sum r^2",
-                                  "vcycle_fused")
-                print(f"check {fields}; {norm}")
-                del a, b
-                torch.cuda.empty_cache()
+    # The examples' stencil at every shape; at two small ones also its
+    # taps in another order with other values, and five taps, which run
+    # the body that indexes the level table on every level (the fixed
+    # bodies take the canonical order only).
+    cases = [(dims, None, pre, post, 200 + n)
+             for n, dims in enumerate(V1_SHAPES) for pre, post in V1_SWEEPS]
+    cases += [(dims, st, 6, 6, 250 + n)
+              for n, dims in enumerate(((15, 15, 15), (33, 17, 9)))
+              for st in OTHER_TAPS]
+    for dims, st, pre, post, seed in cases:
+        stencil = base.stencil if st is None else Stencil(*OTHER_TAPS[st])
+        for mode in Mode:
+            p = base.replace(grid_dim=dims, mode=mode, pre_smoothing=pre,
+                             post_smoothing=post, stencil=stencil,
+                             print_progress=False)
+            a = seeded_state(p, seed)
+            b = clone_state(a)
+            for _ in range(1 if dims == BIG else 2):
+                ss_k = vf.vcycle_fused(a.levels, p)
+                ss_p = vf.vcycle_fused_plain(b.levels, p)
+            torch.cuda.synchronize()
+            tag = (f"vcycle_fused {'x'.join(map(str, dims))} "
+                   f"V({pre},{post}) {mode.name}"
+                   + ("" if st is None else f", taps {st}"))
+            fields = rec.fields(level_fields(a), level_fields(b), tag,
+                                "vcycle_fused")
+            norm = rec.scalar(float(ss_k), float(ss_p), "sum r^2",
+                              "vcycle_fused")
+            print(f"check {fields}; {norm}")
+            del a, b
+            torch.cuda.empty_cache()
     for mode in Mode:
         p = base.replace(grid_dim=BIG, mode=mode, pre_smoothing=6,
                          post_smoothing=6, print_progress=False)
@@ -1658,18 +1684,28 @@ def v1_op_times(p, state, rows):
     in the batch engine), and the ratio; the coarse tail (the cycle's ops
     from the restriction into the tail level down and back, on block 0
     with a block barrier between them) beside the same ops on the whole
-    grid with a grid barrier after each; a bare op and barrier (a
-    hundred ZERO ops on the 1³ coarsest level, one tile each)."""
+    grid with a grid barrier after each, by device time; a bare op and
+    barrier (a hundred ZERO ops on the 1³ coarsest level, one tile
+    each)."""
     import torch
 
     from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops import vcycle_fused as vf
 
-    def per(ops_list, reps=3):
-        ops = tuple(ops_list)
+    def per(ops_list):
+        ops = torch.tensor(ops_list, dtype=torch.int32, device=DEVICE)
         return cuda_ms(lambda: vf.launch(state.levels, p, ops),
-                       reps=reps) / len(ops)
+                       reps=3) / len(ops_list)
+
+    def tail_us(ops_list, on_block):
+        # Device time: a launch of the tail's few-tile ops takes less on
+        # the card than the wrapper takes on the host, so events would
+        # time the host.
+        ops = torch.tensor(ops_list, dtype=torch.int32, device=DEVICE)
+        rng = (0, len(ops_list)) if on_block else (0, 0)
+        ms = device_ms(lambda: vf.launch(state.levels, p, ops, rng))
+        return None if ms is None else ms * 1e3
 
     mode = Mode(p.mode)
     dims, cdims = BIG, p.level_dims()[1]
@@ -1698,19 +1734,17 @@ def v1_op_times(p, state, rows):
         parts.append(f"{label} {ms:.4f} (per-op kernel {alone:.4f}, "
                      f"{ms / alone:.3f}x)")
     split = vf.tail_level(p.level_dims())
-    ops, _ = vf.schedule(p.num_levels, mode, p.pre_smoothing,
-                         p.post_smoothing)
-    tail_ops = [op for op in ops if vf._pass_level(op) >= split]
-    on_block = per(vf.mark_tail(tail_ops, split), reps=20) * len(tail_ops)
-    on_grid = per(tail_ops, reps=20) * len(tail_ops)
+    ops, _, (begin, end) = vf._schedule_for(p)
+    tail_ops = list(ops[begin:end])
+    on_block, on_grid = tail_us(tail_ops, True), tail_us(tail_ops, False)
     barrier = per([(vf.ZERO, p.num_levels - 1, 0, 0)] * 100)
     print(f"v1 ops at 511^3 {mode.name}, ms per level-0 op with its "
           f"barrier: {'; '.join(parts)}; restrict_zero "
           f"{rows['restrict_zero']['ms']:.4f}; the coarse tail from level "
           f"{split} ({'x'.join(map(str, p.level_dims()[split]))}, "
-          f"{len(tail_ops)} ops) {on_block * 1e3:.1f} us on block 0, "
-          f"{on_grid * 1e3:.1f} us on the grid; a bare op and grid "
-          f"barrier {barrier * 1e3:.2f} us")
+          f"{len(tail_ops)} ops, device time with the launch's counter "
+          f"fill) {fmt_us(on_block)} on block 0, {fmt_us(on_grid)} on the "
+          f"grid; a bare op and grid barrier {barrier * 1e3:.2f} us")
 
 
 def time_v1(base, rate, rows):
@@ -2173,9 +2207,7 @@ def check_leg_kernels(base, rec):
     # The examples' stencil (taps in the order the kernel reads from
     # registers and immediate offsets), and the same taps in another order
     # with other values, which the kernel reads by offsets (33x17x9 only).
-    perm = Stencil(values=(6.2, -1.1, -0.9, -1.05, -0.97, -1.0, -1.13),
-                   offsets=((0, 0, 0), (0, 0, -1), (0, 1, 0), (-1, 0, 0),
-                            (0, 0, 1), (1, 0, 0), (0, -1, 0)))
+    perm = Stencil(*OTHER_TAPS["reordered"])
     cases = [(BIG, base.stencil), ((15, 15, 15), base.stencil),
              ((33, 17, 9), base.stencil), ((33, 17, 9), perm)]
     for n, (dims, stencil) in enumerate(cases):

@@ -219,8 +219,10 @@ __device__ __forceinline__ double finalize_sum(const double* partials,
 
 // One tile of the residual r = f - (A v / h^2 + mode term), written into r
 // when write_r; returns this thread's sum of r^2 over its column, in x
-// order (0 outside the interior).
-template <int M, class Ld>
+// order (0 outside the interior).  LdF loads f.  kEager: each point's v, u~
+// and f are loaded before its arithmetic starts, not as it needs them (the
+// cooperative kernel's generic body, which fits its registers so).
+template <int M, class Ld, class LdF = LdPlain, bool kEager = false>
 __device__ __forceinline__ double residual_tile(
     int bx, int by, int bz, int tz, int ty, const float* v, const float* f,
     const float* nv, float* r, const Geom& g, const Taps& taps,
@@ -233,8 +235,18 @@ __device__ __forceinline__ double residual_tile(
   if (k <= g.nz && j <= g.ny) {
     long long idx = i0 * g.sx + j * g.sy + k;
     for (int i = i0; i < i1; ++i, idx += g.sx) {
-      const float res = __fsub_rn(
-          f[idx], operator_at<M, Ld>(v, nv, idx, taps, inv_h2, gamma));
+      float res;
+      if constexpr (kEager) {
+        const float av = stencil_at<Ld>(v, idx, taps, inv_h2);
+        const float vc = M == kLinear ? 0.0f : Ld::at(v + idx);
+        const float n = M == kNewton ? LdNC::tap(nv + idx) : 0.0f;
+        res = __fsub_rn(LdF::tap(f + idx),
+                        operator_point<M>(av, [&] { return vc; },
+                                          [&] { return n; }, gamma));
+      } else {
+        res = __fsub_rn(LdF::tap(f + idx),
+                        operator_at<M, Ld>(v, nv, idx, taps, inv_h2, gamma));
+      }
       if (write_r) r[idx] = res;
       ss += (double)res * (double)res;
     }
@@ -278,8 +290,12 @@ __device__ __forceinline__ float jacobi_point(float av, VC vc, FV fv, N n,
   }
 }
 
-// One tile of a damped-Jacobi sweep (jacobi_point at every point).
-template <int M, class Ld>
+// One tile of a damped-Jacobi sweep (jacobi_point at every point).  LdF
+// and kEager as residual_tile's.  With Ld = LdZero every v value is 0,
+// which is what a sweep over a zeroed v reads (+0 everywhere), so the
+// result is that sweep's bit for bit; v is then never read, and may be
+// v_out.
+template <int M, class Ld, class LdF = LdPlain, bool kEager = false>
 __device__ __forceinline__ void jacobi_tile(
     int bx, int by, int bz, int tz, int ty, float* v_out, const float* v,
     const float* f, const float* nv, const Geom& g, const Taps& taps,
@@ -291,9 +307,19 @@ __device__ __forceinline__ void jacobi_tile(
   const int i1 = min(i0 + kXCH, g.nx + 1);
   long long idx = i0 * g.sx + j * g.sy + k;
   for (int i = i0; i < i1; ++i, idx += g.sx) {
-    v_out[idx] = jacobi_point<M>(
-        stencil_at<Ld>(v, idx, taps, inv_h2), [&] { return Ld::at(v + idx); },
-        [&] { return f[idx]; }, [&] { return nv[idx]; }, alpha, omega, ma);
+    if constexpr (kEager) {
+      const float av = stencil_at<Ld>(v, idx, taps, inv_h2);
+      const float n = M == kNewton ? LdNC::tap(nv + idx) : 0.0f;
+      const float vc = Ld::at(v + idx), fv = LdF::tap(f + idx);
+      v_out[idx] = jacobi_point<M>(
+          av, [&] { return vc; }, [&] { return fv; }, [&] { return n; },
+          alpha, omega, ma);
+    } else {
+      v_out[idx] = jacobi_point<M>(
+          stencil_at<Ld>(v, idx, taps, inv_h2),
+          [&] { return Ld::at(v + idx); }, [&] { return LdF::tap(f + idx); },
+          [&] { return nv[idx]; }, alpha, omega, ma);
+    }
   }
 }
 

@@ -25,32 +25,49 @@
 //     the level table costs registers and instructions on every load.  Any
 //     other level, and any other tap order, runs one body that indexes the
 //     table (run_op<M, -1>).
-//   * Loads.  Within one op no buffer it writes is one it reads, so every
-//     field is __restrict__.  Level 0's f and NEWTON's u~ are written by no
-//     op of the cycle (launch() in ops/vcycle_fused.py refuses fields that
-//     overlap), so they go through the read-only cache (LdNC), which is
-//     safe only for data no thread writes while the kernel runs; v, r, the
-//     coarse levels' f and FAS's rest_v are written by some op, so they
-//     are plain loads, which the compiler keeps after any store before
-//     them.  So the fixed sweeps and residuals (canon_tile) read each
-//     value of v once, carry x - 1 and the centre in registers and load
-//     the next plane's x + 1 tap and f before the store, and the fixed
-//     prolongation loads a plane ahead (prolong_add_tile).
+//   * Loads.  Level 0's f and NEWTON's u~ are written by no op of the
+//     cycle (launch() in ops/vcycle_fused.py refuses fields that
+//     overlap), so they go through the read-only cache (LdNC, __ldg),
+//     which is safe only for data no thread writes while the kernel runs.
+//     v, r, the coarse levels' f and FAS's rest_v are written by some op,
+//     and a read-only load of them could return a line cached before a
+//     grid barrier; so they are plain loads, and no field pointer is
+//     __restrict__, which would let the compiler make a plain load of a
+//     field it sees no store to a read-only one (dropping it changed
+//     neither the SASS's read-only load count nor any op's time).  So
+//     the fixed sweeps and residuals (canon_tile) read each value of v
+//     once, carry x - 1 and the centre in registers and load the next
+//     plane's x + 1 tap and f before the store, in program order, and the
+//     fixed prolongation loads a plane ahead (prolong_add_tile).
 //   * Registers.  Each mode runs at the most blocks an SM with which no
 //     path spills (kVMinBlocks): LINEAR 6 blocks of 256 threads (40
 //     registers), NEWTON 5 (48), FAS 4 (64).  The op loop keeps its state
-//     in shared memory, not in registers through the ops, and the ops
-//     that index the level table load each point's values before its
-//     arithmetic (sweep_tile, residual_tile_v1): with these they fit.
+//     in shared memory, not in registers through the ops; the body that
+//     indexes the level table loads each point's values before its
+//     arithmetic (jacobi_tile and residual_tile with kEager); the norm,
+//     which carries a per-tile sum, runs on level 0's fixed operands
+//     whatever the taps (norm0), not in that body.  With these they fit.
+//     (ptxas's choices move with the code's shape: with the coarse tail's
+//     second copy of the op dispatch taken out, and nothing else changed,
+//     FAS and NEWTON spilled 900 and 360 bytes; spilling, FAS's cycle ran
+//     1.24x slower on an H100.)
 //   * Barriers.  From the first level whose passes are one tile (7^3 on
 //     2^k - 1 grids, tail_level in ops/vcycle_fused.py) block 0 runs the
 //     rest of the cycle, down and back up, with __syncthreads between ops,
 //     while the other blocks wait at one grid barrier: 43-46 of a V(6,6)
-//     cycle's ops at 511^3.  (A cluster of 8 blocks with barrier.cluster
-//     would cost the cooperative grid blocks: a launch of 8-block clusters
-//     holds fewer resident blocks than the SMs do; and these levels are one
-//     tile, one block's work.)  The norm's per-tile partials take one
-//     block barrier a tile, not two (partials_add).
+//     cycle's ops at 511^3, 0.2-0.5 % of its time on an H100.  (A cluster
+//     of 8 blocks with barrier.cluster would cost the cooperative grid
+//     blocks: a launch of 8-block clusters holds fewer resident blocks
+//     than the SMs do; and these levels are one tile, one block's work.)
+//     The norm's per-tile partials take one block barrier a tile, not two
+//     (partials_add).
+//   * Tile order.  The transfers' passes (restriction, tau fold,
+//     prolongation) take each block's tiles past its first from a
+//     per-op counter as blocks come free (for_tiles_dyn): a level-0
+//     prolongation 0.58 -> 0.46 ms, a restriction 0.234 -> 0.217
+//     (LINEAR, 511^3, H100 80GB HBM3).  The other ops keep the
+//     round-robin deal: with the counter on every op ptxas spilled and
+//     the sweeps ran slower.
 //
 // Rounding: the per-op kernels' point functions (mg_device.cuh:
 // stencil_sum, jacobi_point, operator_point, restrict_at, prolong_corr),
@@ -104,8 +121,8 @@ constexpr int kVMinBlocks = M == kLinear ? 6 : M == kNewton ? 5 : 4;
 //             [- rest_v in FAS]); `level` is the coarse level
 //   NORM      level-0 residual of v in buffer a: per-tile sums of r^2
 //   FINALIZE  block 0: the sum of the partials into norm_out
-// (The host's TAIL marker never reaches the kernel: it passes the coarse
-// tail as a range of the table instead.)
+// The host passes the coarse tail as a range of the table (tail_range in
+// ops/vcycle_fused.py).
 enum : int {
   kOpZero = 0,
   kOpSmooth0 = 1,
@@ -133,6 +150,7 @@ struct Args {
   float omega, gamma;
   double* partials;  // one per level-0 tile
   float* norm_out;   // sum r^2 of the final residual, float32
+  unsigned* tile_ctr;  // one tile counter per op, 0 at the launch
   int tail_begin, tail_end;  // the coarse tail: ops [begin, end), block 0
   int canon;  // the taps are the canonical 7-point order (kCanonOff)
 };
@@ -174,6 +192,49 @@ struct Deal {
   unsigned first, stride;
 };
 
+// This op's tile counter (thread 0 points it at the op's slot of
+// Args::tile_ctr before the op) and the next tile of a block's two
+// latest tiles, in shared memory.
+__device__ __forceinline__ unsigned*& op_counter() {
+  __shared__ unsigned* ctr;
+  return ctr;
+}
+__device__ __forceinline__ unsigned* next_tile() {
+  __shared__ unsigned next[2];
+  return next;
+}
+
+// for_tiles with the tiles past each block's first taken from the op's
+// counter as blocks come free, not dealt round-robin: the transfers'
+// passes.  Thread 0 takes the block's next tile while the block works on
+// this one; a block barrier a tile publishes it, and a block writes a
+// slot of next_tile again only past the next tile's barrier.  Passes of
+// no more tiles than blocks, and the coarse tail's, are dealt as in
+// for_tiles.
+template <class Body>
+__device__ __forceinline__ void for_tiles_dyn(const dim3 gr, const Deal d,
+                                              Body body) {
+  const unsigned n = gr.x * gr.y * gr.z;
+  unsigned t = d.first;
+  if (d.stride == 1 || n <= d.stride) {
+    for (; t < n; t += d.stride) {
+      const unsigned rest = t / gr.x;
+      body(t, t % gr.x, rest % gr.y, rest / gr.y);
+    }
+    return;
+  }
+  unsigned* ctr = op_counter();
+  int s = 0;
+  while (t < n) {
+    if (threadIdx.x == 0) next_tile()[s] = d.stride + atomicAdd(ctr, 1u);
+    const unsigned rest = t / gr.x;
+    body(t, t % gr.x, rest % gr.y, rest / gr.y);
+    __syncthreads();
+    t = next_tile()[s];
+    s ^= 1;
+  }
+}
+
 // Calls body(t, bx, by, bz) for this block's tiles of a pass over grid gr.
 template <class Body>
 __device__ __forceinline__ void for_tiles(const dim3 gr, const Deal d,
@@ -195,10 +256,8 @@ __device__ __forceinline__ void for_tiles(const dim3 gr, const Deal d,
 // taps in tap order, its f and u~ (NEWTON).
 template <int M, class LdF, class Point>
 __device__ __forceinline__ void canon_tile(int bx, int by, int bz, int tz,
-                                           int ty,
-                                           const float* __restrict__ v,
-                                           const float* __restrict__ f,
-                                           const float* __restrict__ nv,
+                                           int ty, const float* v,
+                                           const float* f, const float* nv,
                                            const Geom& gm, Point point) {
   const int k = bx * kBZ + tz + 1;
   const int j = by * kBY + ty + 1;
@@ -229,65 +288,6 @@ __device__ __forceinline__ void canon_tile(int bx, int by, int bz, int tz,
   }
 }
 
-// jacobi_tile's and residual_tile's tiles for the ops that index the level
-// table, each point's values loaded before its arithmetic starts (the
-// per-op kernels load them as the arithmetic needs them): a schedule with
-// which the cooperative kernel's paths fit their registers.  With Ld =
-// LdZero every v value is 0, which is what a sweep over a zeroed v reads
-// (+0 everywhere), so the result is that sweep's bit for bit; s is then
-// never read, and may be d.  Otherwise d is not s, f or nv.
-template <int M, class Ld, class LdF>
-__device__ __forceinline__ void sweep_tile(int bx, int by, int bz, int tz,
-                                           int ty, float* __restrict__ d,
-                                           const float* __restrict__ s,
-                                           const float* __restrict__ f,
-                                           const float* __restrict__ nv,
-                                           const Geom& g, const Taps& taps,
-                                           float inv_h2, float alpha,
-                                           float omega, const ModeArgs& ma) {
-  const int k = bx * kBZ + tz + 1;
-  const int j = by * kBY + ty + 1;
-  if (k > g.nz || j > g.ny) return;
-  const int i0 = bz * kXCH + 1;
-  const int i1 = min(i0 + kXCH, g.nx + 1);
-  long long idx = i0 * g.sx + j * g.sy + k;
-  for (int i = i0; i < i1; ++i, idx += g.sx) {
-    const float av = stencil_at<Ld>(s, idx, taps, inv_h2);
-    const float n = M == kNewton ? LdNC::tap(nv + idx) : 0.0f;
-    const float vc = Ld::at(s + idx), fv = LdF::tap(f + idx);
-    d[idx] = jacobi_point<M>(
-        av, [&] { return vc; }, [&] { return fv; }, [&] { return n; }, alpha,
-        omega, ma);
-  }
-}
-
-// r (where given) and the thread's sum of r^2 over its column, in x order.
-template <int M, class LdF>
-__device__ __forceinline__ double residual_tile_v1(
-    int bx, int by, int bz, int tz, int ty, const float* __restrict__ v,
-    const float* __restrict__ f, const float* __restrict__ nv,
-    float* __restrict__ r, const Geom& g, const Taps& taps, float inv_h2,
-    float gamma) {
-  const int k = bx * kBZ + tz + 1;
-  const int j = by * kBY + ty + 1;
-  if (k > g.nz || j > g.ny) return 0.0;
-  const int i0 = bz * kXCH + 1;
-  const int i1 = min(i0 + kXCH, g.nx + 1);
-  long long idx = i0 * g.sx + j * g.sy + k;
-  double ss = 0.0;
-  for (int i = i0; i < i1; ++i, idx += g.sx) {
-    const float av = stencil_at<LdPlain>(v, idx, taps, inv_h2);
-    const float vc = M == kLinear ? 0.0f : v[idx];
-    const float n = M == kNewton ? LdNC::tap(nv + idx) : 0.0f;
-    const float res = __fsub_rn(
-        LdF::tap(f + idx),
-        operator_point<M>(av, [&] { return vc; }, [&] { return n; }, gamma));
-    if (r != nullptr) r[idx] = res;
-    ss += (double)res * (double)res;
-  }
-  return ss;
-}
-
 // A v / h^2 plus the mode term at a point of canon_tile: its taps g (g[0]
 // its v) and u~ n.
 template <int M>
@@ -299,16 +299,14 @@ __device__ __forceinline__ float canon_operator(const float* g, float n,
       [&] { return g[0]; }, [&] { return n; }, gamma);
 }
 
-// The op bodies.  Each takes its fields as __restrict__ pointers: within
-// one op no buffer it writes is one it reads (ops/vcycle_fused.py).  LdF
-// is the load policy of f; kC: the canonical taps (canon_tile), taps then
-// holds their values.
+// The op bodies.  Within one op no buffer it writes is one it reads
+// (ops/vcycle_fused.py); the pointers are not __restrict__ all the same
+// (see Loads in the note above).  LdF is the load policy of f; kC: the
+// canonical taps (canon_tile), taps then holds their values.
 
 template <int M, class Ld, class LdF, bool kC>
-__device__ __forceinline__ void smooth_op(float* __restrict__ d,
-                                          const float* __restrict__ s,
-                                          const float* __restrict__ f,
-                                          const float* __restrict__ nv,
+__device__ __forceinline__ void smooth_op(float* d, const float* s,
+                                          const float* f, const float* nv,
                                           const Level& L, const Taps& taps,
                                           float omega, float gamma, int tz,
                                           int ty, const Deal dl) {
@@ -327,17 +325,15 @@ __device__ __forceinline__ void smooth_op(float* __restrict__ d,
     });
   } else {
     for_tiles(gr, dl, [&](unsigned, int bx, int by, int bz) {
-      sweep_tile<M, Ld, LdF>(bx, by, bz, tz, ty, d, s, f, nv, L.g, taps,
-                             L.inv_h2, L.alpha, omega, ma);
+      jacobi_tile<M, Ld, LdF, true>(bx, by, bz, tz, ty, d, s, f, nv, L.g,
+                                    taps, L.inv_h2, L.alpha, omega, ma);
     });
   }
 }
 
 template <int M, class LdF, bool kC>
-__device__ __forceinline__ void residual_op(float* __restrict__ r,
-                                            const float* __restrict__ v,
-                                            const float* __restrict__ f,
-                                            const float* __restrict__ nv,
+__device__ __forceinline__ void residual_op(float* r, const float* v,
+                                            const float* f, const float* nv,
                                             const Level& L, const Taps& taps,
                                             float gamma, int tz, int ty,
                                             const Deal dl) {
@@ -353,8 +349,8 @@ __device__ __forceinline__ void residual_op(float* __restrict__ r,
     });
   } else {
     for_tiles(gr, dl, [&](unsigned, int bx, int by, int bz) {
-      residual_tile_v1<M, LdF>(bx, by, bz, tz, ty, v, f, nv, r, L.g, taps,
-                               L.inv_h2, gamma);
+      residual_tile<M, LdPlain, LdF, true>(bx, by, bz, tz, ty, v, f, nv, r,
+                                           L.g, taps, L.inv_h2, gamma, true);
     });
   }
 }
@@ -364,9 +360,8 @@ __device__ __forceinline__ void residual_op(float* __restrict__ r,
 // block's successive tiles take alternate slots (slot), so one barrier a
 // tile does: a warp writes a slot again only past the next tile's
 // barrier, which thread 0 reaches after it has read the slot.
-__device__ __forceinline__ void partials_add(double* __restrict__ partials,
-                                             unsigned t, double ss,
-                                             int slot) {
+__device__ __forceinline__ void partials_add(double* partials, unsigned t,
+                                             double ss, int slot) {
   constexpr int kWarps = kThreads / 32;
   __shared__ double ws[2][kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -382,10 +377,8 @@ __device__ __forceinline__ void partials_add(double* __restrict__ partials,
 }
 
 template <int M, class LdF, bool kC>
-__device__ __forceinline__ void norm_op(double* __restrict__ partials,
-                                        const float* __restrict__ v,
-                                        const float* __restrict__ f,
-                                        const float* __restrict__ nv,
+__device__ __forceinline__ void norm_op(double* partials, const float* v,
+                                        const float* f, const float* nv,
                                         const Level& L, const Taps& taps,
                                         float gamma, int tz, int ty,
                                         const Deal dl) {
@@ -401,16 +394,17 @@ __device__ __forceinline__ void norm_op(double* __restrict__ partials,
             ss += (double)res * (double)res;
           });
     } else {
-      ss = residual_tile_v1<M, LdF>(bx, by, bz, tz, ty, v, f, nv, nullptr,
-                                    L.g, taps, L.inv_h2, gamma);
+      ss = residual_tile<M, LdPlain, LdF, true>(bx, by, bz, tz, ty, v, f, nv,
+                                                nullptr, L.g, taps, L.inv_h2,
+                                                gamma, false);
     }
     partials_add(partials, t, ss, slot);
     slot ^= 1;
   });
 }
 
-__device__ __forceinline__ void zero_op(float* __restrict__ d, const Geom& g,
-                                        int tz, int ty, const Deal dl) {
+__device__ __forceinline__ void zero_op(float* d, const Geom& g, int tz, int ty,
+                                        const Deal dl) {
   for_tiles(grid_for(g), dl, [&](unsigned, int bx, int by, int bz) {
     const int k = bx * kBZ + tz + 1;
     const int j = by * kBY + ty + 1;
@@ -421,12 +415,11 @@ __device__ __forceinline__ void zero_op(float* __restrict__ d, const Geom& g,
 }
 
 // out = R(in); out2 too when given (FAS: the coarse v and rest_v).
-__device__ __forceinline__ void restrict_op(float* __restrict__ out,
-                                            float* __restrict__ out2,
-                                            const float* __restrict__ in,
-                                            const Geom& c, const Geom& fg,
-                                            int tz, int ty, const Deal dl) {
-  for_tiles(grid_for(c), dl, [&](unsigned, int bx, int by, int bz) {
+__device__ __forceinline__ void restrict_op(float* out, float* out2,
+                                            const float* in, const Geom& c,
+                                            const Geom& fg, int tz, int ty,
+                                            const Deal dl) {
+  for_tiles_dyn(grid_for(c), dl, [&](unsigned, int bx, int by, int bz) {
     restrict_tile(bx, by, bz, tz, ty, c, fg,
                   [&](long long cidx, long long center) {
                     const float acc = restrict_at<LdPlain>(in, center, fg);
@@ -437,13 +430,12 @@ __device__ __forceinline__ void restrict_op(float* __restrict__ out,
 }
 
 // The FAS tau fold: out = R(in) + A_c(rv), rounded as restrict + apply_fas.
-__device__ __forceinline__ void fas_f_op(float* __restrict__ out,
-                                         const float* __restrict__ in,
-                                         const float* __restrict__ rv,
-                                         const Level& C, const Taps& ctaps,
-                                         const Geom& fg, float gamma, int tz,
-                                         int ty, const Deal dl) {
-  for_tiles(grid_for(C.g), dl, [&](unsigned, int bx, int by, int bz) {
+__device__ __forceinline__ void fas_f_op(float* out, const float* in,
+                                         const float* rv, const Level& C,
+                                         const Taps& ctaps, const Geom& fg,
+                                         float gamma, int tz, int ty,
+                                         const Deal dl) {
+  for_tiles_dyn(grid_for(C.g), dl, [&](unsigned, int bx, int by, int bz) {
     restrict_tile(bx, by, bz, tz, ty, C.g, fg,
                   [&](long long cidx, long long center) {
                     const float rr = restrict_at<LdPlain>(in, center, fg);
@@ -459,10 +451,8 @@ __device__ __forceinline__ void fas_f_op(float* __restrict__ out,
 // and LINEAR's coarse levels too; FAS's and NEWTON's coarse levels keep
 // prolong_tile's fewer live values (with the other, their kernels spill).
 template <int M, bool kAhead>
-__device__ __forceinline__ void prolong_op(float* __restrict__ d,
-                                           const float* __restrict__ fv,
-                                           const float* __restrict__ cv,
-                                           const float* __restrict__ rv,
+__device__ __forceinline__ void prolong_op(float* d, const float* fv,
+                                           const float* cv, const float* rv,
                                            const Geom& fg, const Geom& c,
                                            int tz, int ty, const Deal dl) {
   auto coarse = [&](long long q) {
@@ -472,7 +462,8 @@ __device__ __forceinline__ void prolong_op(float* __restrict__ d,
       return cv[q];
     }
   };
-  for_tiles(prolong_grid_for(fg), dl, [&](unsigned, int bx, int by, int bz) {
+  const dim3 gr = prolong_grid_for(fg);
+  for_tiles_dyn(gr, dl, [&](unsigned, int bx, int by, int bz) {
     if constexpr (kAhead) {
       prolong_add_tile(
           bx, by, bz, tz, ty, fg, c, coarse,
@@ -570,37 +561,47 @@ __device__ __forceinline__ void run_op(const int4 op, const Args& a, int fl,
         });
       });
       break;
-    case kOpNorm:
-      if constexpr (K == 0) {
-        by_buffer<K>(L, op.z, [&](const float* v, float*) {
-          norm_op<M, LdF, kC>(a.partials, v, L.f, L.aux, L, op_taps<kC>(L),
-                              a.gamma, tz, ty, dl);
-        });
-      }
-      break;
-    case kOpFinalize:
-      if constexpr (K == 0) {
-        if (blockIdx.x == 0) {
-          __shared__ double s[kFinThreads];
-          const dim3 gr = grid_for(L.g);
-          const double total =
-              finalize_sum(a.partials, (long long)gr.x * gr.y * gr.z, s);
-          if (threadIdx.x == 0) *a.norm_out = (float)total;
-        }
-      }
-      break;
     default:
       break;
   }
 }
 
+// The final level-0 residual's per-tile sums of r^2, with the canonical
+// taps or any others: level 0's fields, geometry and taps are read at
+// fixed offsets of the kernel parameters, as in run_op<M, 0>.
+template <int M>
+__device__ __forceinline__ void norm0(const int4 op, const Args& a, int tz,
+                                      int ty, const Deal dl) {
+  const Level& L = a.lv[0];
+  by_buffer<0>(L, op.z, [&](const float* v, float*) {
+    if (a.canon) {
+      norm_op<M, LdNC, true>(a.partials, v, L.f, L.aux, L, op_taps<true>(L),
+                             a.gamma, tz, ty, dl);
+    } else {
+      norm_op<M, LdNC, false>(a.partials, v, L.f, L.aux, L, L.taps, a.gamma,
+                              tz, ty, dl);
+    }
+  });
+}
+
 // Levels 0 and 1 with the canonical taps run their fixed-level bodies;
-// every other op runs the body that indexes the level table.
+// every other op runs the body that indexes the level table, but the norm
+// and its sum, which are level 0's whatever the taps.
 template <int M>
 __device__ __forceinline__ void dispatch(const int4 op, const Args& a, int tz,
                                          int ty, const Deal dl) {
   const int fl = op.x == kOpProlong ? op.y - 1 : op.y;
-  if (fl == 0 && a.canon) {
+  if (op.x == kOpNorm) {
+    norm0<M>(op, a, tz, ty, dl);
+  } else if (op.x == kOpFinalize) {
+    if (blockIdx.x == 0) {
+      __shared__ double s[kFinThreads];
+      const dim3 gr = grid_for(a.lv[0].g);
+      const double total =
+          finalize_sum(a.partials, (long long)gr.x * gr.y * gr.z, s);
+      if (threadIdx.x == 0) *a.norm_out = (float)total;
+    }
+  } else if (fl == 0 && a.canon) {
     run_op<M, 0>(op, a, 0, tz, ty, dl);
   } else if (fl == 1 && a.canon) {
     run_op<M, 1>(op, a, 1, tz, ty, dl);
@@ -627,6 +628,7 @@ vcycle_kernel(const int4* __restrict__ ops, int nops,
     if (q >= nops) break;
     const bool tail = q >= a.tail_begin && q < a.tail_end;
     const int4 op = ops[q];
+    if (threadIdx.x == 0) op_counter() = a.tile_ctr + q;
     __syncthreads();  // every thread has read next_op and barrier_kind
     if (threadIdx.x == 0) {
       next_op = q + 1;
@@ -706,15 +708,17 @@ int mg_vcycle_fused_grid(int mode, int* grid) {
 // One launch over an op table.  ops: device int32 (nops, 4).  Per level l
 // (host arrays): ptrs[4l..4l+3] = the buffer holding v, its spare, f, aux
 // (0 for none); dims[3l..3l+2] = interior dims; scal[3l..3l+2] = 1/h^2,
-// h^2/values[0], values[0]/h^2.  partials: device float64, one per level-0
-// tile (mg_residual_blocks); norm_out: device float32.  mode: 0 LINEAR, 1
-// NONLINEAR, 2 NEWTON.
+// h^2/values[0], values[0]/h^2.  Ops [tail_begin, tail_end) run on block
+// 0.  partials: device float64, one per level-0 tile (mg_residual_blocks);
+// tile_ctr: device uint32, one per op, zeros; norm_out: device float32.
+// mode: 0 LINEAR, 1 NONLINEAR, 2 NEWTON.
 int mg_vcycle_fused(const int* ops, int nops, int tail_begin, int tail_end,
                     int mode, int nlev, const long long* ptrs,
                     const int* dims, const float* scal,
                     const float* tap_val, const int* tap_off3, int ntaps,
                     float omega, float gamma, double* partials,
-                    float* norm_out, cudaStream_t stream) {
+                    unsigned* tile_ctr, float* norm_out,
+                    cudaStream_t stream) {
   if (nlev < 1 || nlev > kMaxLevels || nops < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -735,6 +739,7 @@ int mg_vcycle_fused(const int* ops, int nops, int tail_begin, int tail_end,
   a.gamma = gamma;
   a.partials = partials;
   a.norm_out = norm_out;
+  a.tile_ctr = tile_ctr;
   a.tail_begin = tail_begin;
   a.tail_end = tail_end;
   a.canon = ntaps == kMaxTaps;

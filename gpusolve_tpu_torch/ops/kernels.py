@@ -201,7 +201,7 @@ def _bind(path: Path):
         "mg_prolong_add": ([p, p, p, i, i, i, i, i, i, p], i),
         "mg_subtract": ([p, p, p, i, i, i, p], i),
         "mg_vcycle_fused": (
-            [p, i, i, i, i, i, p, p, p, p, p, i, f, f, p, p, p], i
+            [p, i, i, i, i, i, p, p, p, p, p, i, f, f, p, p, p, p], i
         ),
         "mg_vcycle_fused_grid": ([i, p], i),
         "mg_box_blocks": ([i, i, i], ll),

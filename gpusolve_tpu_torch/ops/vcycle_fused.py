@@ -27,27 +27,28 @@ no sweep at all (pre = 0, or pre + post = 0 at the coarsest): the TPU
 kernel then reads the previous cycle's v; here a ZERO op clears it, as the
 XLA cycle does (ROADMAP Queue 3).
 
-The coarse tail (``tail_level``, ``mark_tail``): from the first level on
-which every pass is one tile (7³ for 2^k − 1 grids), one block runs the
-cycle's ops, from the restriction into that level down to the coarsest
-and back to its last post-sweep, with a block barrier between them; the
-other blocks wait at one grid barrier.  A TAIL marker in the table says
-so; the kernel takes the ops without it and the tail's range
-(``_device_table``).  The split is a function of the level dims alone.
+The coarse tail (``tail_level``, ``tail_range``): from the first level
+on which every pass is one tile (7³ for 2^k − 1 grids), one block runs
+the cycle's ops, from the restriction into that level down to the
+coarsest and back to its last post-sweep, with a block barrier between
+them; the other blocks wait at one grid barrier.  The kernel takes the
+tail as a range of the op table; the split is a function of the level
+dims alone, and the plain version, which runs every op alike, needs
+neither.
 
 Within one op no buffer it writes is one it reads (the ping-pong above;
 a restriction writes the coarse level, a prolongation the fine spare),
 and no field of one level is another level's (``launch`` checks that no
-two overlap): the kernel takes every field ``__restrict__``, and reads
-level 0's f and NEWTON's ũ, which no op of the cycle writes, through the
-read-only cache.
+two overlap): the kernel reads level 0's f and NEWTON's ũ, which no op
+of the cycle writes, through the read-only cache.  The transfers take
+their tiles from a counter per op as blocks come free; ``launch`` hands
+the kernel a zeroed counter for each op of the table.
 
 ``vcycle_fused_plain`` runs the same schedule over the plain ops
 (``ops/kernels.py``'s plain versions, built on ``ops/ref.py``) on the same
-buffers, TAIL markers skipped; the tests and ``chip_smoke.py`` hold the
-kernel against it.  The fields equal the batch engine's one-cycle fields
-bit for bit, but for the FAS coarse v (here v, there v − rest_v) and every
-level's spare buffer.
+buffers; the tests and ``chip_smoke.py`` hold the kernel against it.  The
+fields equal the batch engine's one-cycle fields bit for bit, but for the
+FAS coarse v (here v, there v − rest_v) and every level's spare buffer.
 """
 
 from __future__ import annotations
@@ -64,11 +65,9 @@ from gpusolve_tpu_torch.ops import kernels, ref
 
 NAME = "vcycle_fused"
 
-# Op kinds, numbered as csrc/vcycle_fused.cu numbers them.  TAIL marks
-# the coarse tail: (TAIL, level, n, 0) says that the next n ops run on
-# one block.
+# Op kinds, numbered as csrc/vcycle_fused.cu numbers them.
 ZERO, SMOOTH0, SMOOTH, RESIDUAL, RESTRICT, RESTRICT_V, FAS_F, PROLONG, \
-    NORM, FINALIZE, TAIL = range(11)
+    NORM, FINALIZE = range(10)
 
 Op = Tuple[int, int, int, int]  # (kind, level, a, b)
 
@@ -159,24 +158,26 @@ def _pass_level(op: Op) -> int:
     return lvl
 
 
-def mark_tail(ops: Sequence[Op], split: Optional[int]) -> Tuple[Op, ...]:
-    """``ops`` with the TAIL marker before the run of ops whose passes
-    walk level ``split`` or a coarser one (a V-cycle visits them in one
-    run); ``ops`` as they are when ``split`` is None."""
+def tail_range(ops: Sequence[Op], split: Optional[int]) -> Tuple[int, int]:
+    """The coarse tail's ops ``[begin, end)`` in ``ops``: the run whose
+    passes walk level ``split`` or a coarser one (a V-cycle visits them in
+    one run); empty when ``split`` is None."""
     if split is None:
-        return tuple(ops)
+        return 0, 0
     run = [q for q, op in enumerate(ops) if _pass_level(op) >= split]
     first, n = run[0], len(run)
     assert run == list(range(first, first + n)), "the tail is one run"
-    return (*ops[:first], (TAIL, split, n, 0), *ops[first:])
+    return first, first + n
 
 
+@functools.lru_cache(maxsize=None)
 def _schedule_for(params: GridParams):
+    """The cycle's ops, ``final_locs`` and coarse tail."""
     ops, final_locs = schedule(
         params.num_levels, Mode(params.mode), params.pre_smoothing,
         params.post_smoothing,
     )
-    return mark_tail(ops, tail_level(params.level_dims())), final_locs
+    return ops, final_locs, tail_range(ops, tail_level(params.level_dims()))
 
 
 def _aux(lvl: GridLevel, params: GridParams):
@@ -197,7 +198,7 @@ def vcycle_fused_plain(
 ) -> torch.Tensor:
     """Plain version of :func:`vcycle_fused`: the schedule over the plain
     ops, on the same buffers, with the same hand-over."""
-    ops, final_locs = _schedule_for(params)
+    ops, final_locs, _ = _schedule_for(params)
     dims = params.level_dims()
     hs = [params.level_h(i) for i in range(len(levels))]
     bufs = [(lvl.v, lvl.r) for lvl in levels]
@@ -255,7 +256,6 @@ def vcycle_fused_plain(
             )
         elif kind == FINALIZE:
             kernels.finalize_plain(partials, sumsq)
-        # TAIL says only which blocks run the ops after it.
     _hand_over(levels, bufs, final_locs)
     return sumsq
 
@@ -284,20 +284,8 @@ def _table(params: GridParams) -> _LevelTable:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_table(
-    ops: Tuple[Op, ...], device: str
-) -> Tuple[torch.Tensor, int, int]:
-    """The kernel's form of a table: the ops without the TAIL marker, as
-    a device int32 ``(n, 4)`` tensor, and the coarse tail's range
-    ``[begin, end)`` in it (empty when there is no marker)."""
-    begin = end = 0
-    plain = []
-    for op in ops:
-        if op[0] == TAIL:
-            begin, end = len(plain), len(plain) + op[2]
-        else:
-            plain.append(op)
-    return torch.tensor(plain, dtype=torch.int32, device=device), begin, end
+def _ops_tensor(ops: Tuple[Op, ...], device: str) -> torch.Tensor:
+    return torch.tensor(ops, dtype=torch.int32, device=device)
 
 
 def grid_blocks(mode: Mode) -> int:
@@ -310,20 +298,24 @@ def grid_blocks(mode: Mode) -> int:
 
 
 def launch(
-    levels: Sequence[GridLevel], params: GridParams, ops: Sequence[Op]
+    levels: Sequence[GridLevel], params: GridParams, ops: torch.Tensor,
+    tail: Tuple[int, int] = (0, 0),
 ) -> torch.Tensor:
     """One launch of the cooperative kernel over the op table ``ops`` (a
-    tuple of :func:`schedule`'s ops, with or without a TAIL marker): the
-    cycle's own table, or a table of chosen ops (``chip_smoke.py`` times
-    one op kind at a time with it).  Returns the one-element float32 Σr²
-    the table's FINALIZE writes; hands no buffer over."""
+    CUDA int32 ``(n, 4)`` tensor of :func:`schedule`'s ops), whose ops
+    ``tail`` (``[begin, end)``) run on one block: the cycle's own table
+    and tail, or a table of chosen ops (``chip_smoke.py`` times one op
+    kind at a time with it).  Returns the one-element float32 Σr² the
+    table's FINALIZE writes; hands no buffer over."""
     dev = kernels._cuda_device(levels[0].v)
     dims = params.level_dims()
     if len(levels) != len(dims):
         raise ValueError(
             f"{len(levels)} levels given, the configuration has {len(dims)}"
         )
-    table, tail_begin, tail_end = _device_table(tuple(ops), str(dev))
+    kernels._check(ops, "ops", (ops.shape[0], 4), dev, torch.int32)
+    if not 0 <= tail[0] <= tail[1] <= ops.shape[0]:
+        raise ValueError(f"tail {tail} outside the table of {ops.shape[0]}")
     tab = _table(params.replace(maxiter=0, tol=0.0, print_progress=False))
     ptrs = (ctypes.c_longlong * (4 * tab.nlev))()
     spans = []
@@ -342,8 +334,9 @@ def launch(
         spans += [(a, a + 4 * t.numel(), f"level {i} {what}")
                   for a, (what, t) in zip(addr, named)]
         ptrs[4 * i: 4 * i + 4] = addr + [0] * (4 - len(addr))
-    # The kernel takes every field __restrict__ and reads level 0's f and
-    # NEWTON's ũ through the read-only cache: no two fields may overlap.
+    # The kernel reads level 0's f and NEWTON's ũ through the read-only
+    # cache, and each op's outputs are apart from its inputs: no two
+    # fields may overlap.
     spans.sort()
     for (_, end, what), (start, _, other) in zip(spans, spans[1:]):
         if start < end:
@@ -353,12 +346,16 @@ def launch(
         L.mg_residual_blocks(*dims[0]), dtype=torch.float64, device=dev
     )
     sumsq = torch.empty(1, dtype=torch.float32, device=dev)
+    # The transfers' tile counters, one per op (csrc/vcycle_fused.cu:
+    # for_tiles_dyn).
+    tile_ctr = torch.zeros(ops.shape[0], dtype=torch.int32, device=dev)
     t = kernels._taps(params.stencil)
     rc = L.mg_vcycle_fused(
-        table.data_ptr(), table.shape[0], tail_begin, tail_end,
+        ops.data_ptr(), ops.shape[0], tail[0], tail[1],
         int(params.mode), tab.nlev, ptrs,
         tab.dims, tab.scal, t.val, t.off, t.n, params.omega, params.gamma,
-        partials.data_ptr(), sumsq.data_ptr(), kernels._stream(dev),
+        partials.data_ptr(), tile_ctr.data_ptr(), sumsq.data_ptr(),
+        kernels._stream(dev),
     )
     kernels._check_rc(rc, NAME)
     kernels.launches[NAME] += 1
@@ -379,8 +376,9 @@ def vcycle_fused(
             f"the whole-cycle kernel runs V-cycles in the three modes, got "
             f"a {params.cycle_type}-cycle"
         )
-    ops, final_locs = _schedule_for(params)
+    ops, final_locs, tail = _schedule_for(params)
     bufs = [(lvl.v, lvl.r) for lvl in levels]
-    sumsq = launch(levels, params, ops)
+    sumsq = launch(levels, params, _ops_tensor(ops, str(levels[0].v.device)),
+                   tail)
     _hand_over(levels, bufs, final_locs)
     return sumsq

@@ -290,49 +290,70 @@ def test_tail_level_edges():
 @pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.name)
 @pytest.mark.parametrize("grid", [(15, 15, 15), (47, 47, 47)])
 def test_mark_tail(grid, mode):
-    """The marker stands before the restriction into the split level and
-    covers every op down to the coarsest and back up to the split level's
-    last post-sweep; the kernel's table drops it and keeps the range."""
+    """The coarse tail's range starts at the restriction into the split
+    level and covers every op down to the coarsest and back up to the
+    split level's last post-sweep; the cycle's table is the schedule as
+    it is."""
     _, pt = params_pair(grid, mode)
     ops, _ = vf.schedule(pt.num_levels, mode, 6, 6)
     split = vf.tail_level(pt.level_dims())
-    marked, _ = vf._schedule_for(pt)
-    q = [op[0] for op in marked].index(vf.TAIL)
-    _, lvl, n, _ = marked[q]
-    assert lvl == split and len(marked) == len(ops) + 1
-    run = marked[q + 1: q + 1 + n]
+    table, _, (begin, end) = vf._schedule_for(pt)
+    assert table == ops
+    assert (begin, end) == vf.tail_range(ops, split)
+    run = ops[begin:end]
     assert run[0][0] in (vf.RESTRICT, vf.RESTRICT_V)
     assert run[0][1] == split - 1
     assert run[-1][:2] == (vf.SMOOTH, split)
-    assert marked[q + 1 + n][:2] == (vf.PROLONG, split)
+    assert ops[end][:2] == (vf.PROLONG, split)
     assert min(op[1] for op in run) >= split - 1
-    table, begin, end = vf._device_table(marked, "cpu")
-    assert table.tolist() == [list(op) for op in ops]
-    assert (begin, end) == (q, q + n)
+    assert vf.tail_range(ops, None) == (0, 0)
 
 
-@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.name)
-def test_plain_v1_tail_at_odd_level_equals_batch_cycle(mode):
-    """47³ V(6,6), whose tail starts at 5³ (odd, not a multiple of 8):
-    two cycles of the plain v1 over the marked table and of the batch
-    engine, bit for bit (FAS coarse v as v − rest_v)."""
-    _, pt = params_pair((47, 47, 47), mode)
-    assert vf.tail_level(pt.level_dims()) == 3
+# Taps that are not the canonical 7-point order: the CUDA kernel runs
+# them through the body that indexes the level table (the norm included),
+# and chip_smoke.py holds it against this plain version with them.
+STENCILS = {
+    "reordered": tcfg.Stencil(
+        values=(6.2, -1.1, -0.9, -1.05, -0.97, -1.0, -1.13),
+        offsets=((0, 0, 0), (0, 0, -1), (0, 1, 0), (-1, 0, 0), (0, 0, 1),
+                 (1, 0, 0), (0, -1, 0)),
+    ),
+    "five": tcfg.Stencil(
+        values=(4.0, -1.0, -1.0, -1.0, -1.0),
+        offsets=((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0)),
+    ),
+}
+
+
+def _two_cycles_equal_batch(pt, seed):
+    """Two cycles of the plain v1 and of the batch engine from the same
+    seeded level-0 v (and ũ), bit for bit (FAS coarse v as v − rest_v)."""
+    dims = pt.grid_dim
     a = tgrid.build_grid(pt, device="cpu")
     b = tgrid.build_grid(pt, device="cpu")
-    rng = np.random.default_rng(5)
-    v0 = torch.from_numpy(rng.standard_normal((47,) * 3, np.float32) * 0.05)
+    rng = np.random.default_rng(seed)
+    v0 = torch.from_numpy(rng.standard_normal(dims, np.float32) * 0.05)
     for s in (a, b):
         s.levels[0].v[1:-1, 1:-1, 1:-1] = v0
-        if mode == Mode.NEWTON:
+        if pt.mode == Mode.NEWTON:
             s.levels[0].newton_v[1:-1, 1:-1, 1:-1] = v0 * 4
     for _ in range(2):
         got = vf.vcycle_fused_plain(a.levels, pt)
         want = vcycle_batch.run(b, pt, maxk=1)
         assert float(got[0]) == float(want[0])
         for i, (la, lb) in enumerate(zip(a.levels, b.levels)):
-            va = la.v - la.rest_v if mode == Mode.NONLINEAR and i else la.v
+            va = la.v - la.rest_v if pt.mode == Mode.NONLINEAR and i else la.v
             assert torch.equal(va, lb.v) and torch.equal(la.f, lb.f)
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.name)
+def test_plain_v1_tail_at_odd_level_equals_batch_cycle(mode):
+    """47³ V(6,6), whose tail starts at 5³ (odd, not a multiple of 8):
+    two cycles of the plain v1 and of the batch engine, bit for bit (FAS
+    coarse v as v − rest_v)."""
+    _, pt = params_pair((47, 47, 47), mode)
+    assert vf.tail_level(pt.level_dims()) == 3
+    _two_cycles_equal_batch(pt, 5)
 
 
 def test_plain_v1_tail_at_odd_level_matches_jax_vcycle():
@@ -352,3 +373,14 @@ def test_plain_v1_tail_at_odd_level_matches_jax_vcycle():
     np.testing.assert_allclose(
         tstate.levels[0].v.numpy(), want_v, rtol=2e-4, atol=2e-5 * scale
     )
+
+
+@pytest.mark.parametrize("mode", list(Mode), ids=lambda m: m.name)
+@pytest.mark.parametrize("taps", list(STENCILS))
+@pytest.mark.parametrize("dims", [(15, 15, 15), (33, 17, 9)])
+def test_plain_v1_other_taps_equals_batch_cycle(dims, taps, mode):
+    """The taps reordered, and five taps, at the shapes chip_smoke.py runs
+    them: two cycles of the plain v1 and of the batch engine, bit for
+    bit."""
+    _, pt = params_pair(dims, mode)
+    _two_cycles_equal_batch(pt.replace(stencil=STENCILS[taps]), 11)
