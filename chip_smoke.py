@@ -74,9 +74,12 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
   2. its four shard-local kernels (ops/spmd_kernels.py), in each mode,
      against their plain versions at the 511³ level-0 block (640³, the
      box 511³) and at small odd blocks whose boxes touch every face (same
-     tolerances); then a 127³ field cut into the 4 blocks of a (2,2,1)
-     plan, each run with faces carved from its neighbours and put back
-     together, against the single-device kernels on the whole field.  The
+     tolerances), residual_restrict_block also with the taps reordered
+     and with five taps; then a 127³ field cut into the 4 blocks of a
+     (2,2,1) plan, each run with faces carved from its neighbours
+     (residual_restrict_block against its plain version on each block)
+     and put back together, against the single-device kernels on the
+     whole field.  The
      trapezoid leg (ops/spmd_leg.py) against leg_block_plain, bit for bit,
      in every mode and variant (no consumer, norm, restriction with the
      FAS tau, from v = 0, corr-first) at the 511³ block and at the
@@ -104,7 +107,9 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
      instantiation beside the slab-free one; device ms per 511³ spmd
      cycle beside the batch engine's, a profiler split into the
      shard-local kernels, the replicated levels' kernels and the torch
-     glue (launches a cycle), the idle share and peak memory.
+     glue (launches a cycle), the idle share and peak memory, at V(3,3)
+     (the legs) and, LINEAR and FAS, at V(6,6) (the per-op kernels, the
+     down step residual_restrict_block).
 
 The pod engine (dist/pod.py, fuse="pod") on the (1,1,1) mesh:
   2. pod_down and pod_up (ops/pod.py, csrc/pod.cu: every leg of a
@@ -390,7 +395,8 @@ def kernel_bytes(name, dims, cdims=None, outputs=2):
 def print_ptxas(log):
     """One line per kernel instantiation: registers and spills.  The
     LINEAR per-op instantiations, the leg, the rdma kernel and every
-    instantiation of the v1 kernel must not spill."""
+    instantiation of the v1 kernel and of residual_restrict_kernel must
+    not spill."""
     name = None
     spills = {}
     for line in log.splitlines():
@@ -411,10 +417,16 @@ def print_ptxas(log):
     check(len(legs) == 36 and "rdma_kernel" in spills,
           f"ptxas reported {len(legs)} of 36 leg_kernel instantiations "
           f"and rdma_kernel {'rdma_kernel' in spills}")
+    # residual_restrict_kernel<mode, faces, ...>: every mode with and
+    # without the ghost faces.
+    rr = sorted(k for k in spills if k.startswith("residual_restrict_kernel<"))
+    rr_pairs = {tuple(re.findall(r"\d+", k)[:2]) for k in rr}
+    check(rr_pairs == {(str(m), str(f)) for m in range(3) for f in range(2)},
+          f"ptxas reported residual_restrict_kernel instantiations {rr}")
     for lin in ("residual_kernel<0>", "jacobi_kernel<0>", "finalize_kernel",
                 "subtract_kernel<0>", "subtract_kernel<1>", "rdma_kernel",
                 "vcycle_kernel<0>", "vcycle_kernel<1>", "vcycle_kernel<2>",
-                *legs):
+                *legs, *rr):
         line = spills.get(lin, "")
         check(not re.search(r"[1-9]\d* bytes spill", line),
               f"{lin} spills: {line}")
@@ -1261,17 +1273,29 @@ def trilinear_filter(scale):
 def time_cases(cases, rate, rows):
     """Each case's time (CUDA events over 20 back-to-back calls, the host's
     part of each call included), its device time (device_ms: the
-    profiler's over 20 calls), bound, plain time, and the library call's
-    event and device times."""
+    profiler's over 20 calls; a reading below the bound or above the
+    events is taken again, up to twice), bound, plain time, and the
+    library call's event and device times."""
     for name, (kern, plain, libcall, nbytes, flops, shape) in cases.items():
-        ms = cuda_ms(kern, reps=20)
-        dev_ms = device_ms(kern, reps=20)
-        plain_ms = cuda_ms(plain, reps=3)
-        library_ms = cuda_ms(libcall, reps=5) if libcall else None
-        library_dev_ms = device_ms(libcall, reps=5) if libcall else None
         t_bytes = nbytes / rate * 1e3
         t_ops = flops / F32_PEAK * 1e3
         bound_ms = max(t_bytes, t_ops)
+        ms = cuda_ms(kern, reps=20)
+        dev_ms = device_ms(kern, reps=20)
+        # The kernels of back-to-back calls on one stream take at least
+        # the bound and at most the events' span: a reading outside that
+        # lost or misdated events.  Taken again, twice; then not measured.
+        for retake in range(3):
+            if dev_ms is None or bound_ms <= dev_ms <= 1.01 * ms:
+                break
+            print(f"profiler: {name} device {dev_ms:.4f} ms outside "
+                  f"[bound {bound_ms:.4f}, events {ms:.4f}]"
+                  + ("; taking it again" if retake < 2 else
+                     "; not measured"))
+            dev_ms = device_ms(kern, reps=20) if retake < 2 else None
+        plain_ms = cuda_ms(plain, reps=3)
+        library_ms = cuda_ms(libcall, reps=5) if libcall else None
+        library_dev_ms = device_ms(libcall, reps=5) if libcall else None
         rows[name] = dict(
             ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
             library_ms=library_ms, library_device_ms=library_dev_ms,
@@ -1755,7 +1779,8 @@ def time_v1(base, rate, rows):
     host sync a cycle) with its profiler idle share; one op with its grid
     barrier (a 15³ V(6,6) cycle over its ops); the plain version's time.
     Fills rows["vcycle_fused"] from the V(6,6) LINEAR numbers, the main
-    path's configuration."""
+    path's configuration.  Returns the batch engine's V(6,6) ms a cycle by
+    mode."""
     import torch
 
     import gpusolve_tpu_torch as gt
@@ -1765,6 +1790,7 @@ def time_v1(base, rate, rows):
     from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
 
     k = 10
+    batch66 = {}
     for pre in (3, 6):
         for mode in Mode:
             p = base.replace(grid_dim=BIG, mode=mode, pre_smoothing=pre,
@@ -1774,6 +1800,8 @@ def time_v1(base, rate, rows):
                             reps=k)
             batch_ms = cuda_ms(
                 lambda: vcycle_batch.run(state, p, maxk=k), reps=1) / k
+            if pre == 6:
+                batch66[mode] = batch_ms
             b1, bb = v1_cycle_bytes(p), cycle_bytes(p)
             nops = len(vf.schedule(p.num_levels, mode, pre, pre)[0])
             launches = sum(launches_per_cycle(p).values())
@@ -1839,6 +1867,7 @@ def time_v1(base, rate, rows):
     print(f"barrier: a 15^3 V(6,6) v1 cycle takes {ms * 1e3:.1f} us for "
           f"{nops} ops -> {ms * 1e3 / (nops - 1):.2f} us per op and grid "
           f"barrier (grid {vf.grid_blocks(p.mode)} blocks)")
+    return batch66
 
 # ---------------------------------------------------------------------------
 # The distributed engine's shard-local kernels (ops/spmd_kernels.py)
@@ -1878,11 +1907,13 @@ def check_block_kernels(base, rec):
     CUDA tensors: at the (1,1,1)-mesh 511³ level-0 block (640³, the box
     511³), the largest shape the main path gives them, and at small odd
     blocks whose boxes touch every x and y face, so the ghost faces are
-    read.  Fields to rtol 1e-5 / atol 1e-5·max|plain|, Σr² to rel 1e-5."""
+    read; residual_restrict_block also with the taps reordered and with
+    five taps.  Fields to rtol 1e-5 / atol 1e-5·max|plain|, Σr² to rel
+    1e-5."""
     import numpy as np
     import torch
 
-    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.config import Mode, Stencil
     from gpusolve_tpu_torch.dist.spmd import SpmdPlan
     from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops import spmd_kernels as SK
@@ -1925,23 +1956,30 @@ def check_block_kernels(base, rec):
             check(torch.equal(pn, pk), f"{name} norm-only partials {tag}")
             if cbz is None:
                 continue
+            # The restriction with the canonical taps, then with the taps
+            # reordered and with five taps (the kernel's generic-tap body).
             name = K.variant("residual_restrict_block", mode)
             cs = (block[0] // 2, block[1], cbz)
-            outs_k = [torch.zeros(cs, device=DEVICE),
-                      torch.zeros(cs[1:], device=DEVICE),
-                      torch.zeros(cs, device=DEVICE)
-                      if mode == Mode.NONLINEAR else None]
-            outs_p = [None if t is None else t.clone() for t in outs_k]
-            SK.residual_restrict_block(*outs_k, v, f, faces, box, p, h, cnz,
-                                       nvm)
-            SK.residual_restrict_block_plain(*outs_p, v, f, faces, box, p,
-                                             h, cnz, nvm)
-            lines.append(rec.fields(
-                [t for t in outs_k if t is not None],
-                [t for t in outs_p if t is not None],
-                f"{name} {tag} (xzr, r_last_z{', xzv' if outs_k[2] is not None else ''})",
-                name,
-            ))
+            for st in (None, *OTHER_TAPS):
+                pt = p if st is None else p.replace(
+                    stencil=Stencil(*OTHER_TAPS[st]))
+                outs_k = [torch.zeros(cs, device=DEVICE),
+                          torch.zeros(cs[1:], device=DEVICE),
+                          torch.zeros(cs, device=DEVICE)
+                          if mode == Mode.NONLINEAR else None]
+                outs_p = [None if t is None else t.clone() for t in outs_k]
+                SK.residual_restrict_block(*outs_k, v, f, faces, box, pt, h,
+                                           cnz, nvm)
+                SK.residual_restrict_block_plain(*outs_p, v, f, faces, box,
+                                                 pt, h, cnz, nvm)
+                taps = "" if st is None else f" taps {st}"
+                lines.append(rec.fields(
+                    [t for t in outs_k if t is not None],
+                    [t for t in outs_p if t is not None],
+                    f"{name} {tag}{taps} (xzr, r_last_z"
+                    f"{', xzv' if outs_k[2] is not None else ''})",
+                    name,
+                ))
         rng = np.random.default_rng(600 + n)
         czp = cbz if cbz else block[2] // 2 + 1
         casm = torch.from_numpy(rng.standard_normal(
@@ -1964,7 +2002,8 @@ def check_ghosts(base, rec):
     neighbours, and the blocks put together again, against the
     single-device kernels on the whole field: sweep_block and
     residual_block against jacobi_sweep and residual, residual_restrict_block
-    with the engine's glue (lower-x fix-up, y restriction with the lower
+    on each block against its plain version with the same faces, and with
+    the engine's glue (lower-x fix-up, y restriction with the lower
     y neighbour's row, the coarse mask) against residual + restrict,
     prolong_add_block against prolong_add."""
     import itertools
@@ -2050,6 +2089,20 @@ def check_ghosts(base, rec):
                 xz[dx, dy], last[dx, dy], xv[dx, dy], v, f, fc, box, p, h,
                 cdims[2], nv,
             )
+            # The same block on the plain version: the face-reading
+            # instantiation bit for bit.
+            outs = [torch.zeros_like(xz[dx, dy]),
+                    torch.zeros_like(last[dx, dy]),
+                    None if xv[dx, dy] is None else
+                    torch.zeros_like(xv[dx, dy])]
+            SK.residual_restrict_block_plain(*outs, v, f, fc, box, p, h,
+                                             cdims[2], nv)
+            name = K.variant("residual_restrict_block", mode)
+            got_k = [t for t in (xz[dx, dy], last[dx, dy], xv[dx, dy])
+                     if t is not None]
+            print("check ghosts " + rec.fields(
+                got_k, [t for t in outs if t is not None],
+                f"{name} vs plain, carved block ({dx}, {dy}) {tag}", name))
         want = torch.zeros_like(vf_)
         K.jacobi_sweep(want, vf_, ff_, dims, p, h, newton_v=nvf)
         got = full(put(sw, plan.alloc[0], (bx, by)), dims)
@@ -3629,7 +3682,7 @@ def main() -> int:
     states.clear()
     torch.cuda.empty_cache()
     time_newton_steps(newt)
-    time_v1(base, rate, rows)
+    batch66 = time_v1(base, rate, rows)
     time_block_kernels(base, rate, rows)
     time_leg_kernels(base, rate, rows)
     time_pod_kernels(base, rate, rows)
@@ -3642,6 +3695,12 @@ def main() -> int:
                                   others=(("per-leg", leg_ms),))
         time_spmd_cycles(p, label, batch_ms, rate, fuse="pod", npod=3,
                          others=(("per-leg", leg_ms), ("pod npod=1", pod_ms)))
+    # V(6,6), past the legs' sweep cap: the per-leg engine's per-op path,
+    # whose down step is residual_restrict_block at every distributed
+    # level above the junction.
+    for p, what in ((lin, "LINEAR"), (fas, "FAS")):
+        time_spmd_cycles(p.replace(pre_smoothing=6, post_smoothing=6),
+                         f"511^3 {what} V(6,6)", batch66[p.mode], rate)
 
     # The one zero flag a device lends the launches given no done flag:
     # no kernel may have written it.

@@ -887,12 +887,7 @@ dim3 leg_args(const void* const* ptrs, const int* iv, const float* fv,
   a.gamma = fv[3];
   a.pre_fac = fv[4];
   a.inv_h2c = fv[5];
-  static const int kCanonTaps[3 * kMaxTaps] = {
-      0, 0, 0, 1, 0, 0, -1, 0, 0, 0, 1, 0, 0, -1, 0, 0, 0, 1, 0, 0, -1};
-  a.canon = ntaps == kMaxTaps;
-  for (int t = 0; t < 3 * ntaps; ++t) {
-    a.canon = a.canon && tap_off3[t] == kCanonTaps[t];
-  }
+  a.canon = canonical_taps(tap_off3, ntaps);
   for (int t = 0; t < kMaxTaps; ++t) {
     a.val[t] = t < ntaps ? tap_val[t] : 0.0f;
     a.ox[t] = t < ntaps ? tap_off3[3 * t] : 0;

@@ -103,6 +103,16 @@ inline Taps make_taps(const float* val, const int* off3, int ntaps,
   return t;
 }
 
+// Whether the stencil's (x, y, z) tap offsets are the examples' 7-point
+// order: centre, x + 1, x - 1, y + 1, y - 1, z + 1, z - 1.
+inline bool canonical_taps(const int* off3, int ntaps) {
+  static const int kCanon[3 * kMaxTaps] = {
+      0, 0, 0, 1, 0, 0, -1, 0, 0, 0, 1, 0, 0, -1, 0, 0, 0, 1, 0, 0, -1};
+  bool canon = ntaps == kMaxTaps;
+  for (int q = 0; q < 3 * ntaps && canon; ++q) canon = off3[q] == kCanon[q];
+  return canon;
+}
+
 struct LdNC {
   static __device__ __forceinline__ float tap(const float* p) {
     return __ldg(p);

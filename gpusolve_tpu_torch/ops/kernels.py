@@ -212,8 +212,9 @@ def _bind(path: Path):
             [p] * 9 + [i] * 9 + [p, p, i, f, f, i, i, p], i
         ),
         "mg_residual_restrict_block": (
-            [p] * 10 + [i] * 13 + [p, p, i, f, f, i, p], i
+            [p] * 10 + [i] * 14 + [p, p, i, f, f, i, p], i
         ),
+        "mg_residual_restrict_resident": ([i, p], i),
         "mg_prolong_add_block": ([p, p] + [i] * 11 + [p], i),
         "mg_leg_grid": ([p, p], i),
         "mg_leg_occupancy": ([p, p], i),

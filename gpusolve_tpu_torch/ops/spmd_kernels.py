@@ -29,6 +29,7 @@ does.  Each plain version rounds every value as its kernel does.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -352,13 +353,49 @@ def residual_block(
 # ---------------------------------------------------------------------------
 # residual_restrict_block — replaces
 # gpusolve_tpu/ops/pallas_spmd.py::_res_restrict_call (:628), in all three
-# modes.  Bound: bytes (reads v and f, NEWTON also ũ, FAS v again for its
-# own restriction; writes the ¼-size x/z-restricted residual, FAS also of
-# v: ~9 B per fine point, 10 with ũ, 11 in FAS).  Design: one thread per
-# (fine y, coarse z) walks 8 coarse x-planes, carrying the residual of the
-# shared odd plane in registers, so r never reaches device memory; the y
-# restriction stays glue (dist/spmd.py), as in the TPU engine.
+# modes.  Bound: bytes (reads v with its halo and f, NEWTON also ũ; writes
+# the ¼-size x/z-restricted residual, FAS also of v: ~9 B per fine point,
+# 13 with ũ, 10 in FAS).  Design: a block of 8 fine rows and 31 coarse z
+# columns streams v, f (and ũ) plane by plane along x through a
+# shared-memory ring (cp.async, two planes ahead), so v is read once from
+# device memory; each lane takes two consecutive fine z, each fine
+# residual is computed once, weighed along x in registers and along z in
+# the lane and its neighbour; FAS restricts v from the same ring.  r never
+# reaches device memory; the y restriction stays glue (dist/spmd.py), as
+# in the TPU engine.  A block walks ``restrict_chunk`` coarse planes.
 # ---------------------------------------------------------------------------
+
+# A block's fine rows and coarse z columns (kRRRows, kRRCz in
+# csrc/spmd_block.cu).
+RR_ROWS = 8
+RR_CZ = 31
+# The longest x walk: its first odd plane, which the chunk before computed
+# too, is then 1/64 of its residuals.
+RR_MAX_CHUNK = 32
+_resident = {}
+
+
+def restrict_chunk(box: Box, m0: int, m1: int, cnz: int,
+                   resident: int) -> int:
+    """Coarse x-planes a block of residual_restrict_block walks: the
+    longest (at most RR_MAX_CHUNK, at least 2) that still gives the grid
+    four blocks for each of the ``resident`` the card holds at once."""
+    tiles = -(-cnz // RR_CZ) * -(-box_dims(box)[1] // RR_ROWS)
+    planes = m1 - m0 + 1
+    return max(2, min(RR_MAX_CHUNK, planes * tiles // (4 * resident)))
+
+
+def _resident_blocks(dev: torch.device, mode: Mode) -> int:
+    """Blocks of the mode's residual_restrict_kernel the card holds at
+    once (the occupancy calculator's blocks an SM times the SMs)."""
+    key = (dev.index, int(mode))
+    if key not in _resident:
+        n = ctypes.c_int()
+        rc = kernels.lib().mg_residual_restrict_resident(
+            int(mode), ctypes.byref(n))
+        kernels._check_rc(rc, "mg_residual_restrict_resident")
+        _resident[key] = max(1, n.value)
+    return _resident[key]
 
 
 def residual_restrict_block(
@@ -400,11 +437,12 @@ def residual_restrict_block(
     if box_empty(box) or m0 > m1:
         return
     t = kernels._taps(params.stencil)
+    xc = restrict_chunk(box, m0, m1, cnz, _resident_blocks(dev, params.mode))
     rc = kernels.lib().mg_residual_restrict_block(
         xzr.data_ptr(), rlast.data_ptr(), _ptr(xzv) if fas else None,
         v.data_ptr(), f.data_ptr(), _ptr(nv),
         *(g.data_ptr() for g in faces), *_geometry(v, box), m0, m1, cnz,
-        cbz, t.val, t.off, t.n, 1.0 / (h * h), params.gamma,
+        cbz, xc, t.val, t.off, t.n, 1.0 / (h * h), params.gamma,
         int(params.mode), kernels._stream(dev),
     )
     name = kernels.variant("residual_restrict_block", params.mode)

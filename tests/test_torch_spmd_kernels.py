@@ -33,12 +33,26 @@ MODES = {"linear": (0, 0.0), "fas": (1, 1.0), "newton": (2, 1.0)}
 SHARDS = {"edge": (0, 0), "inner": (1, 1)}
 
 
-def _params(mode, gamma):
+# Stencils whose taps are not the canonical 7-point order, as (values,
+# offsets): the restriction kernel's generic-tap body on the card.
+OTHER_TAPS = {
+    "reordered": ((6.2, -1.1, -0.9, -1.05, -0.97, -1.0, -1.13),
+                  ((0, 0, 0), (0, 0, -1), (0, 1, 0), (-1, 0, 0), (0, 0, 1),
+                   (1, 0, 0), (0, -1, 0))),
+    "five": ((4.0, -1.0, -1.0, -1.0, -1.0),
+             ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0))),
+}
+
+
+def _params(mode, gamma, taps=None):
     kw = dict(maxiter=1, tol=1e-5, grid_dim=GRID, mode=mode,
               pre_smoothing=1, post_smoothing=1, omega=0.8, gamma=gamma,
               dtype="float32", print_progress=False)
-    return (JParams(stencil=JStencil.poisson_7pt(), **kw),
-            GridParams(stencil=Stencil.poisson_7pt(), **kw))
+    if taps is None:
+        return (JParams(stencil=JStencil.poisson_7pt(), **kw),
+                GridParams(stencil=Stencil.poisson_7pt(), **kw))
+    return (JParams(stencil=JStencil(*OTHER_TAPS[taps]), **kw),
+            GridParams(stencil=Stencil(*OTHER_TAPS[taps]), **kw))
 
 
 def _box(shard, dims=GRID, block=BLOCK):
@@ -130,10 +144,8 @@ def test_sweep_and_residual_block(mode, shard):
     assert torch.equal(parts, parts2)
 
 
-@pytest.mark.parametrize("shard", SHARDS, ids=list(SHARDS))
-@pytest.mark.parametrize("mode", MODES, ids=list(MODES))
-def test_residual_restrict_block(mode, shard):
-    jp, tp = _params(*MODES[mode])
+def _check_residual_restrict(mode, shard, taps=None):
+    jp, tp = _params(*MODES[mode], taps)
     x = Inputs(SHARDS[shard], seed=7 + _seed(mode, shard))
     jv, jf, jfaces, jb, jnv = x.jax()
     tv, tf, tfaces, tnv = x.torch()
@@ -149,12 +161,44 @@ def test_residual_restrict_block(mode, shard):
         g_xzr, g_rlast, g_xzv, tv, tf, tfaces, x.box, tp, H, cnz,
         newton_v=tnv if mode == "newton" else None,
     )
-    close(g_xzr, xzr, f"xzr {mode} {shard}")
-    close(g_rlast, rlast, f"r_last_z {mode} {shard}")
+    close(g_xzr, xzr, f"xzr {mode} {shard} {taps}")
+    close(g_rlast, rlast, f"r_last_z {mode} {shard} {taps}")
     if mode == "fas":
-        close(g_xzv, xzv, f"xzv {shard}")
+        close(g_xzv, xzv, f"xzv {shard} {taps}")
     else:
         assert xzv is None
+
+
+@pytest.mark.parametrize("shard", SHARDS, ids=list(SHARDS))
+@pytest.mark.parametrize("mode", MODES, ids=list(MODES))
+def test_residual_restrict_block(mode, shard):
+    _check_residual_restrict(mode, shard)
+
+
+# Other tap orders, on the shard that reads both lower ghost faces: the
+# reordered stencil in FAS (the v restriction too), five taps in NEWTON.
+@pytest.mark.parametrize("taps,mode", [("reordered", "fas"),
+                                       ("five", "newton")])
+def test_residual_restrict_block_taps(taps, mode):
+    _check_residual_restrict(mode, "inner", taps)
+
+
+@pytest.mark.parametrize("box,m0,m1,cnz,resident,want", [
+    # The 511³ level-0 box of the one-rank plan: the longest walk.
+    ((0, 510, 0, 510, 1, 511), 0, 255, 255, 792, 32),
+    # Its level 1 (255³): six planes a block, 3520 blocks.
+    ((0, 254, 0, 254, 1, 255), 0, 127, 127, 792, 6),
+    # Level 2 and below: two planes, the shortest walk.
+    ((0, 126, 0, 126, 1, 127), 0, 63, 63, 792, 2),
+    ((0, 6, 0, 6, 1, 7), 0, 3, 3, 1, 2),
+])
+def test_restrict_chunk(box, m0, m1, cnz, resident, want):
+    xc = sk.restrict_chunk(box, m0, m1, cnz, resident)
+    assert xc == want
+    tiles = -(-cnz // sk.RR_CZ) * -(-(box[3] - box[2] + 1) // sk.RR_ROWS)
+    blocks = tiles * -(-(m1 - m0 + 1) // xc)
+    # Four blocks a resident slot wherever the walk could be shortened.
+    assert xc == 2 or blocks >= 4 * resident
 
 
 @pytest.mark.parametrize("shard", SHARDS, ids=list(SHARDS))
