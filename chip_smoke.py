@@ -130,6 +130,29 @@ The pod engine (dist/pod.py, fuse="pod") on the (1,1,1) mesh:
      (pod chains, tail kernels, torch glue and its launches a cycle), the
      idle share and peak memory.
 
+The per-leg engine's replicated tail (dist/spmd.py, tail="auto", its
+default on the card; the per-leg lines above run the classic plan,
+tail="off"):
+  2. the junction legs through the engine's own code (the down leg into
+     the tail root, FAS with R(v) and the tau fold, and the up leg from
+     it, FAS after the subtract kernel in place, with the norm) against
+     an engine on the plain versions, bit for bit, every mode, at 15³,
+     (33,17,9) and 511³ (the 514³ block into the 257³ root, in place);
+  3. solve_spmd / newton_solve_spmd at 511³ V(3,3): the depth (1), the
+     blocks, the fused levels, launch counts equal to launches_per_cycle's
+     schedule (the junction legs, one batch-engine cycle of the tail a
+     visit, the finalize), no per-op down-leg glue, the same history on
+     the plain ops on the card, the classic plan's, the batch engine's and
+     the pod engine's within rel 2e-4 above 1e-2·initial;
+  4. a checkpoint round trip through the tail plan at 63³ in every mode
+     (save_state_spmd, load_state_spmd: the resumed history bit for bit),
+     --mesh 1,1,1 --fuse leg --save-state / --load-state on the CLI, and
+     --mesh 1,1,1 --refine;
+  5. device ms per 511³ LINEAR and FAS cycle beside the classic plan and
+     the pod engine in the same call, the profiler split into the
+     junction legs, the tail's kernels and the torch glue, the idle share
+     and peak memory.
+
 The rdma exchange (ops/rdma.py, csrc/rdma_exchange.cu; halo="rdma" on
 the per-leg engine):
   2. (a) rdma_exchange on the one-rank mesh against its plain version, bit
@@ -2435,17 +2458,17 @@ POD_CASES = ((BIG, (1, 3)), ((15, 15, 15), (1, 2)), ((33, 17, 9), (1, 2)))
 
 
 def seeded_pod_state(eng, seed):
-    """A pod engine state on the card with seeded v (0.05), f (100), ũ
-    (0.3) and rest_v (0.05) on levels 0..npod, zero outside each box
-    (normal numbers drawn on the card from a generator seeded with
-    ``seed``)."""
+    """A pod (or per-leg) engine state on the card with seeded v (0.05), f
+    (100), ũ (0.3) and rest_v (0.05) on levels 0..nd (the pod levels and
+    the boundary block), zero outside each box (normal numbers drawn on
+    the card from a generator seeded with ``seed``)."""
     import torch
 
     from gpusolve_tpu_torch.ops import spmd_kernels as SK
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     state = eng.init_state()
-    for l in range(eng.npod + 1):
+    for l in range(eng.nd + 1):
         lvl, box = state.levels[l], eng.boxes[l]
         for name, scale in (("v", 0.05), ("f", 100.0), ("newton_v", 0.3),
                             ("rest_v", 0.05)):
@@ -2573,7 +2596,9 @@ def counting_spmd_inner():
 
 
 def run_spmd(params, check_every, local_backend="auto", fuse="leg",
-             halo="ppermute"):
+             halo="ppermute", tail="off"):
+    """One distributed solve on make_mesh((1,1,1)); the per-leg engine in
+    the classic plan unless ``tail`` says otherwise."""
     import torch
 
     import gpusolve_tpu_torch as gt
@@ -2583,12 +2608,13 @@ def run_spmd(params, check_every, local_backend="auto", fuse="leg",
     t0 = time.perf_counter()
     if params.mode == gt.Mode.NEWTON:
         state, hist, plan = gt.newton_solve_spmd(
-            params, mesh, local_backend=local_backend, fuse=fuse, halo=halo)
+            params, mesh, local_backend=local_backend, fuse=fuse, halo=halo,
+            tail=tail)
     else:
         state, hist, plan = gt.solve_spmd(params, mesh,
                                           local_backend=local_backend,
                                           check_every=check_every, fuse=fuse,
-                                          halo=halo)
+                                          halo=halo, tail=tail)
     torch.cuda.synchronize()
     return state, hist, plan, time.perf_counter() - t0
 
@@ -2792,7 +2818,7 @@ def pod_main_path(params, label, batch_hist, leg_hist, k=10):
           f"{ref_secs:.3f} s, {len(ref_hist) - 1} steps)")
     del state
     torch.cuda.empty_cache()
-    return counts
+    return counts, hist
 
 
 def pod_other_cycles(params127, label):
@@ -2815,9 +2841,249 @@ def pod_other_cycles(params127, label):
               f"identical to the plain ops, launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# The per-leg engine's replicated tail (dist/spmd.py, tail="auto")
+# ---------------------------------------------------------------------------
+
+JUNCTION_SHAPES = ((15, 15, 15), (33, 17, 9), BIG)
+
+
+def check_junction_legs(base, rec):
+    """The replicated tail's junction legs on the one-rank mesh against
+    their plain versions, bit for bit, in every mode, through the engine's
+    own junction code (``_down`` / ``_up`` of a tail="pv2" engine on the
+    CUDA kernels beside one on the plain versions, over the same plan and
+    the same seeded state): the down leg restricting straight into the
+    tail root (its f; FAS also its v and rest_v, with the tau fold) and the
+    up leg prolonging from it (FAS after the subtract kernel in place),
+    with the cycle's norm; at 15³, (33, 17, 9) and 511³ (the 514³ block
+    into the 257³ root, in place)."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import spmd as tsp
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    mesh = gt.make_mesh((1, 1, 1))
+    for n, dims in enumerate(JUNCTION_SHAPES):
+        lines = []
+        for mode in Mode:
+            p = base.replace(mode=mode, grid_dim=dims, print_progress=False)
+            eng = tsp.build_spmd_solver(p, mesh, tail="pv2")
+            plan = eng.plan
+            nd = plan.n_dist
+            check(plan.tail_pv2 is not None
+                  and nd - 1 in plan.fused_down_levels
+                  and nd in plan.fused_up_levels,
+                  f"junction {dims}: the tail plan's junction legs are "
+                  f"refused ({plan.fused_down_levels}, "
+                  f"{plan.fused_up_levels})")
+            plain = tsp.SpmdEngine(p, mesh, plan=plan, tail="pv2")
+            plain.plain_reason = "the plain check"
+            name = K.variant("leg_block", mode)
+            tag = (f"{'x'.join(map(str, dims))} depth {nd}: block "
+                   f"{plan.shape(nd - 1)} -> root {plan.tail_pv2} (in place "
+                   f"{plan.tail_in_place})")
+            seeded = seeded_pod_state(eng, 900 + n)
+            states = {}
+            for how, e in (("kernel", eng), ("plain", plain)):
+                st = clone_state(seeded)
+                levels = list(st.levels)
+                e._down(nd - 1, levels, fresh=False)
+                root = levels[nd]
+                down = [levels[nd - 1].v, root.f] + (
+                    [root.v, root.rest_v] if mode == Mode.NONLINEAR else [])
+                down = [t.clone() for t in down]
+                # The up leg from a seeded root (FAS: v − rest_v first).
+                gen = torch.Generator(device=DEVICE).manual_seed(950 + n)
+                root.v.copy_(0.05 * torch.randn(root.v.shape, generator=gen,
+                                                device=DEVICE))
+                part = e._up(nd, levels)
+                ss = root.v.new_empty(1)
+                (K.finalize if how == "kernel" else K.finalize_plain)(
+                    part, ss)
+                states[how] = (down, [levels[nd - 1].v, root.v], float(ss))
+            (dk, uk, sk_), (dp, up_, sp) = states["kernel"], states["plain"]
+            lines.append(rec.fields(dk, dp, f"{name} junction down {tag}",
+                                    name))
+            lines.append(rec.fields(uk, up_, f"{name} junction up {tag}",
+                                    name))
+            check(rec.same[name], f"{name} junction legs {tag}: not "
+                  "bit-identical to their plain versions")
+            lines.append(rec.scalar(sk_, sp, f"{name} junction up sum r^2 "
+                                    f"{tag}", name + "_norm"))
+            del eng, plain, seeded, states
+            torch.cuda.empty_cache()
+        for line in lines:
+            print(f"check {line}")
+
+
+def tail_main_path(params, label, batch_hist, leg_hist, pod_hist, k=10):
+    """solve_spmd (Newton: newton_solve_spmd) with tail="auto" (the per-leg
+    engine's default on the card) on make_mesh((1,1,1)): the replicated
+    tail at _choose_tail_nd's depth (1 at 511³: the 514³ level-0 block
+    whose junction legs write and read the 257³ root in place), launch
+    counts equal to launches_per_cycle's schedule, no per-op down-leg
+    glue; the same history on the plain ops on the card (tail="pv2"); the
+    classic plan's, the batch engine's and the pod engine's histories
+    within rel 2e-4 above 1e-2·initial."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import spmd as tsp
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    with counting_spmd_inner() as inner_cycles, counting_glue() as glue:
+        state, hist, plan, secs = run_spmd(params, k, tail="auto")
+    counts = nonzero(K.launches)
+    nd = plan.n_dist
+    classic = tsp.SpmdPlan(params, (1, 1, 1))
+    print(f"tail path {label}: mesh (1,1,1), tail depth {nd} (the classic "
+          f"plan distributes {classic.n_dist}), blocks "
+          f"{[plan.shape(l) for l in range(nd + 1)]}, root {plan.tail_pv2} "
+          f"in place {plan.tail_in_place}, fused-down "
+          f"{plan.fused_down_levels}, fused-up {plan.fused_up_levels}, "
+          f"{len(hist) - 1} steps in {secs:.3f} s wall, history {hist}")
+    if inner_cycles:
+        print(f"tail path {label}: inner cycles per step {inner_cycles}")
+    per = tsp.launches_per_cycle(plan)
+    print(f"tail path {label}: launches_per_cycle {per}")
+    print(f"tail path {label} launches: {counts}")
+    check(plan.tail_pv2 is not None and nd == 1 and plan.tail_in_place,
+          f"tail {label}: depth {nd}, root {plan.tail_pv2}, in place "
+          f"{plan.tail_in_place}")
+    check(plan.fused_down_levels == (0,) and plan.fused_up_levels == (1,),
+          f"tail {label}: fused levels {plan.fused_down_levels} / "
+          f"{plan.fused_up_levels}")
+    check(glue["n"] == 0,
+          f"tail {label}: the per-op down-leg glue ran {glue['n']} times")
+    want = spmd_expected(plan, hist, inner_cycles)
+    check(counts == want,
+          f"tail {label}: launch counts {counts} != schedule {want}")
+    print(f"tail path {label}: launches equal the schedule "
+          f"(launches_per_cycle x cycles + the norms), per-op down-leg glue "
+          f"calls {glue['n']}")
+    for what, other in (("the classic plan", leg_hist),
+                        ("the batch engine", batch_hist),
+                        ("the pod engine", pod_hist)):
+        worst = histories_agree(hist[:len(other)], other,
+                                f"tail {label} vs {what}", floor=1e-2)
+        print(f"tail {label} vs {what}: worst rel diff {worst:.3e} "
+              f"(identical: {hist == other})")
+    newton = params.mode == Mode.NEWTON
+    K.reset_launches()
+    plain = params.replace(backend="ref",
+                           maxiter=NEWTON_PLAIN_STEPS if newton
+                           else params.maxiter)
+    _, ref_hist, ref_plan, ref_secs = run_spmd(plain, k, tail="pv2")
+    check(all(n == 0 for n in K.launches.values())
+          and ref_plan.n_dist == nd,
+          "the plain tail path launched a kernel or took another depth")
+    mine = hist[:len(ref_hist)]
+    check(mine == ref_hist,
+          f"tail {label}: kernels {mine} != plain ops {ref_hist}")
+    print(f"tail kernels vs plain {label}: identical (plain run "
+          f"{ref_secs:.3f} s, {len(ref_hist) - 1} steps)")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tail_checkpoint(tmp):
+    """A checkpoint round trip through the tail plan on the card at 63³
+    (utils/checkpoint.save_state_spmd / load_state_spmd), each mode: k
+    steps, saved, loaded into a new engine, the rest, against the
+    uninterrupted run, bit for bit; the same through the CLI (--mesh 1,1,1
+    --fuse leg --save-state, then --load-state); and --refine with --mesh
+    1,1,1 to tol 1e-10 (the inner float32 solves on the tail plan)."""
+    import numpy as np
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist import spmd as tsp
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.utils import checkpoint as ck
+
+    mesh = gt.make_mesh((1, 1, 1))
+    for label in ("linear", "nonlinear", "newton"):
+        base = gt.parse_config(CONFS[label], grid_dim=(63, 63, 63),
+                               print_progress=False, tol=1e-12)
+        newton = base.mode == gt.Mode.NEWTON
+        total, head = (3, 1) if newton else (6, 3)
+
+        def run(p, **kw):
+            if newton:
+                return gt.newton_solve_spmd(p, mesh, **kw)
+            return gt.solve_spmd(p, mesh, **kw)
+
+        _, full, plan = run(base.replace(maxiter=total))
+        check(plan.tail_pv2 is not None,
+              f"checkpoint {label}: tail='auto' kept the classic plan")
+        p = base.replace(maxiter=head)
+        state, h1, plan = run(p)
+        path = os.path.join(tmp, f"tail_{label}.npz")
+        ck.save_state_spmd(path, state, plan, p, "spmd/leg", iteration=head,
+                           history=h1,
+                           newton_f=plan.newton_f if newton else None,
+                           mesh=mesh)
+        rest = base.replace(maxiter=total - head)
+        eng = tsp.build_spmd_solver(rest, mesh)
+        st, it, h0, nf = ck.load_state_spmd(path, rest, eng.plan, "spmd/leg",
+                                            mesh=mesh)
+        kw = {"newton_f": nf} if newton else {}
+        _, h2, _ = run(rest, state=st, plan=eng.plan,
+                       initial_residual=h0[0], **kw)
+        check(h0 + h2 == full, f"checkpoint {label}: {h0 + h2} != {full}")
+        print(f"tail checkpoint 63^3 {label}: depth {plan.n_dist}, {head} + "
+              f"{total - head} resumed steps give the {total}-step history "
+              f"exactly: {full}")
+
+    # The CLI: 4 cycles, then 6 resumed, against 10 straight.
+    paths = {n: os.path.join(tmp, f"cli_{n}.npz")
+             for n in ("head", "tail", "all")}
+    confs = {n: conf_with(tmp, CONFS["nonlinear"], f"tail_{n}.conf",
+                          maxiter=n, tol=1e-12) for n in (4, 6, 10)}
+    mesh_args = ["--mesh", "1,1,1", "--fuse", "leg", "--quiet"]
+    K.reset_launches()
+    rc_a, _, err_a = run_cli([confs[4], *mesh_args, "--explain-backend",
+                              "--save-state", paths["head"]])
+    rc_b, out_b, _ = run_cli([confs[6], *mesh_args, "--load-state",
+                              paths["head"], "--save-state", paths["tail"]])
+    rc_c, _, _ = run_cli([confs[10], *mesh_args, "--save-state",
+                          paths["all"]])
+    check(rc_a == rc_b == rc_c == 0, "cli --mesh checkpoint runs")
+    check("backend: replicated tail: ONE batch-engine cycle a visit from "
+          "level 1" in err_a, "cli --mesh: the replicated tail line")
+    check(f"Resumed from {paths['head']} (iteration 4)"
+          in out_b.splitlines(), "cli --mesh: the Resumed line")
+    with np.load(paths["tail"]) as t, np.load(paths["all"]) as a:
+        check(np.array_equal(t["__history__"], a["__history__"]),
+              f"cli --mesh: resumed history {t['__history__']} != "
+              f"{a['__history__']}")
+        hist = [float(x) for x in a["__history__"]]
+    print(f"cli --mesh 1,1,1 --fuse leg checkpoint (the tail plan): 4 + 6 "
+          f"resumed cycles give the 10-cycle history exactly: {hist}; "
+          f"launches {nonzero(K.launches)}")
+
+    conf = conf_with(tmp, CONFS["linear"], "tail_refine.conf", tol=1e-10)
+    K.reset_launches()
+    rc, out, err = run_cli([conf, "--mesh", "1,1,1", "--fuse", "leg",
+                            "--refine", "--explain-backend"])
+    check(rc == 0, f"cli --mesh --refine exited {rc}")
+    initial, res = progress(out.splitlines())
+    check(res[-1] <= initial * 1e-10,
+          f"cli --mesh --refine: {res[-1]} vs initial {initial}")
+    check(K.launches["leg_block"] > 0 and "replicated tail" in err,
+          "cli --mesh --refine: the inner solves ran no junction leg")
+    print(f"cli --mesh 1,1,1 --refine: {initial:.6g} -> {res[-1]:.6g} in "
+          f"{len(res)} outer steps ({res[-1] / initial:.3e} of the "
+          f"initial); launches {nonzero(K.launches)}")
+
+
 def spmd_cli():
     """--mesh 1,1,1 on the example configs, with --fuse leg (the per-leg
-    engine), as they are (--fuse auto, the pod engine) and with --halo
+    engine, in its replicated tail: tail="auto" on the card), as they are (--fuse auto, the pod engine) and with --halo
     rdma (--fuse auto -> leg, the reference's reason; the --fuse leg
     run's progress lines, residual for residual), and the not-ported
     engine."""
@@ -3193,15 +3459,17 @@ def glue_class(key):
 
 
 def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
-                     others=(), halo="ppermute"):
+                     others=(), halo="ppermute", tail="off"):
     """Device ms per distributed cycle at 511³ on the (1,1,1) mesh (CUDA
-    events over 10 cycles) on the per-leg (``fuse="leg"``, ``halo``) or the
-    pod engine (at its own depth, or ``npod``), beside the batch engine's from
-    the same call (and ``others``: (name, ms) of other engines in this
-    call); a profiler breakdown into the distributed levels' kernels (the
-    legs or the pod chains), the replicated levels' kernels and the torch
-    glue, with the glue's launches a cycle; the idle share; peak memory.
-    Returns the device ms a cycle."""
+    events over 10 cycles) on the per-leg (``fuse="leg"``, ``halo``,
+    ``tail``: the classic plan or the replicated tail) or the pod engine
+    (at its own depth, or ``npod``), beside the batch engine's from the
+    same call (and ``others``: (name, ms) of other engines in this call); a
+    profiler breakdown into the distributed levels' kernels (the legs, the
+    tail plan's junction legs, or the pod chains), the replicated levels'
+    kernels (the tail's) and the torch glue, with the glue's launches a
+    cycle; the idle share; peak memory.  Returns the device ms a
+    cycle."""
     import torch
 
     import gpusolve_tpu_torch as gt
@@ -3214,8 +3482,10 @@ def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
     torch.cuda.reset_peak_memory_stats()
     mesh = gt.make_mesh((1, 1, 1))
     eng = PodEngine(params, mesh, npod=npod) if npod else \
-        build_spmd_solver(params, mesh, fuse=fuse, halo=halo)
+        build_spmd_solver(params, mesh, fuse=fuse, halo=halo, tail=tail)
+    tail_plan = fuse == "leg" and eng.plan.tail_pv2 is not None
     what = f"pod npod={eng.npod}" if fuse == "pod" else \
+        f"spmd tail depth {eng.nd}" if tail_plan else \
         "spmd" if halo == "ppermute" else f"spmd halo={halo}"
     state = eng.init_state()
     sums = torch.empty(k, device=DEVICE)
@@ -3247,8 +3517,12 @@ def time_spmd_cycles(params, label, batch_ms, rate, fuse="leg", npod=None,
         wall_p = (time.perf_counter() - t0) * 1e3
     busy, any_rows = profile_rows(prof, k, f"{what}-cycle")
     parts, glue_n = {}, 0
+    tail_names = {"shard-local kernels": "junction legs",
+                  "replicated-level and norm kernels": "tail and norm "
+                  "kernels"} if tail_plan else {}
     for ev, us in device_events(prof):
         c = glue_class(ev.key)
+        c = tail_names.get(c, c)
         parts[c] = parts.get(c, 0.0) + us / 1e3 / k
         if c == "torch glue":
             glue_n += ev.count
@@ -3592,6 +3866,7 @@ def main() -> int:
     check_leg_kernels(base, rec)
     check_leg_ghosts(base, rec)
     check_pod_kernels(base, rec)
+    check_junction_legs(base, rec)
     rows = {}
     check_rdma_kernel(base, rec, rate, rows)
     rdma_ranks()
@@ -3646,14 +3921,23 @@ def main() -> int:
                                    hist66[label], legs=False)
         for kname, n in counts.items():
             launched[kname] += n
+    pod_hist = {}
     for label in ("linear", "nonlinear", "newton"):
         params = gt.parse_config(CONFS[label], grid_dim=BIG)
-        counts = pod_main_path(params, f"511^3 {label}", batch_hist[label],
-                               leg_hist[label])
+        counts, pod_hist[label] = pod_main_path(
+            params, f"511^3 {label}", batch_hist[label], leg_hist[label])
         for kname, n in counts.items():
             launched[kname] += n
         if label != "newton":
             pod_other_cycles(gt.parse_config(CONFS[label]), label)
+    # The per-leg engine's replicated tail (tail="auto", the JAX package's
+    # default plan on its accelerator).
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG)
+        counts = tail_main_path(params, f"511^3 {label}", batch_hist[label],
+                                leg_hist[label], pod_hist[label])
+        for kname, n in counts.items():
+            launched[kname] += n
     missing = [kname for kname, n in launched.items() if n == 0]
     check(not missing, f"kernels no main path launched: {missing}")
 
@@ -3664,6 +3948,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_flags(tmp)
     spmd_cli()
+    with tempfile.TemporaryDirectory() as tmp:
+        tail_checkpoint(tmp)
 
     # Phase 5: times.
     lin = gt.parse_config(CONFS["linear"], grid_dim=BIG,
@@ -3695,6 +3981,10 @@ def main() -> int:
                                   others=(("per-leg", leg_ms),))
         time_spmd_cycles(p, label, batch_ms, rate, fuse="pod", npod=3,
                          others=(("per-leg", leg_ms), ("pod npod=1", pod_ms)))
+        # The replicated tail beside the classic plan and the pod engine.
+        time_spmd_cycles(p, label, batch_ms, rate, tail="auto",
+                         others=(("per-leg classic plan", leg_ms),
+                                 ("pod npod=1", pod_ms)))
     # V(6,6), past the legs' sweep cap: the per-leg engine's per-op path,
     # whose down step is residual_restrict_block at every distributed
     # level above the junction.

@@ -55,9 +55,13 @@ Distributed (the spmd engine: dist/spmd.py per leg, dist/pod.py pod):
                              auto takes the pod engine where the
                              reference's CLI does (a depth passes its
                              gates), else leg, and says why: --halo rdma
-                             and a multi-rank CUDA mesh take leg
-With --mesh, --save-state, --load-state and --refine exit 1 (their
-distributed forms are not ported yet).
+                             and a multi-rank CUDA mesh take leg.  On the
+                             card --fuse leg runs the replicated tail
+                             (dist/spmd.py, tail="auto")
+With --mesh, --save-state and --load-state write and read the distributed
+engine's checkpoint (utils/checkpoint.save_state_spmd, keyed on the mesh,
+the engine and the plan), and --refine runs the inner float32 solves on
+the distributed engine (solver/refine.solve_refine_spmd).
 """
 
 from __future__ import annotations
@@ -68,14 +72,9 @@ import os
 import sys
 from typing import Optional
 
-# Distributed engines and options not ported yet, with --mesh.
-_MESH_NOT_PORTED = {
-    ("dist_engine", "gspmd"): "ROADMAP Queue 1 item 3(f), sharding.py",
-}
-_MESH_NOT_PORTED_FLAGS = {
-    "save_state": "save_state_spmd", "load_state": "load_state_spmd",
-    "refine": "solve_refine_spmd",
-}
+# The distributed engine not ported yet, with --mesh.
+_GSPMD_ITEM = "ROADMAP Queue 1 item 3(f), sharding.py"
+_MESH_NOT_PORTED = {("dist_engine", "gspmd"): _GSPMD_ITEM}
 
 
 # The reference announces the mode (gpusolve_tpu/cli.py:411-417).
@@ -271,12 +270,21 @@ def _spmd_notes(params, eng, args, _explain) -> None:
         f"dist-engine=spmd fuse={args.fuse} halo={args.halo} "
         f"({nd} distributed levels, {plan.nlev - nd} replicated){fold}",
     ]
+    in_place = ("in place on the boundary block" if plan.tail_in_place
+                else "gathered from the boundary blocks")
     if args.fuse == "pod":
         lines.append(
             f"pod depth {nd}: levels 0..{nd - 1} in one down launch and one "
             f"up launch (ops/pod, csrc/pod.cu), the tail from level {nd} "
-            + ("in place on the boundary block" if plan.tail_in_place
-               else "gathered from the boundary blocks")
+            + in_place
+        )
+    elif plan.tail_pv2 is not None:
+        # The reference's line (gpusolve_tpu/cli.py:187-191), for the
+        # batch engine.
+        lines.append(
+            f"replicated tail: ONE batch-engine cycle a visit from level {nd} "
+            f"(ops/vcycle_batch.run_tail; direct layout "
+            f"{tuple(plan.tail_pv2)}, {in_place})"
         )
     pre, post = params.pre_smoothing, params.post_smoothing
     for l in range(nd):
@@ -295,11 +303,12 @@ def _spmd_notes(params, eng, args, _explain) -> None:
             f"level {l}: {kind}" + (f" ({', '.join(tags)})" if tags else "")
             + (f"; {'; '.join(refused)}" if refused else "")
         )
+    tail = args.fuse == "pod" or plan.tail_pv2 is not None
     lines.append(
         f"levels {nd}..{plan.nlev - 1}: replicated on every rank, the "
         "single-device per-op ops (ops/dispatch"
-        + (", one batch a tail group: ops/vcycle_batch.run_tail)"
-           if args.fuse == "pod" else ")")
+        + (", one batch a tail visit: ops/vcycle_batch.run_tail)"
+           if tail else ")")
     )
     _explain(lines)
 
@@ -344,7 +353,8 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
     if why is not None:
         print(
             f"the spmd engine cannot run this configuration ({why}); the "
-            "gspmd engine is not ported to gpusolve_tpu_torch yet",
+            "gspmd engine is not ported to gpusolve_tpu_torch yet "
+            f"({_GSPMD_ITEM})",
             file=sys.stderr,
         )
         return 1
@@ -363,28 +373,82 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
                 mesh_shape,
                 device=None if multi and device.type == "cuda" else device,
             )
-            eng = build_spmd_solver(params, mesh, fuse=args.fuse,
-                                    halo=args.halo)
+            # --refine's inner solves are float32 LINEAR or NEWTON.
+            inner = params.replace(mode=Mode.LINEAR) \
+                if params.mode == Mode.LINEAR else params.replace(
+                    mode=Mode.NEWTON)
+            eng = build_spmd_solver(inner if args.refine else params, mesh,
+                                    fuse=args.fuse, halo=args.halo)
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
+        if args.refine:
+            _explain(["refine: float64 outer defect on the plain ops; inner "
+                      "float32 solves on the distributed engine:"])
         _spmd_notes(params, eng, args, _explain)
+        if args.refine:
+            from gpusolve_tpu_torch.solver.refine import solve_refine_spmd
+
+            with profile_cm:
+                u, _ = solve_refine_spmd(
+                    params, mesh, inner_tol=args.refine_inner_tol,
+                    halo=args.halo, fuse=args.fuse,
+                )
+            if args.profile:
+                print(f"Wrote profiler trace to {args.profile}")
+            _report(u.cpu().numpy(), params, args)
+            eng.close()
+            return _end(started)
+        engine_tag = f"spmd/{args.fuse}"
+        state, history0, initial_residual, newton_f0 = None, [], None, None
+        if args.load_state:
+            from gpusolve_tpu_torch.utils.checkpoint import load_state_spmd
+
+            if not os.path.isfile(args.load_state):
+                print(f"{args.load_state} does not exist or is not a file",
+                      file=sys.stderr)
+                return 1
+            try:
+                state, it0, history0, newton_f0 = load_state_spmd(
+                    args.load_state, params, eng.plan, engine_tag, mesh=mesh
+                )
+            except ValueError as e:
+                print(str(e), file=sys.stderr)
+                return 1
+            print(f"Resumed from {args.load_state} (iteration {it0})")
+            # The stop threshold keeps the original run's initial residual.
+            if history0:
+                initial_residual = history0[0]
         with profile_cm:
             if params.mode == Mode.NEWTON:
-                state, _, plan = newton_solve_spmd(
+                state, history, plan = newton_solve_spmd(
                     params, mesh, check_every=args.check_every,
                     halo=args.halo, fuse=args.fuse, plan=eng.plan,
+                    state=state, newton_f=newton_f0,
+                    initial_residual=initial_residual,
                 )
+                newton_f0 = plan.newton_f
                 which = 2
             else:
-                state, _, plan = solve_spmd(
-                    params, mesh, plan=eng.plan,
+                state, history, plan = solve_spmd(
+                    params, mesh, plan=eng.plan, state=state,
+                    initial_residual=initial_residual,
                     check_every=args.check_every, halo=args.halo,
                     fuse=args.fuse,
                 )
                 which = 0
         if args.profile:
             print(f"Wrote profiler trace to {args.profile}")
+        if args.save_state:
+            from gpusolve_tpu_torch.utils.checkpoint import save_state_spmd
+
+            combined = history0 + history
+            save_state_spmd(
+                args.save_state, state, plan, params, engine_tag,
+                iteration=len(combined) - 1, history=combined,
+                newton_f=newton_f0, mesh=mesh,
+            )
+            print(f"Saved state to {args.save_state}")
         if args.dump or args.validate:
             solution = gather_solution(state, plan, mesh, which=which)
             if args.dump:
@@ -398,13 +462,20 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
                 err = compare_analytic(solution, params.h)
                 print(f"max-abs error vs analytic solution: {err:.6g}")
         eng.close()
-        if started:
-            # No rank tears its connections down while a peer still reads.
-            dist.barrier()
-        return 0
+        return _end(started)
     finally:
         if started:
             dist.destroy_process_group()
+
+
+def _end(started: bool) -> int:
+    """A mesh run's end: no rank tears its connections down while a peer
+    still reads."""
+    if started:
+        import torch.distributed as dist
+
+        dist.barrier()
+    return 0
 
 
 def _report(solution, params, args) -> None:
@@ -437,12 +508,6 @@ def _mesh_shape(args):
             flag = "--" + name.replace("_", "-")
             return None, (f"{flag} {value} is not ported to "
                           f"gpusolve_tpu_torch yet ({item})")
-    for name, func in _MESH_NOT_PORTED_FLAGS.items():
-        if getattr(args, name):
-            flag = "--" + name.replace("_", "-")
-            return None, (f"{flag} with --mesh is not ported to "
-                          f"gpusolve_tpu_torch yet ({func}, ROADMAP Queue 1 "
-                          "item 3(a))")
     return shape, None
 
 

@@ -54,12 +54,11 @@ from gpusolve_tpu_torch.dist.spmd import (
     SpmdEngine,
     SpmdPlan,
     _restrict_local,
-    _window,
+    boundary_in_place,
 )
 from gpusolve_tpu_torch.ops import dispatch as ops
 from gpusolve_tpu_torch.ops import kernels
 from gpusolve_tpu_torch.ops import pod
-from gpusolve_tpu_torch.ops import spmd_kernels as sk
 from gpusolve_tpu_torch.ops import spmd_leg as sl
 from gpusolve_tpu_torch.ops import vcycle_batch
 
@@ -148,8 +147,9 @@ class PodPlan(SpmdPlan):
         self.alloc = [(mx * bx, my * by, bz) for (bx, by, bz) in self.block]
         self.alloc += [tuple(n + 2 for n in self.dims[l])
                        for l in range(npod, self.nlev)]
-        self.tail_in_place = (
-            mx * my == 1 and tuple(levels[npod][:3]) == self.alloc[npod]
+        self.tail_pv2 = None  # the per-leg engine's tail mode
+        self.tail_in_place = boundary_in_place(
+            self.mesh_shape, levels[npod][:3], self.dims[npod]
         )
         self.fused_down_levels = tuple(range(npod))
         self.fused_up_levels = tuple(range(1, npod + 1))
@@ -157,17 +157,6 @@ class PodPlan(SpmdPlan):
     def shape(self, l: int) -> Tuple[int, int, int]:
         """The per-rank block of level ``l <= npod``."""
         return tuple(self.levels[l][:3])
-
-    def box(self, l: int, coords) -> sk.Box:
-        """Inclusive local bounds of the globally interior cells of the
-        block at mesh ``coords`` on level ``l <= npod``."""
-        dc = self.data_coords(coords) + (0,)
-        out = []
-        for ax in range(3):
-            b = self.levels[l][ax]
-            start = dc[ax] * b
-            out += [max(0, 1 - start), min(b - 1, self.dims[l][ax] - start)]
-        return tuple(out)
 
     def down_refusal(self, l: int, S: int) -> Optional[str]:
         """Why level ``l``'s down leg cannot run in the down chain: the
@@ -302,34 +291,15 @@ class PodEngine(SpmdEngine):
         p = self.plan
         self.npod = npod
         self.groups = _linearize(self.params.cycle_type, npod)
-        dx, dy = self.ex.dc
-        self.boxes = [p.box(l, mesh.coords) for l in range(npod + 1)]
-        self.globs = [
-            (dx * p.levels[l][0], p.dims[l][0], dy * p.levels[l][1],
-             p.dims[l][1])
-            for l in range(npod + 1)
-        ]
         self.tail_params = {
             g[1]: self.params.replace(grid_dim=p.dims[npod], cycle_type=g[1])
             for g in self.groups if g[0] == "tail"
         }
         self.exchange = self.ex.slabs if mesh.size > 1 else None
         self._done = torch.zeros(1, dtype=torch.int32, device=self.device)
-        self._bnd = None  # the boundary block's buffers, where not in place
 
     def _chain(self, kernel, plain):
         return self._op(kernel, plain)
-
-    def _boundary(self):
-        """The boundary block's own buffers (f, v, rest_v), made on first
-        use: zero, so the cells no leg writes stay zero."""
-        if self._bnd is None:
-            shape = self.plan.shape(self.npod)
-            self._bnd = [
-                torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for _ in range(3 if self.fas else 1)
-            ]
-        return self._bnd
 
     # -- the three stages ----------------------------------------------------
 
@@ -342,9 +312,8 @@ class PodEngine(SpmdEngine):
         legs = []
         for l in range(a, npod):
             lvl, nxt = levels[l], levels[l + 1]
-            if l + 1 == npod and not self.plan.tail_in_place:
-                bnd = self._boundary()
-                cout = tuple(bnd) if fas else (bnd[0], None, None)
+            if l + 1 == npod:
+                cout = self._root_outputs(nxt)
             else:
                 cout = (nxt.f, nxt.v, nxt.rest_v) if fas else \
                     (nxt.f, None, None)
@@ -384,12 +353,7 @@ class PodEngine(SpmdEngine):
         )
         for l in range(a, npod):
             levels[l].v, levels[l].r = levels[l].r, levels[l].v
-        if not self.plan.tail_in_place:
-            root = levels[npod]
-            bnd = [self._to_repl(t) for t in self._boundary()]
-            root.f = bnd[0]
-            if self.fas:
-                root.v, root.rest_v = bnd[1], bnd[2]
+        self._gather_root(levels[npod])
 
     def _tail(self, kind: str, cnt: int, levels, fresh: bool) -> None:
         """``cnt`` cycles of the replicated tail; a fresh LINEAR or NEWTON
@@ -409,14 +373,9 @@ class PodEngine(SpmdEngine):
         if self.fas:
             ops.subtract_op(root.v, root.rest_v, self.plan.dims[npod], prm,
                             self._done)
-        coarse = root.v
-        if not self.plan.tail_in_place:
-            coarse = self._boundary()[0]
-            dx, dy = self.ex.dc
-            b = self.plan.shape(npod)
-            coarse.copy_(_window(root.v, (dx * b[0], dy * b[1], 0), b))
         partials = self._chain(pod.pod_up, pod.pod_up_plain)(
-            self.up_legs(a, levels, coarse), prm, prm.post_smoothing,
+            self.up_legs(a, levels, self._root_coarse(root)), prm,
+            prm.post_smoothing,
             self.exchange,
         )
         for l in range(a, npod):

@@ -1,8 +1,10 @@
 """Explicit-halo distributed multigrid engine, per-leg form, on
 ``torch.distributed``.
 
-The counterpart of ``gpusolve_tpu/dist/spmd.py`` with ``fuse="leg"`` and
-no replicated tail.  Each process owns one block of every distributed
+The counterpart of ``gpusolve_tpu/dist/spmd.py`` with ``fuse="leg"``, in
+both of its plans: the classic plan, which distributes every level down to
+the cutoff, and the replicated tail (``tail="auto"`` / ``"pv2"``, below).
+Each process owns one block of every distributed
 level; its neighbours' ghost faces and slabs arrive through
 ``dist.batch_isend_irecv`` (``halo="ppermute"``) or, for a leg's x slabs
 with ``halo="rdma"``, through peer writes into this rank's receive
@@ -45,6 +47,22 @@ rank they round as the kernels do.  A stencil with edge or corner taps
 always runs them, and neither kernels nor legs.  The gathers into the
 replicated levels and Newton's restriction of ũ are glue everywhere.
 
+The replicated tail (``_choose_tail_nd``, ``SpmdPlan(force_nd=...)``): a
+shallow distributed prefix of ``nd`` levels whose junction legs feed one
+batch-engine cycle (``ops/vcycle_batch.run_tail``) on the replicated
+levels ``nd..``, rooted at the tail root, a dense ``(n+2)³`` level.  The
+junction's down leg restricts straight into the root (FAS: R(v) into its
+v and rest_v, with the tau folded in the leg), its up leg prolongs from
+it (FAS: v − rest_v first, the ``subtract`` kernel in place).  On one rank
+the junction's halved block is the root itself (``tail_in_place``); on a
+larger mesh each rank's halved block is gathered into the root, and each
+rank's window of it is cut back out.  A fresh LINEAR or NEWTON tail visit
+starts from v = 0; a W or F cycle's second visit continues from the
+first's state.  ``tail="auto"`` engages it where the engine runs the CUDA
+kernels (float32 on a CUDA device, ``local_backend`` not "xla"), as the
+JAX package engages it wherever Pallas runs natively; ``tail="pv2"``
+forces it, on the plain ops too; ``tail="off"`` keeps the classic plan.
+
 On a ``(1, 1, 1)`` mesh no collective is called; a missing neighbour's
 ghosts are zeros, the Dirichlet boundary, as ``lax.ppermute`` leaves them.
 With ``halo="rdma"`` the legs' slabs are the exchange kernel's zero fill
@@ -59,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import List, Optional, Tuple
 
@@ -74,6 +93,8 @@ from gpusolve_tpu_torch.ops import dispatch as ops
 from gpusolve_tpu_torch.ops import kernels, rdma, ref
 from gpusolve_tpu_torch.ops import spmd_kernels as sk
 from gpusolve_tpu_torch.ops import spmd_leg as sl
+from gpusolve_tpu_torch.ops import vcycle_batch
+from gpusolve_tpu_torch.solver.vcycle import v2_unsupported_reason
 from gpusolve_tpu_torch.utils.timer import Timer
 
 _SUBCYCLES = {"V": ("V",), "W": ("W", "W"), "F": ("F", "V")}
@@ -86,14 +107,22 @@ def _round_up(n: int, m: int) -> int:
 class SpmdPlan:
     """Static decomposition plan: which levels are distributed, and the
     mesh-aware allocation and block shapes per level
-    (``gpusolve_tpu/dist/spmd.py:125-206``, without its tail mode).
+    (``gpusolve_tpu/dist/spmd.py:125-206``).
 
     ``device_mesh`` is the process mesh; ``mesh_shape`` the data
     decomposition ``(mx, my·mz, 1)`` (the z mesh axis folds into y);
-    ``names`` the mesh axes each data axis runs over."""
+    ``names`` the mesh axes each data axis runs over.
+
+    ``force_nd`` is the replicated tail's depth (``_choose_tail_nd``):
+    ``n_dist = min(force_nd, n_dist)``, the halving allocation at that
+    depth, and ``tail_pv2`` the tail root's layout, the dense ``(n+2)³`` of
+    level ``n_dist`` (None in the classic plan).  The boundary block
+    ``shape(n_dist)`` is the junction's halved block; ``tail_in_place``
+    whether it is the root itself (one rank, the same layout)."""
 
     def __init__(self, params: GridParams, mesh_shape, cutoff: int = 4,
-                 local_backend: str = "auto"):
+                 local_backend: str = "auto",
+                 force_nd: Optional[int] = None):
         self.params = params
         self.local_backend = local_backend
         self.device_mesh = tuple(mesh_shape)
@@ -123,6 +152,8 @@ class SpmdPlan:
             raise ValueError(
                 f"grid {dims[0]} too small for mesh {self.mesh_shape}"
             )
+        if force_nd is not None:
+            self.n_dist = min(force_nd, self.n_dist)
         # Mesh-aware allocation: A0 covers every distributed level shifted
         # up, rounded so each level halves exactly down to an even block
         # at the last distributed level.
@@ -137,7 +168,8 @@ class SpmdPlan:
         self.alloc: List[Tuple[int, int, int]] = [
             tuple(a >> l for a in a0) for l in range(self.n_dist)
         ]
-        # Replicated levels: the port's dense padded layout.
+        # Replicated levels (the tail root included): the port's dense
+        # padded layout.
         self.alloc += [tuple(n + 2 for n in dims[l])
                        for l in range(self.n_dist, nlev)]
         self.block = [
@@ -146,16 +178,28 @@ class SpmdPlan:
         ]
         self.dims = dims
         self.nlev = nlev
+        self.tail_pv2 = None if force_nd is None else self.alloc[self.n_dist]
+        self.tail_in_place = self.tail_pv2 is not None and boundary_in_place(
+            self.mesh_shape, self.shape(self.n_dist), dims[self.n_dist]
+        )
         # Which levels run the single-pass legs (``_trap_rr_ok`` /
-        # ``_trap_corr_ok``, gpusolve_tpu/dist/spmd.py:995-1004).
+        # ``_trap_corr_ok`` / ``_tail_up_ok``,
+        # gpusolve_tpu/dist/spmd.py:942-991).
         self.fused_down_levels: Tuple[int, ...] = tuple(
             l for l in range(self.n_dist)
             if self.down_refusal(l, params.pre_smoothing) is None
         )
         self.fused_up_levels: Tuple[int, ...] = tuple(
-            lc for lc in range(1, self.n_dist)
+            lc for lc in range(1, self.n_dist + 1)
             if self.up_refusal(lc, params.post_smoothing) is None
         )
+
+    def shape(self, l: int) -> Tuple[int, int, int]:
+        """The per-rank block of level ``l <= n_dist``; at ``n_dist`` the
+        boundary block, the junction's halved block."""
+        if l < self.n_dist:
+            return self.block[l]
+        return tuple(b // 2 for b in self.block[self.n_dist - 1])
 
     # The leg gates (``_trap_ok`` and its consumers' gates,
     # gpusolve_tpu/dist/spmd.py:816-991) in the port's layout: the
@@ -181,49 +225,57 @@ class SpmdPlan:
 
     def down_refusal(self, l: int, S: int) -> Optional[str]:
         """Why level ``l``'s down leg cannot run as one leg with the
-        restriction (``_trap_rr_ok``); the junction needs the replicated
-        tail (ROADMAP Queue 1 item 3(c))."""
-        if l + 1 >= self.n_dist:
-            return "the junction (its leg needs the replicated tail)"
+        restriction (``_trap_rr_ok``); the junction's leg restricts into
+        the tail root, so the classic plan runs its junction per op."""
+        if l + 1 >= self.n_dist and self.tail_pv2 is None:
+            return "the junction: the classic plan (tail='off') gathers it " \
+                   "per op"
         return self.leg_refusal(l, S)
 
     def up_refusal(self, lc: int, S: int) -> Optional[str]:
         """Why the up leg into level ``lc − 1`` cannot run as one leg with
-        the prolongation first (``_trap_corr_ok``)."""
-        if lc >= self.n_dist:
-            return "the junction (its leg needs the replicated tail)"
+        the prolongation first (``_trap_corr_ok``; at the junction
+        ``_tail_up_ok``, the boundary block as the coarse one)."""
+        if lc >= self.n_dist and self.tail_pv2 is None:
+            return "the junction: the classic plan (tail='off') prolongs " \
+                   "it per op"
         why = self.leg_refusal(lc - 1, S)
         if why is not None:
             return why
         if S > sl.MAX_CORR_SWEEPS:
             return f"{S} sweeps (the corr-first leg takes 1..4)"
         for ax, name in ((0, "x"), (1, "y")):
-            if self.mesh_shape[ax] > 1 and self.block[lc][ax] < sl.GC:
-                return (f"coarse block {self.block[lc]} is shorter than the "
-                        f"{sl.GC}-deep slab along {name}")
+            if self.mesh_shape[ax] > 1 and self.shape(lc)[ax] < sl.GC:
+                return (f"coarse block {self.shape(lc)} is shorter than "
+                        f"the {sl.GC}-deep slab along {name}")
         return None
 
     # The cycle's schedule, which the engine runs and launches_per_cycle
     # counts.
 
     def visits(self, kind: str, i: int = 0, fresh: bool = False):
-        """The ``kind`` cycle from level ``i``, visit by visit:
-        ``("down", l, fresh)``, ``("coarsest", l, fresh)`` and ``("up",
-        lc, False)``; ``fresh`` marks a first visit after the parent's
-        restriction (v is the zero it wrote)."""
-        if i == self.nlev - 1:
-            yield "coarsest", i, fresh
+        """The ``kind`` cycle from level ``i``, visit by visit, as ``(step,
+        l, fresh, kind)``: ``("down", l, ...)``, ``("coarsest", l, ...)``,
+        ``("up", lc, False, ...)`` and, with the replicated tail, ``("tail",
+        n_dist, fresh, kind)``: one ``kind`` cycle of the batch engine on
+        the levels from ``n_dist``.  ``fresh`` marks a first visit after the
+        parent's restriction (v is the zero it wrote)."""
+        if i == self.n_dist and self.tail_pv2 is not None:
+            yield "tail", i, fresh, kind
             return
-        yield "down", i, fresh
+        if i == self.nlev - 1:
+            yield "coarsest", i, fresh, kind
+            return
+        yield "down", i, fresh, kind
         for j, sub in enumerate(_SUBCYCLES[kind]):
             yield from self.visits(sub, i + 1, j == 0)
-        yield "up", i + 1, False
+        yield "up", i + 1, False, kind
 
     def down_form(self, l: int) -> str:
         """How level ``l``'s down leg runs: "leg" (one leg with the
-        restriction), "ops" (its smoothing, then the residual with the
-        restriction), "junction" (the same into the replicated level) or
-        "replicated"."""
+        restriction; at the junction into the tail root), "ops" (its
+        smoothing, then the residual with the restriction), "junction"
+        (the same into the replicated level) or "replicated"."""
         if l >= self.n_dist:
             return "replicated"
         if l in self.fused_down_levels:
@@ -254,14 +306,105 @@ class SpmdPlan:
 
     def box(self, l: int, coords) -> sk.Box:
         """Inclusive local bounds of the globally interior cells of the
-        block at mesh ``coords`` on distributed level ``l``."""
+        block at mesh ``coords`` on level ``l <= n_dist`` (``shape(l)``)."""
         dc = self.data_coords(coords) + (0,)
         out = []
         for ax in range(3):
-            b = self.block[l][ax]
+            b = self.shape(l)[ax]
             start = dc[ax] * b
             out += [max(0, 1 - start), min(b - 1, self.dims[l][ax] - start)]
         return tuple(out)
+
+
+def boundary_in_place(mesh_shape, boundary, root_dims) -> bool:
+    """Whether the tail runs in place on the boundary block (the per-leg
+    engine's junction halved block, the pod engine's level-``npod``
+    block): one rank, and the block has the root's ``(n+2)³`` layout.
+    Otherwise each rank's boundary block is a buffer of its own, gathered
+    into the root after the down legs and cut back out before the up
+    legs."""
+    return mesh_shape[0] * mesh_shape[1] == 1 and \
+        tuple(boundary) == tuple(n + 2 for n in root_dims)
+
+
+def _junction_kinds(cycle_type: str, depth: int):
+    """Cycle kinds that can reach level ``depth`` from a root schedule
+    (``gpusolve_tpu/dist/spmd.py:503``)."""
+    kinds = {cycle_type}
+    for _ in range(depth):
+        kinds = {k2 for k in kinds for k2 in _SUBCYCLES[k]}
+    return kinds
+
+
+def _choose_tail_nd(params: GridParams, dev_mesh_shape, cutoff: int,
+                    default_nd: int) -> Optional[int]:
+    """The replicated tail's depth for the per-leg engine
+    (``gpusolve_tpu/dist/spmd.py:513-574``): a shallow distributed prefix
+    feeding one batch-engine cycle on the replicated rest, the leg-engine
+    analogue of the pod engine's tail.
+
+    The depth of least streamed volume a rank, costed on the port's dense
+    volumes: twice each distributed block (a down and an up leg) and twice
+    each tail level's ``(n+2)³`` (the tail runs on every rank).  Depths
+    ``1..min(default_nd, nlev − 2)`` are tried; a depth is skipped where
+    the batch engine refuses a cycle kind that reaches the tail
+    (``solver/vcycle.v2_unsupported_reason``: V(6,6) keeps the classic
+    plan) or where the plan cannot distribute that deep.  None when no
+    depth is left.  The reference's lane-starvation bound (z < 127 is a
+    TPU lane rule) and its TPU tiling granularity are not ported.
+
+    At 511³, V(3,3), cutoff 4 (millions of cells by depth):
+
+      mesh      depth 1  depth 2  depth 3  chosen  classic plan
+      (1,1,1)    310.47   314.05   321.39     1        7
+      (2,1,1)    175.20   160.69   163.48     2        6
+      (4,1,1)    107.57    84.00    84.52     2        5
+      (2,2,1)    107.30    83.41    83.31     3        6
+
+    On one rank depth 1's 514³ block against depth 2's 516³ + 258³ decides;
+    on a split mesh the tail's 2·19.4 M cells, paid whole on every rank,
+    outweigh the deeper blocks' rounding; (2,2,1) is a near tie.  The JAX
+    package picks 1, 2, 2 and 2 (its costs count 128-lane z extents).
+    """
+    dims = params.level_dims()
+    nlev = len(dims)
+    best = None
+    for nd in range(1, min(default_nd, nlev - 2) + 1):
+        tail_p = params.replace(grid_dim=dims[nd])
+        if any(
+            v2_unsupported_reason(tail_p.replace(cycle_type=k)) is not None
+            for k in _junction_kinds(params.cycle_type, nd)
+        ):
+            continue
+        try:
+            trial = SpmdPlan(params, dev_mesh_shape, cutoff, force_nd=nd)
+        except ValueError:
+            continue
+        if trial.n_dist != nd:
+            continue
+        cost = 2 * sum(math.prod(b) for b in trial.block) + 2 * sum(
+            math.prod(n + 2 for n in dims[l]) for l in range(nd, nlev)
+        )
+        if best is None or cost < best[1]:
+            best = (nd, cost)
+    return best[0] if best else None
+
+
+def tail_depth(params: GridParams, mesh_shape, cutoff: int,
+               local_backend: str, tail: str, device) -> Optional[int]:
+    """The replicated tail's depth for this engine, or None for the
+    classic plan (``_build_spmd_solver``, gpusolve_tpu/dist/spmd.py:633-
+    660): float32 and ``local_backend`` not "xla"; ``tail="auto"`` also
+    needs the CUDA kernels (``ops.plain_reason`` None: a CUDA device, not
+    ``backend="ref"``), ``"pv2"`` forces it on the plain ops too; then
+    ``_choose_tail_nd``'s depth, if any."""
+    if tail == "off" or params.dtype != "float32" or local_backend == "xla":
+        return None
+    if tail == "auto" and \
+            ops.plain_reason(params, device, params.dtype) is not None:
+        return None
+    classic = SpmdPlan(params, mesh_shape, cutoff, local_backend)
+    return _choose_tail_nd(params, mesh_shape, cutoff, classic.n_dist)
 
 
 def spmd_eligible(params: GridParams, mesh_shape) -> Optional[str]:
@@ -509,15 +652,21 @@ class SpmdEngine:
 
     def __init__(self, params: GridParams, mesh: Mesh, cutoff: int = 4,
                  local_backend: str = "auto",
-                 plan: Optional[SpmdPlan] = None, halo: str = "ppermute"):
+                 plan: Optional[SpmdPlan] = None, halo: str = "ppermute",
+                 tail: str = "auto"):
         self.key = _cycle_key(params)
         self.local_backend = local_backend
         self.halo = halo
+        self.tail = tail
         self.mesh = mesh
         self.cutoff = cutoff
-        self.plan = plan if plan is not None else SpmdPlan(
-            params, mesh.shape, cutoff, local_backend
-        )
+        if plan is None:
+            plan = SpmdPlan(
+                params, mesh.shape, cutoff, local_backend,
+                force_nd=tail_depth(params, mesh.shape, cutoff,
+                                    local_backend, tail, mesh.device),
+            )
+        self.plan = plan
         # The x-slab exchange in one kernel (the JAX engine's use_rdma,
         # gpusolve_tpu/dist/spmd.py:854-855): x slabs only, so not under a
         # y split, where the two-stage exchange runs.
@@ -541,16 +690,23 @@ class SpmdEngine:
         p = self.plan
         self.nd, self.nlev = p.n_dist, p.nlev
         self.hs = [params.level_h(l) for l in range(self.nlev)]
-        self.boxes = [p.box(l, mesh.coords) for l in range(self.nd)]
+        # Levels 0..nd: the distributed blocks and the boundary block.
+        self.boxes = [p.box(l, mesh.coords) for l in range(self.nd + 1)]
         dx, dy = self.ex.dc
         self.globs = [
-            (dx * p.block[l][0], p.dims[l][0], dy * p.block[l][1],
+            (dx * p.shape(l)[0], p.dims[l][0], dy * p.shape(l)[1],
              p.dims[l][1])
-            for l in range(self.nd)
+            for l in range(self.nd + 1)
         ]
         self.fas = params.mode == Mode.NONLINEAR
         self.newton = params.mode == Mode.NEWTON
         self._xz = {}
+        self._bnd = None  # the boundary block's buffers, where not in place
+        # The replicated tail's batch-engine parameters per cycle kind.
+        self.tail_params = {
+            k: params.replace(grid_dim=p.dims[self.nd], cycle_type=k)
+            for k in _junction_kinds(params.cycle_type, self.nd)
+        } if p.tail_pv2 is not None else {}
 
     def _xz_buffers(self, l: int):
         """The per-op fused restriction's outputs on level ``l``, made on
@@ -567,6 +723,51 @@ class SpmdEngine:
             self._xz[l] = (z(bx // 2, by, cbz), z(by, cbz),
                            z(bx // 2, by, cbz) if self.fas else None)
         return self._xz[l]
+
+    # -- the boundary block (the tail's root) ------------------------------
+
+    def _boundary(self):
+        """The boundary block's own buffers (f, v, rest_v), made on first
+        use: zero, so the cells no leg writes stay zero."""
+        if self._bnd is None:
+            shape = self.plan.shape(self.nd)
+            self._bnd = [
+                torch.zeros(shape, dtype=self.dtype, device=self.device)
+                for _ in range(3 if self.fas else 1)
+            ]
+        return self._bnd
+
+    def _root_outputs(self, root: GridLevel) -> tuple:
+        """Where the junction's down leg writes (f; FAS also v, rest_v):
+        the tail root itself where the tail runs in place, else the
+        boundary buffers."""
+        if self.plan.tail_in_place:
+            return (root.f, root.v, root.rest_v) if self.fas else \
+                (root.f, None, None)
+        bnd = self._boundary()
+        return tuple(bnd) if self.fas else (bnd[0], None, None)
+
+    def _gather_root(self, root: GridLevel) -> None:
+        """Every rank's boundary outputs gathered into the tail root,
+        zero outside its interior; nothing where the tail is in place."""
+        if self.plan.tail_in_place:
+            return
+        bnd = [self._to_repl(t) for t in self._boundary()]
+        root.f = bnd[0]
+        if self.fas:
+            root.v, root.rest_v = bnd[1], bnd[2]
+
+    def _root_coarse(self, root: GridLevel) -> torch.Tensor:
+        """The junction's up leg's coarse block: the tail root's v (FAS:
+        v − rest_v already) where the tail is in place, else this rank's
+        window of it, in the boundary f buffer."""
+        if self.plan.tail_in_place:
+            return root.v
+        coarse = self._boundary()[0]
+        dx, dy = self.ex.dc
+        b = self.plan.shape(self.nd)
+        coarse.copy_(_window(root.v, (dx * b[0], dy * b[1], 0), b))
+        return coarse
 
     # -- op choice ---------------------------------------------------------
 
@@ -776,19 +977,29 @@ class SpmdEngine:
             return
         prm = self.params
         lvl, nxt = levels[l], levels[l + 1]
+        junction = l + 1 == self.nd
         if form == "leg":
             # Sweeps, residual, x/y/z restriction, coarse mask and FAS tau
             # in one leg; a fresh LINEAR/NEWTON visit starts from v = 0.
+            # The junction's leg writes the tail root (or the boundary
+            # buffers, then gathered into it).
+            if junction:
+                cout = self._root_outputs(nxt)
+            else:
+                cout = (nxt.f, nxt.v, nxt.rest_v) if self.fas else \
+                    (nxt.f, None, None)
             self._leg(
                 l, lvl, prm.pre_smoothing,
                 src_zero=l > 0 and fresh and not self.fas,
-                consumer="restrict",
-                cout=(nxt.f, nxt.v, nxt.rest_v) if self.fas
-                else (nxt.f, None, None),
+                consumer="restrict", cout=cout,
                 cbox=self.boxes[l + 1], cdims=self.plan.dims[l + 1],
                 tau_h=self.hs[l + 1] if self.fas else 0.0,
             )
-            if not self.fas and self.plan.down_form(l + 1) != "leg":
+            if junction:
+                # LINEAR/NEWTON leave the root's v to the tail's zero
+                # start.
+                self._gather_root(nxt)
+            elif not self.fas and self.plan.down_form(l + 1) != "leg":
                 nxt.v.zero_()  # a child leg from v = 0 reads no v
             return
         self._smooth(l, lvl, prm.pre_smoothing)
@@ -842,6 +1053,14 @@ class SpmdEngine:
         lvl, c = levels[lf], levels[lc]
         post = self.params.post_smoothing
         norm = "norm" if lf == 0 else None
+        if form == "leg" and lc == self.nd:
+            # The junction's up leg from the tail root; FAS first forms
+            # v − rest_v there, in place.
+            if self.fas:
+                ops.subtract_op(c.v, c.rest_v, self.plan.dims[lc],
+                                self.params)
+            return self._leg(lf, lvl, post, coarse=self._root_coarse(c),
+                             consumer=norm)
         if form == "leg":
             vc = c.v - c.rest_v if self.fas else c.v
             return self._leg(lf, lvl, post, coarse=vc, consumer=norm)
@@ -903,11 +1122,19 @@ class SpmdEngine:
         finest up leg where it ran one, else a norm pass."""
         levels, prm = list(state.levels), self.params
         partials = None
-        for step, l, fresh in self.plan.visits(prm.cycle_type):
+        for step, l, fresh, kind in self.plan.visits(prm.cycle_type):
             if step == "down":
                 self._down(l, levels, fresh)
             elif step == "up":
                 partials = self._up(l, levels)
+            elif step == "tail":
+                # One batch-engine cycle on the replicated levels; a fresh
+                # LINEAR/NEWTON visit starts from v = 0, a W/F second
+                # visit continues from the first's state.
+                vcycle_batch.run_tail(
+                    levels[l:], self.tail_params[kind], 1,
+                    zero_start=fresh and not self.fas,
+                )
             else:
                 self._smooth_repl(l, levels[l],
                                   prm.pre_smoothing + prm.post_smoothing)
@@ -980,15 +1207,17 @@ def _sqrt(x) -> float:
 def launches_per_cycle(plan: SpmdPlan) -> dict:
     """Kernel launches one cycle makes on the card, by kernel: the plan's
     visits in the forms the engine runs them.  A leg is one ``leg_block``
-    launch; a per-op smoothing its sweeps; a per-op down leg adds one fused
+    launch (the junction's up leg in FAS after a ``subtract``); a per-op
+    smoothing its sweeps; a per-op down leg adds one fused
     residual-restriction, the junction one residual (FAS: and
     ``apply_fas``); a per-op up leg one prolongation (at the FAS junction
     after a ``subtract``); a replicated level runs the single-device
-    engine's ops; the cycle ends with a norm-only residual unless the
-    finest up leg gave the norm, and a finalize.  With
-    ``plan.rdma_active`` each leg adds one ``rdma_exchange`` (the corr-first
-    leg two: its fields and its coarse block).  Counts the face-tap kernel
-    path (plain runs launch none)."""
+    engine's ops; a tail visit one cycle of the batch engine without its
+    norm (``vcycle_batch.launches_per_cycle``); the cycle ends with a
+    norm-only residual unless the finest up leg gave the norm, and a
+    finalize.  With ``plan.rdma_active`` each leg adds one
+    ``rdma_exchange`` (the corr-first leg two: its fields and its coarse
+    block).  Counts the face-tap kernel path (plain runs launch none)."""
     params = plan.params
     mode = params.mode
     pre, post = params.pre_smoothing, params.post_smoothing
@@ -1010,12 +1239,21 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
         else:
             add(v("sweep_block", mode), S)
 
-    for step, l, _ in plan.visits(params.cycle_type):
+    for step, l, _, kind in plan.visits(params.cycle_type):
         if step == "coarsest":
             add(v("jacobi_sweep", mode), pre + post)
             continue
+        if step == "tail":
+            tail = params.replace(grid_dim=plan.dims[l], cycle_type=kind)
+            for name, n in vcycle_batch.launches_per_cycle(
+                tail, norm=False
+            ).items():
+                add(name, n)
+            continue
         form = plan.down_form(l) if step == "down" else plan.up_form(l)
         if form == "leg":
+            if step == "up" and l == plan.n_dist and fas:
+                add("subtract")
             leg(corr=step == "up")
         elif step == "down" and form == "replicated":
             add(v("jacobi_sweep", mode), pre)
@@ -1049,16 +1287,10 @@ def launches_per_cycle(plan: SpmdPlan) -> dict:
     return {k: n for k, n in counts.items() if n}
 
 
-_NOT_PORTED = {
-    ("tail", "pv2"): "ROADMAP Queue 1 item 3(c)",
-}
-
-
 def _check_options(local_backend: str, halo: str, fuse: str,
                    tail: str) -> None:
     """The reference's ``ValueError`` for an unknown value
-    (gpusolve_tpu/dist/spmd.py:598-606), and one naming the ROADMAP item
-    for a value not ported yet."""
+    (gpusolve_tpu/dist/spmd.py:598-606)."""
     if fuse not in ("leg", "pod"):
         raise ValueError(f"fuse must be 'leg' or 'pod', got {fuse!r}")
     if halo not in ("ppermute", "rdma"):
@@ -1070,13 +1302,6 @@ def _check_options(local_backend: str, halo: str, fuse: str,
             f"local_backend must be one of {', '.join(LOCAL_BACKENDS)}, got "
             f"{local_backend!r}"
         )
-    for key, val in (("fuse", fuse), ("halo", halo), ("tail", tail)):
-        item = _NOT_PORTED.get((key, val))
-        if item is not None:
-            raise ValueError(
-                f"{key}={val!r} is not ported to gpusolve_tpu_torch yet "
-                f"({item})"
-            )
 
 
 def build_spmd_solver(params: GridParams, mesh: Mesh, cutoff: int = 4,
@@ -1085,23 +1310,26 @@ def build_spmd_solver(params: GridParams, mesh: Mesh, cutoff: int = 4,
     """The engine of this rank (``build_spmd_solver``,
     ``gpusolve_tpu/dist/spmd.py:577``): the per-leg engine, or with
     ``fuse="pod"`` the pod engine (``dist/pod.py``, which takes neither
-    ``local_backend`` nor ``halo``, as the reference's).
+    ``local_backend``, ``halo`` nor ``tail``, as the reference's).
     ``local_backend``: "auto" and "pallas" run the kernels and the legs
     where the gates allow, "xla" the per-op path on plain ops.
     ``halo``: "ppermute" (point-to-point messages) or "rdma" (the legs' x
     slabs through ``ops/rdma.py``'s peer writes; under a y split the
-    two-stage exchange runs and ``plan.rdma_active`` is False).  ``tail``
-    "auto" or "off" (no tail either way) are the forms ported."""
+    two-stage exchange runs and ``plan.rdma_active`` is False).
+    ``tail``: "auto" (the replicated tail where the CUDA kernels run),
+    "pv2" (the replicated tail, on the plain ops too) or "off" (the
+    classic plan); see ``tail_depth``."""
     _check_options(local_backend, halo, fuse, tail)
-    return _engine(params, mesh, cutoff, None, local_backend, fuse, halo)
+    return _engine(params, mesh, cutoff, None, local_backend, fuse, halo,
+                   tail)
 
 
 def _engine(params, mesh, cutoff, plan, local_backend,
-            fuse="leg", halo="ppermute") -> SpmdEngine:
+            fuse="leg", halo="ppermute", tail="auto") -> SpmdEngine:
     """The engine cached on ``plan`` when it was built for the same
-    cycle, mesh, cutoff, local backend, engine and halo, else a new one,
-    cached there.  A pod plan passed in gives the pod engine its depth;
-    the pod engine takes no halo."""
+    cycle, mesh, cutoff, local backend, engine, halo and tail, else a new
+    one, cached there.  A pod plan passed in gives the pod engine its
+    depth; the pod engine takes no halo and no tail."""
     from gpusolve_tpu_torch.dist.pod import PodEngine, PodPlan
 
     eng = getattr(plan, "_engine", None)
@@ -1110,14 +1338,15 @@ def _engine(params, mesh, cutoff, plan, local_backend,
         and eng.mesh == mesh and eng.cutoff == cutoff
         and eng.local_backend == local_backend
         and isinstance(eng, PodEngine) == (fuse == "pod")
-        and (fuse == "pod" or eng.halo == halo)
+        and (fuse == "pod" or (eng.halo, eng.tail) == (halo, tail))
     ):
         return eng
     if fuse == "pod":
         npod = plan.npod if isinstance(plan, PodPlan) else None
         eng = PodEngine(params, mesh, cutoff, local_backend, npod)
     else:
-        eng = SpmdEngine(params, mesh, cutoff, local_backend, halo=halo)
+        eng = SpmdEngine(params, mesh, cutoff, local_backend, halo=halo,
+                         tail=tail)
     eng.plan._engine = eng
     return eng
 
@@ -1141,9 +1370,11 @@ def solve_spmd(
     ``check_every=k`` runs k cycles per host sync and applies the stop test
     ``res <= initial / (1.0 / tol)`` between batches: the history records
     every cycle, and a solve may run up to k−1 cycles past the threshold,
-    as in the JAX package."""
+    as in the JAX package.  ``tail`` selects the plan
+    (``build_spmd_solver``)."""
     _check_options(local_backend, halo, fuse, tail)
-    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse, halo)
+    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse, halo,
+                  tail)
     plan = eng.plan
     if state is None:
         state = eng.init_state()
@@ -1182,23 +1413,28 @@ def solve_spmd(
     return state, history, plan
 
 
-def gather_solution(state: GridState, plan: SpmdPlan, mesh: Mesh,
-                    which: int = 0) -> np.ndarray:
+def gather_field(state: GridState, plan: SpmdPlan, mesh: Mesh,
+                 which: int = 0) -> torch.Tensor:
     """The finest level's field ``which`` (0 v, 1 f, 2 the mode's third
     field: FAS rest_v, Newton ũ) of the whole mesh, as the padded
-    ``(nx+2, ny+2, nz+2)`` numpy array, zero outside the interior; every
-    rank gets it."""
+    ``(nx+2, ny+2, nz+2)`` tensor on the mesh's device, zero outside the
+    interior; every rank gets it (collective)."""
     lvl = state.levels[0]
     third = lvl.newton_v if lvl.newton_v is not None else lvl.rest_v
     field = {0: lvl.v, 1: lvl.f, 2: third if third is not None else lvl.v}
     g = _Exchange(mesh, plan).assemble(field[which])
     nx, ny, nz = plan.dims[0]
-    out = np.zeros((nx + 2, ny + 2, nz + 2),
-                   dtype=str(g.dtype).removeprefix("torch."))
-    out[1:nx + 1, 1:ny + 1, 1:nz + 1] = (
-        g[1:nx + 1, 1:ny + 1, 1:nz + 1].cpu().numpy()
-    )
+    out = g.new_zeros((nx + 2, ny + 2, nz + 2))
+    s = (slice(1, nx + 1), slice(1, ny + 1), slice(1, nz + 1))
+    out[s] = g[s]
     return out
+
+
+def gather_solution(state: GridState, plan: SpmdPlan, mesh: Mesh,
+                    which: int = 0) -> np.ndarray:
+    """``gather_field`` as a numpy array (the dump and validate
+    surface)."""
+    return gather_field(state, plan, mesh, which).cpu().numpy()
 
 
 def newton_solve_spmd(
@@ -1224,13 +1460,17 @@ def newton_solve_spmd(
     holds F after each ``comp_f``), kept as ``plan.newton_f`` and
     ``state.newton_f``.  ``check_every`` batches the inner solve's cycles
     (``solve_spmd``).  ``plan``: a plan whose engine to reuse (a pod
-    plan: its depth), as ``solve_spmd`` takes one."""
+    plan: its depth), as ``solve_spmd`` takes one; ``tail`` selects the
+    plan (``build_spmd_solver``): ũ is restricted down the distributed
+    levels, into the tail root and down the tail, never to the
+    coarsest."""
     if params.mode != Mode.NEWTON:
         raise ValueError(
             f"newton_solve_spmd runs NEWTON mode, got {params.mode.name}"
         )
     _check_options(local_backend, halo, fuse, tail)
-    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse, halo)
+    eng = _engine(params, mesh, cutoff, plan, local_backend, fuse, halo,
+                  tail)
     plan = eng.plan
     if timer is None and params.print_progress:
         timer = Timer()
@@ -1262,7 +1502,7 @@ def newton_solve_spmd(
         eng.restrict_newton_v(state)
         solve_spmd(inner, mesh, cutoff, state=state, plan=plan,
                    initial_residual=fn, local_backend=local_backend,
-                   check_every=check_every, halo=halo, fuse=fuse)
+                   check_every=check_every, halo=halo, fuse=fuse, tail=tail)
         lvl0 = state.levels[0]
         lvl0.newton_v.add_(lvl0.v)
         res = eng.comp_f(state, timer)

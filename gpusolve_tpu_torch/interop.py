@@ -7,10 +7,13 @@ take the JAX fields as numpy arrays (``np.asarray`` of the JAX arrays; this
 module imports no JAX), crop them, and back.  ``spmd_state_from_numpy``
 and ``spmd_state_to_numpy`` do the same for the distributed engines'
 states: each distributed level's global array is cut into this rank's
-block.  ``pod_state_from_numpy`` and ``pod_state_to_numpy`` carry the
-pod engine's state (``dist/pod.py``) across by interior cells: the two
-packages lay the pod levels out differently, but each places a level's
-global cell i at index i of its global array.
+block; a tail plan's state (``SpmdPlan(force_nd=...)``, whose
+distributed allocation and tail root are laid out differently in the two
+packages) goes by interior cells.  ``pod_state_from_numpy`` and
+``pod_state_to_numpy`` carry the pod engine's state (``dist/pod.py``)
+across by interior cells: the two packages lay the pod levels out
+differently, but each places a level's global cell i at index i of its
+global array.
 """
 
 from __future__ import annotations
@@ -143,7 +146,28 @@ def spmd_state_from_numpy(
     per level ``v, f`` and the mode's third field (FAS rest_v, Newton ũ).
     A distributed level's global array (the plan's ``alloc``) is sliced
     into this rank's block; a replicated level is cropped from the JAX
-    allocation to ``(n+2)³``.  NEWTON takes the JAX ``plan.newton_f``."""
+    allocation to ``(n+2)³``.  A tail plan's state (JAX's ``tail="pv2"``:
+    its TPU-granular allocation and its root ``alloc0_j``, the gathered
+    halved blocks with a 128-lane z) goes by interior cells, as
+    ``pod_state_from_numpy``.  NEWTON takes the JAX ``plan.newton_f``."""
+    if plan.tail_pv2 is not None:
+        return pod_state_from_numpy(params, plan, arrays, mesh, newton_f)
+    return spmd_blocks_from_numpy(params, plan, arrays, mesh, newton_f)
+
+
+def spmd_blocks_from_numpy(
+    params: GridParams,
+    plan,
+    arrays: Sequence[np.ndarray],
+    mesh,
+    newton_f: Optional[np.ndarray] = None,
+) -> GridState:
+    """This rank's distributed state from global arrays in ``plan``'s own
+    allocation (flat per level ``v, f`` and the mode's third field): each
+    distributed level's array sliced into this rank's block, each
+    replicated level cropped to ``(n+2)³``; ``newton_f`` in level 0's
+    global allocation.  The layout a classic JAX plan shares with the
+    port, and the one the port's spmd checkpoints hold for any plan."""
     dtype = torch_dtype(params.dtype)
     names = ("v", "f") + ((_third(params),) if _third(params) else ())
     if len(arrays) != len(names) * plan.nlev:
@@ -171,17 +195,18 @@ def spmd_state_from_numpy(
     nf = None
     if params.mode == Mode.NEWTON:
         if newton_f is None:
-            raise ValueError("NEWTON mode needs the JAX plan's newton_f")
+            raise ValueError("NEWTON mode needs newton_f")
         nf = conv(newton_f, 0)
     return GridState(levels=tuple(levels), newton_f=nf)
 
 
 def spmd_state_to_numpy(state: GridState, params: GridParams,
                         plan) -> List[np.ndarray]:
-    """The flat per-level ``v, f`` (and third field) of a distributed
-    state: this rank's blocks of the distributed levels, the replicated
-    levels in the JAX package's allocation, zero beyond the padded
-    region."""
+    """The flat per-level ``v, f`` (and third field) of a classic-plan
+    distributed state: this rank's blocks of the distributed levels, the
+    replicated levels in the JAX package's allocation, zero beyond the
+    padded region.  (A tail plan's state goes back by interior cells:
+    ``pod_state_to_numpy`` with the JAX plan's shapes.)"""
     names = ("v", "f") + ((_third(params),) if _third(params) else ())
     out = []
     for l, lvl in enumerate(state.levels):
@@ -228,8 +253,8 @@ def pod_state_from_numpy(
     mesh,
     newton_f: Optional[np.ndarray] = None,
 ) -> GridState:
-    """A pod engine state (``dist/pod.PodPlan``) for this rank of ``mesh``
-    from the JAX pod engine's flat state (``np.asarray`` of each array,
+    """A pod engine state (``dist/pod.PodPlan``; also a tail plan's) for
+    this rank of ``mesh`` from the JAX pod engine's flat state (``np.asarray`` of each array,
     ``gpusolve_tpu/dist/pod.py`` ``local_init``'s layout): per level ``v,
     f`` and the mode's third field (FAS rest_v, Newton ũ), the pod levels
     in the TPU's pod blocks, then the tail levels.  Each level's interior

@@ -22,8 +22,13 @@ NONLINEAR / NEWTON modes, inexact-Newton defect correction on
     u += s·e                     float64
 
 The scaling ``s = ‖r‖₂`` keeps the inner problem O(1) as the defect
-shrinks.  The distributed variant (``solve_refine_spmd``) waits for the
-distributed engines (ROADMAP Queue 1 item 3(a)).
+shrinks.  ``solve_refine_spmd`` is the distributed variant
+(``gpusolve_tpu/solver/refine.py:255-410``): the inner float32 solves on
+the spmd engine (``dist/spmd.py`` per leg, in either plan, or
+``dist/pod.py``), the float64 outer defect on the plain ops over the
+whole finest level, which every rank holds; each outer step injects this
+rank's block of the scaled defect (and Newton's linearisation point) into
+the engine's level 0 and gathers the correction back.
 """
 
 from __future__ import annotations
@@ -158,6 +163,98 @@ def solve_refine(
             state32, p32, timer=timer, check_every=inner_iters
         )
         _accumulate(u, state32.levels[0].v, s, dims)
+        r_hi, res = _hi_residual(u, f_hi, params)
+        if timer is not None:
+            with timer.section("sumBuffer"):
+                res_f = float(res)
+        else:
+            res_f = float(res)
+        history.append(res_f)
+        if params.print_progress:
+            ms = int((time.perf_counter() - t0) * 1000)
+            line = f"{word}: {i} residual: {res_f:.6g} Took {ms}ms"
+            if timer is not None:
+                line += timer.suffix()
+            print(line)
+        if res_f <= initial / (1.0 / params.tol):
+            break
+    return u, history
+
+
+def solve_refine_spmd(
+    params: GridParams,
+    mesh,
+    inner_tol: float = 1e-3,
+    inner_iters: int = 20,
+    timer: Optional[Timer] = None,
+    local_backend: str = "auto",
+    halo: str = "ppermute",
+    fuse: str = "leg",
+    cutoff: int = 4,
+    tail: str = "auto",
+) -> Tuple[torch.Tensor, List[float]]:
+    """``solve_refine`` with the inner float32 solves on the distributed
+    engine of ``mesh`` (``local_backend``, ``halo``, ``fuse`` and ``tail``
+    as ``dist/spmd.solve_spmd`` takes them).  Returns ``(u, history)`` as
+    ``solve_refine``: u on every rank, on the mesh's device."""
+    from gpusolve_tpu_torch.dist import spmd
+
+    if params.dtype != "float32":
+        raise ValueError(
+            "solve_refine's storage dtype is the inner dtype and must be "
+            f"float32 (got {params.dtype})"
+        )
+    if timer is None and params.print_progress:
+        timer = Timer()
+    dims = params.level_dims()[0]
+    newton = params.mode != Mode.LINEAR
+    p32 = _params32(params, inner_iters, inner_tol)
+    eng = spmd.build_spmd_solver(p32, mesh, cutoff, local_backend, halo,
+                                 fuse, tail)
+    plan = eng.plan
+    # The inner Jacobian solves never read newton_f.
+    state = dataclasses.replace(eng.init_state(), newton_f=None)
+    dev = mesh.device
+    dx, dy = eng.ex.dc
+    b0 = plan.shape(0)
+    start = (dx * b0[0], dy * b0[1], 0)
+
+    u = torch.zeros(tuple(d + 2 for d in dims), dtype=torch.float64,
+                    device=dev)
+    f_hi = hi_rhs(params, dev)
+    r_hi, res = _hi_residual(u, f_hi, params)
+    initial = float(res)
+    word = "newton iter" if params.mode == Mode.NEWTON else "iter"
+    if params.print_progress:
+        name = "newton residual" if params.mode == Mode.NEWTON else "residual"
+        print(f"Inital {name}: {initial:.6g}")
+    history = [initial]
+
+    for i in range(params.maxiter):
+        t0 = time.perf_counter()
+        s = res
+        # This rank's block of the scaled float32 RHS (and ũ), zero
+        # outside the interior; every correction restarts from zero.
+        levels = state.levels
+        rhs = torch.zeros_like(u, dtype=torch.float32)
+        ref.interior(rhs, dims).copy_(
+            (ref.interior(r_hi, dims) / s).to(torch.float32))
+        levels[0].f.copy_(spmd._window(rhs, start, b0))
+        for lvl in levels:
+            lvl.v.zero_()
+        if newton:
+            lin = torch.zeros_like(rhs)
+            ref.interior(lin, dims).copy_(
+                ref.interior(u, dims).to(torch.float32))
+            levels[0].newton_v.copy_(spmd._window(lin, start, b0))
+            # ũ to levels 1..L−2, never the coarsest.
+            eng.restrict_newton_v(state)
+        state, _, _ = spmd.solve_spmd(
+            p32, mesh, cutoff, state=state, plan=plan,
+            local_backend=local_backend, check_every=inner_iters,
+            halo=halo, fuse=fuse, timer=timer, tail=tail,
+        )
+        _accumulate(u, spmd.gather_field(state, plan, mesh), s, dims)
         r_hi, res = _hi_residual(u, f_hi, params)
         if timer is not None:
             with timer.section("sumBuffer"):

@@ -2,8 +2,8 @@
 the flags of the JAX CLI's single-device surface, --explain-backend's
 engine lines, and --mesh: the spmd engine (per leg, or pod; --halo
 rdma) on the one-rank mesh with the JAX CLI's lines, and a clear exit 1
-for the distributed engines and flags not ported yet and for a mesh
-larger than the world."""
+for the distributed engine not ported yet, for flags that do not go
+together and for a mesh larger than the world."""
 
 import os
 import re
@@ -212,9 +212,10 @@ def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
 
 @pytest.mark.parametrize("args,message", [
     (["--mesh", "1,1,1", "--dist-engine", "gspmd"], "not ported"),
-    (["--mesh", "1,1,1", "--refine"], "not ported"),
-    (["--mesh", "1,1,1", "--save-state", "x.npz"], "not ported"),
-    (["--mesh", "1,1,1", "--load-state", "x.npz"], "not ported"),
+    (["--mesh", "1,1,1", "--refine", "--dtype", "float64"], "incompatible"),
+    (["--mesh", "1,1,1", "--refine", "--save-state", "x.npz"],
+     "incompatible"),
+    (["--mesh", "1,1,1", "--load-state", "x.npz"], "does not exist"),
     (["--mesh", "2,2,1"], "torchrun"),
     (["--mesh", "2,2"], "invalid --mesh"),
 ])
@@ -225,10 +226,12 @@ def test_cli_mesh_exits_1(small_conf, capsys, args, message):
 
 @pytest.mark.parametrize("args,item", [
     (["--dist-engine", "gspmd"], "ROADMAP Queue 1 item 3(f), sharding.py"),
-    (["--refine"], "ROADMAP Queue 1 item 3(a)"),
+    (["--mesh", "32,1,1"], "ROADMAP Queue 1 item 3(f), sharding.py"),
 ])
 def test_cli_mesh_refusal_names_roadmap_item(small_conf, capsys, args, item):
-    """Each refusal with --mesh names the ROADMAP item that ports it."""
+    """Each refusal with --mesh names the ROADMAP item that ports it: the
+    gspmd engine, asked for or where the reference falls back to it (a
+    mesh the spmd engine cannot run)."""
     assert cli.main([small_conf(), "--platform", "cpu", "--mesh", "1,1,1",
                      *args]) == 1
     assert item in capsys.readouterr().err

@@ -216,7 +216,7 @@ KEYWORDS = [
     ({"halo": "ppermute", "fuse": "leg", "tail": "auto"}, None),
     ({"fuse": "pod"}, None),
     ({"halo": "rdma"}, None),
-    ({"tail": "pv2"}, "tail='pv2' is not ported"),
+    ({"tail": "pv2"}, None),
     ({"fuse": "wide"}, "fuse must be 'leg' or 'pod'"),
     ({"halo": "nccl"}, "halo must be 'ppermute' or 'rdma'"),
     ({"tail": "on"}, "tail must be 'auto', 'pv2' or 'off'"),
@@ -228,9 +228,11 @@ KEYWORDS = [
                          ids=[f"{k}" for k, _ in KEYWORDS])
 def test_spmd_keywords(kw, error):
     """build_spmd_solver, solve_spmd and newton_solve_spmd take the
-    reference's local_backend, halo, fuse and tail keywords: the ported
-    values run (``"xla"`` without legs; ``fuse="pod"`` the pod engine,
-    every pod level on legs), the others raise ValueError."""
+    reference's local_backend, halo, fuse and tail keywords: every value
+    runs (``"xla"`` without legs; ``fuse="pod"`` the pod engine, every pod
+    level on legs; ``tail="pv2"`` in float64 the classic plan, as the
+    reference's tail takes float32 only), unknown values raise
+    ValueError."""
     mesh = gt.make_mesh((1, 1, 1), device="cpu")
     lin, newt = _tparams(0, (15, 15, 15), maxiter=1), \
         _tparams(2, (15, 15, 15), maxiter=1)
