@@ -17,7 +17,12 @@ Phases (any failure exits non-zero before the last line is printed):
      on aligned and on offset fields, with NaN halos whose bits v must
      keep; finalize bit for bit against finalize_slots_plain (its slot
      order) at n = 1, 1023, 1024, 1025, the 127³ and the 511³ partial
-     counts, and its stop flag.  Then the v1 whole-cycle kernel
+     counts, and its stop flag; the batched Newton loop's kernels
+     (newton_zero, newton_update at NEWTON_SHAPES, aligned and offset,
+     NaN halos, after 0/1/3/10 inner cycles in one or two buffers;
+     newton_gate's seed and step, its inner threshold against numpy's
+     float32 formula; finalize_dev_thr against finalize), bit for bit,
+     with the outer flag clear and set.  Then the v1 whole-cycle kernel
      (``vcycle_fused``) against ``vcycle_fused_plain`` at 15³, 16³, 31³,
      (31,15,63), 47³ (its coarse tail from 5³), 127³ and 511³, V(3,3) and
      V(6,6), in the three modes (every field of every level and Σr², same
@@ -35,8 +40,16 @@ Phases (any failure exits non-zero before the last line is printed):
          build_grid + solve(check_every=10), then W and F at 127³;
        * examples/nonlinear_127.conf (FAS) likewise at 511³, W and F at
          127³;
-       * examples/newton_127.conf at 511³ through newton_solve (the plain
-         run takes 3 outer steps and is compared on those);
+       * examples/newton_127.conf at 511³ through newton_solve
+         (check_every=10: the batched outer loop, 2 host reads a solve;
+         the plain run, the per-step loop, takes 3 outer steps and is
+         compared on those); then the per-step loop on the kernels from
+         the same state (the history and every level's v, f and newton_v
+         bit for bit), the batched solve's synchronising calls under
+         PyTorch's sync debug mode (its host reads, no more), and at 127³
+         with tol 1e-3 the outer stop inside a batch (K = 10, V(3,3) and
+         V(2,1)) and at a batch's end (K = the steps), each bit for bit
+         against the per-step loop;
        * the three at 511³ V(6,6), where solve (and newton_solve's inner
          solve) runs the v1 kernel: one vcycle_fused launch per cycle and
          no per-op cycle launch;
@@ -48,7 +61,9 @@ Phases (any failure exits non-zero before the last line is printed):
      --refine at 127³ to tol 1e-10 (LINEAR and Newton); --dtype float64
      at 127³ on the card (the plain ops, no kernel launch); --profile;
   5. times at 511³ with CUDA events: device ms per LINEAR and FAS cycle
-     over a 10-cycle batch and per Newton step of newton_solve, a
+     over a 10-cycle batch and per Newton step of newton_solve (the
+     per-step and the batched loop in turns, with host reads a solve,
+     busy time and idle share, and the events over busy), a
      profiler breakdown by kernel for each, each kernel's time beside its
      bound (the bytes of kernel_bytes over the card's memory rate, or
      operations over its float32 rate), its plain
@@ -57,7 +72,10 @@ Phases (any failure exits non-zero before the last line is printed):
      its device time (torch.profiler over the same calls: no host part,
      no launch gaps); finalize with a flag of its own, beside its launch
      floor (the flag set) and torch.sum; subtract beside its 80 % target
-     and torch.sub; and a one-field copy as the stream ceiling; the v1
+     and torch.sub; the batched Newton loop's kernels at 511³
+     (newton_update beside add_, newton_zero beside zero_,
+     finalize_dev_thr beside torch.sum, newton_gate); and a one-field
+     copy as the stream ceiling; the v1
      kernel's ms per cycle at V(3,3) and V(6,6) in the
      three modes beside the batch engine's at the same configuration,
      their bytes and bounds, each level-0 op inside it beside the per-op
@@ -242,6 +260,14 @@ REPLACES = {
     "prolong_add": "gpusolve_tpu/ops/pallas_vcycle2.py:499",
     "apply_fas": "gpusolve_tpu/ops/pallas_vcycle2.py:1338",
     "subtract": "gpusolve_tpu/ops/pallas_vcycle2.py:527",
+    # The batched Newton loop: the whole-batch kernel's norm with the
+    # threshold operand batch_call takes on the device, and the XLA glue
+    # around that kernel in _newton_batch (gpusolve_tpu/solver/newton.py:
+    # 69, 89, 176-179, 194-199), counted with row 6.
+    "finalize_dev_thr": "gpusolve_tpu/ops/pallas_vcycle2.py:1370",
+    "newton_zero": "gpusolve_tpu/ops/pallas_vcycle2.py:280",
+    "newton_update": "gpusolve_tpu/ops/pallas_vcycle2.py:280",
+    "newton_gate": "gpusolve_tpu/ops/pallas_vcycle2.py:280",
     "vcycle_fused": "gpusolve_tpu/ops/pallas_vcycle.py:112",
     "sweep_block": "gpusolve_tpu/ops/pallas_spmd.py:284",
     "sweep_block_fas": "gpusolve_tpu/ops/pallas_spmd.py:284",
@@ -446,13 +472,21 @@ def print_ptxas(log):
     rr_pairs = {tuple(re.findall(r"\d+", k)[:2]) for k in rr}
     check(rr_pairs == {(str(m), str(f)) for m in range(3) for f in range(2)},
           f"ptxas reported residual_restrict_kernel instantiations {rr}")
-    for lin in ("residual_kernel<0>", "jacobi_kernel<0>", "finalize_kernel",
-                "subtract_kernel<0>", "subtract_kernel<1>", "rdma_kernel",
+    for lin in ("residual_kernel<0>", "jacobi_kernel<0>",
+                "finalize_kernel<0>", "finalize_kernel<1>",
+                "subtract_kernel<0>", "subtract_kernel<1>",
+                "newton_zero_kernel<0>", "newton_zero_kernel<1>",
+                "newton_update_kernel<0>", "newton_update_kernel<1>",
+                "newton_gate_kernel", "rdma_kernel",
                 "vcycle_kernel<0>", "vcycle_kernel<1>", "vcycle_kernel<2>",
                 *legs, *rr):
         line = spills.get(lin, "")
         check(not re.search(r"[1-9]\d* bytes spill", line),
               f"{lin} spills: {line}")
+    new = [k for k in ("finalize_kernel<1>", "newton_zero_kernel<1>",
+                       "newton_update_kernel<1>", "newton_gate_kernel")
+           if k not in spills]
+    check(not new, f"ptxas reported no {new} (of {sorted(spills)})")
 
 
 def print_leg_smem(base):
@@ -684,8 +718,33 @@ def check_transfer_kernels(x, rec, lines):
 
 # Halo bits of check_subtract: two quiet NaNs with payloads of their own.
 NAN_V, NAN_W = 0x7FC0_1234, 0x7FC0_5678
+NEWTON_SHAPES = [(15, 15, 15), (31, 15, 63), (127, 127, 127), BIG]
 SUBTRACT_SHAPES = [(1, 1, 1), (2, 3, 1), (15, 15, 15), (16, 16, 16),
                    (31, 15, 63), (127, 127, 127), (255, 255, 255)]
+
+
+def nan_field(dims, nan, offset, rng):
+    """A seeded (dims + 2) field on the card whose halo holds the NaN bits
+    ``nan``, starting ``offset`` floats into its buffer."""
+    import numpy as np
+    import torch
+
+    shape = tuple(d + 2 for d in dims)
+    buf = torch.full((math.prod(shape) + offset,), nan, dtype=torch.int32,
+                     device=DEVICE)
+    a = buf[offset:].view(torch.float32).view(shape)
+    a[1:-1, 1:-1, 1:-1] = torch.from_numpy(
+        rng.standard_normal(dims, dtype=np.float32)).to(DEVICE)
+    return a
+
+
+def halo_kept(a, nan):
+    """Every halo point of ``a`` still holds the NaN bits ``nan``."""
+    import torch
+
+    bits = a.view(torch.int32).clone()
+    bits[1:-1, 1:-1, 1:-1] = nan
+    return bool((bits == nan).all())
 
 
 def check_subtract(rec):
@@ -701,15 +760,7 @@ def check_subtract(rec):
 
     from gpusolve_tpu_torch.ops import kernels as K
 
-    def field(dims, nan, offset, rng):
-        shape = tuple(d + 2 for d in dims)
-        buf = torch.full((math.prod(shape) + offset,), nan,
-                         dtype=torch.int32, device=DEVICE)
-        a = buf[offset:].view(torch.float32).view(shape)
-        a[1:-1, 1:-1, 1:-1] = torch.from_numpy(
-            rng.standard_normal(dims, dtype=np.float32)).to(DEVICE)
-        return a
-
+    field = nan_field
     for n, dims in enumerate(SUBTRACT_SHAPES):
         for offsets in ((0, 0), (1, 3)):
             rng = np.random.default_rng(600 + n)
@@ -780,6 +831,166 @@ def check_finalize(rec):
               f"finalize n={n}: stop flag {left}/{set_}")
 
 
+def bits_equal(a, b):
+    """Bit for bit, or NaN in both (CUDA's and torch's NaN bits differ)."""
+    import torch
+
+    if a.dtype == torch.float32 and bool(a.isnan().all() & b.isnan().all()):
+        return True
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_newton_kernels(rec):
+    """The batched Newton loop's kernels against their plain versions on
+    the card, bit for bit, with the outer flag clear and set (a set flag
+    must leave every output as it was): newton_zero and newton_update at
+    NEWTON_SHAPES (the 511³ level 0 among them) on aligned fields and on
+    fields 1 and 3 floats into their buffers (the scalar path), with NaN
+    halos whose bits must stay; newton_update after c = 0, 1, 3 and 10
+    inner cycles, with v in the second buffer after odd c (odd pre + post)
+    and in one buffer throughout; newton_gate's seed over seeded ‖F‖
+    values and its step over ΣF² at thr_outer², one ulp above, 0, 26.888361
+    (whose float32 root a 1-ulp-off sqrt misses), inf and NaN, every word
+    against the plain version and the inner threshold against numpy's
+    float32 formula (kernels.inner_threshold); finalize_dev_thr against
+    finalize (the same body) and finalize_slots_plain at the finalize
+    check's counts, its flag against a device threshold at the sum, one
+    ulp below it and −1."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    f32, i32 = np.float32, torch.int32
+
+    def flag(x):
+        return torch.full((1,), x, dtype=i32, device=DEVICE)
+
+    def note(key, same, err=0.0):
+        rec.errs[key] = max(rec.errs.get(key, 0.0), err)
+        rec.same[key] = rec.same.get(key, True) and same
+
+    for n, dims in enumerate(NEWTON_SHAPES):
+        for offsets in ((0, 0, 0), (1, 3, 1)):
+            rng = np.random.default_rng(900 + n)
+            tag = f"{'x'.join(map(str, dims))} offsets {offsets}"
+            ok_z = ok_u = kept = True
+            err_u = 0.0
+            for d in (1, 0):
+                a = nan_field(dims, NAN_V, offsets[0], rng)
+                before = a.clone()
+                b = a.clone()
+                K.newton_zero(a, dims, flag(d))
+                K.newton_zero_plain(b, dims, flag(d))
+                ok_z = ok_z and bits_equal(a, b) and (
+                    d == 0 or bits_equal(a, before))
+                kept = kept and halo_kept(a, NAN_V)
+            va = nan_field(dims, NAN_W, offsets[1], rng)
+            vb = nan_field(dims, NAN_W, offsets[2], rng)
+            nv = nan_field(dims, NAN_V, offsets[0], rng)
+            for c in (0, 1, 3, 10):
+                norms = torch.full((10,), -1.0, device=DEVICE)
+                norms[:c] = torch.from_numpy(
+                    rng.random(c).astype(f32)).to(DEVICE)
+                for odd in (True, False):
+                    v_after = [vb if odd and q % 2 else va
+                               for q in range(11)]
+                    for d in (1, 0):
+                        a, b = nv.clone(), nv.clone()
+                        K.newton_update(a, v_after, norms, dims, flag(d))
+                        K.newton_update_plain(b, v_after, norms, dims,
+                                              flag(d))
+                        ok_u = ok_u and bits_equal(a, b) and (
+                            d == 0 or bits_equal(a, nv))
+                        kept = kept and halo_kept(a, NAN_V)
+                        err_u = max(err_u, float(
+                            (a - b)[1:-1, 1:-1, 1:-1].abs().max()))
+            torch.cuda.synchronize()
+            note("newton_zero", ok_z)
+            note("newton_update", ok_u, err_u)
+            print(f"check newton_zero / newton_update {tag} (NaN halos, "
+                  f"flag set and clear, c in 0/1/3/10, odd and even "
+                  f"parity): bit-identical={ok_z} / {ok_u}, "
+                  f"max_abs_err={err_u:.3e}; halo NaN bits kept={kept}")
+            check(ok_z and ok_u and kept,
+                  f"newton_zero / newton_update {tag}: {ok_z} {ok_u} {kept}")
+            del a, b, before, va, vb, nv
+            torch.cuda.empty_cache()
+
+    def words(d, thr_in=-5.0, res=-1.0):
+        return [flag(d), flag(d), torch.full((1,), thr_in, device=DEVICE),
+                torch.full((1,), res, device=DEVICE)]
+
+    rng = np.random.default_rng(950)
+    fns = np.concatenate([
+        rng.random(64) * 10.0 ** rng.integers(-20, 20, 64),
+        [0.0, 7.33, 2253.0, 3.4e38, np.inf]]).astype(f32)
+    ok_seed = True
+    for fn in fns:
+        ka, pa = words(1), words(1)
+        K.newton_gate(None, float(fn), 0.5, None, *ka[:3])
+        K.newton_gate_plain(None, float(fn), 0.5, None, *pa[:3])
+        want = K.inner_threshold(fn)
+        ok_seed = ok_seed and all(bits_equal(x, y) for x, y in zip(ka, pa))
+        ok_seed = ok_seed and ka[2].cpu().numpy()[0].tobytes() == \
+            want.tobytes() and int(ka[0].item()) == 0
+    thr_outer = f32(0.25)
+    up = np.nextafter(thr_outer, f32(1), dtype=f32)
+    ok_step = True
+    for ss in (thr_outer * thr_outer, up * up, f32(0.0), f32(26.888361),
+               f32(np.inf), f32(np.nan)):
+        for d in (0, 1):
+            ka, pa = words(d), words(d)
+            sst = torch.full((1,), float(ss), device=DEVICE)
+            K.newton_gate(sst, 0.0, float(thr_outer), ka[3], *ka[:3])
+            K.newton_gate_plain(sst, 0.0, float(thr_outer), pa[3], *pa[:3])
+            same = all(bits_equal(x, y) for x, y in zip(ka, pa))
+            r = np.sqrt(ss)
+            stop = int(d or (r >= 0 and r <= thr_outer))
+            same = same and int(ka[0].item()) == stop == int(ka[1].item())
+            if d == 0 and not np.isnan(r):
+                same = same and ka[3].cpu().numpy()[0] == r and \
+                    ka[2].cpu().numpy()[0] == K.inner_threshold(r)
+            ok_step = ok_step and same
+    note("newton_gate", ok_seed and ok_step)
+    print(f"check newton_gate: the seed over {len(fns)} norms "
+          f"bit-identical={ok_seed} (the inner threshold equal to numpy's "
+          f"float32 formula); the step at res = thr_outer, one ulp above, "
+          f"0, 26.888361's root, inf and NaN, flag clear and set: "
+          f"bit-identical={ok_step}")
+    check(ok_seed and ok_step, "newton_gate differs from its plain version")
+
+    L = K.lib()
+    for n in (1, 1023, 1025, L.mg_residual_blocks(127, 127, 127),
+              L.mg_residual_blocks(*BIG)):
+        rng = np.random.default_rng(700 + n)
+        parts = torch.from_numpy(rng.random(n) * 1e3).to(DEVICE)
+        ref = torch.empty(1, device=DEVICE)
+        K.finalize(parts, ref, done=flag(0))
+        slots = torch.tensor([float(K.finalize_slots_plain(parts))],
+                             dtype=torch.float32)
+        total = float(ref.item())
+        below = float(np.nextafter(f32(total), f32(0), dtype=f32))
+        ok = bits_equal(ref.cpu(), slots)
+        for thr in (total, below, -1.0):
+            for d in (0, 1):
+                out, fl = torch.full((1,), -1.0, device=DEVICE), flag(d)
+                K.finalize_dev_thr(parts, out, torch.full(
+                    (1,), thr, device=DEVICE), fl)
+                if d:
+                    ok = ok and float(out.item()) == -1.0 and \
+                        int(fl.item()) == 1
+                else:
+                    ok = ok and bits_equal(out, ref) and \
+                        int(fl.item()) == int(thr == total)
+        err = abs(total - float(slots))
+        note("finalize_dev_thr", ok, err)
+        print(f"check finalize_dev_thr n={n}: {total!r} bit-identical to "
+              f"finalize and the slot order={ok}; flag set at thr = sum, "
+              f"left one ulp below and at -1, untouched when set")
+        check(ok, f"finalize_dev_thr n={n} differs")
+
+
 def check_kernels(base, rec):
     import torch
 
@@ -798,6 +1009,7 @@ def check_kernels(base, rec):
         torch.cuda.empty_cache()
     check_subtract(rec)
     check_finalize(rec)
+    check_newton_kernels(rec)
     print(f"check bit-identical over all shapes: {rec.same}")
 
 
@@ -931,23 +1143,35 @@ def check_vcycle_fused(base, rec):
 
 @contextlib.contextmanager
 def counting_inner():
-    """Records the inner cycles of each Newton step (the lengths of
-    find_error's histories) in the list it yields."""
+    """Records the inner cycles of each Newton step in the list it yields:
+    the per-step loop's from the lengths of find_error's histories, the
+    batched loop's from each executed step's inner norms (those not −1) in
+    the batch's one read."""
+    import numpy as np
+
     from gpusolve_tpu_torch.solver import newton
 
     inner_cycles = []
-    find_error = newton.find_error
+    find_error, read_batch = newton.find_error, newton._read_batch
 
     def counted(*args, **kwargs):
         hist = find_error(*args, **kwargs)
         inner_cycles.append(len(hist))
         return hist
 
+    def counted_batch(*args, **kwargs):
+        norms, outer = read_batch(*args, **kwargs)
+        inner_cycles.extend(int(np.count_nonzero(row != -1.0))
+                            for row, res in zip(norms, outer) if res != -1.0)
+        return norms, outer
+
     newton.find_error = counted
+    newton._read_batch = counted_batch
     try:
         yield inner_cycles
     finally:
         newton.find_error = find_error
+        newton._read_batch = read_batch
 
 
 def histories_agree(got, want, what, floor=1e-4):
@@ -987,13 +1211,33 @@ def nonzero(counts):
     return {k: n for k, n in counts.items() if n}
 
 
+def newton_batched(params, k):
+    """newton_solve(check_every=k) runs the batched outer loop."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.solver import vcycle as tvc
+
+    return (params.mode == Mode.NEWTON and k > 1
+            and tvc.use_fused2(params, DEVICE))
+
+
+def enqueued(params, executed, k):
+    """Cycles or steps a batched loop enqueues: whole batches of ``k``
+    (after an early stop the rest of the batch is enqueued and skips on
+    the device), the last cut by maxiter."""
+    return min(params.maxiter, k * math.ceil(executed / k))
+
+
 def expected_counts(params, hist, k, inner_cycles=()):
     """Launches of a solve.  The batch engine: whole batches of ``k``
     cycles (the cycles after an early stop are enqueued and skip on the
     device); the v1 engine: one vcycle_fused launch per executed cycle.
-    Plus the initial residual norm.  A Newton solve: the initial F, and
-    per outer step R(ũ) into levels 1..L−2, the inner solve (batch: one
-    batch of 10 cycles; v1: the cycles each step ran) and F again."""
+    Plus the initial residual norm.  A Newton solve: the initial F, then
+    the per-step loop: per outer step R(ũ) into levels 1..L−2, the inner
+    solve (batch: one batch of 10 cycles; v1: the cycles each step ran)
+    and F again; the batched loop (``check_every`` > 1 on the batch
+    engine): a seed newton_gate a batch and per enqueued step newton_zero,
+    R(ũ), 10 inner cycles (their norms through finalize_dev_thr),
+    newton_update, F with its finalize and newton_gate."""
     from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
     from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
@@ -1002,16 +1246,28 @@ def expected_counts(params, hist, k, inner_cycles=()):
     v1 = tvc.engine(params, DEVICE) == "v1"
     per = {"vcycle_fused": 1} if v1 else launches_per_cycle(params)
     executed = len(hist) - 1
+    want = {name: 0 for name in K.KERNELS}
+    if newton_batched(params, k):
+        steps = enqueued(params, executed, k)
+        for name, n in per.items():
+            name = "finalize_dev_thr" if name == "finalize" else name
+            want[name] += n * 10 * steps
+        for name in ("newton_zero", "newton_update", "residual_fas",
+                     "finalize", "newton_gate"):
+            want[name] += steps
+        want["restrict"] += steps * max(0, params.num_levels - 2)
+        want["newton_gate"] += math.ceil(executed / k)
+        want["residual_fas"] += 1
+        want["finalize"] += 1
+        return nonzero(want)
     if params.mode == Mode.NEWTON:
         cycles = sum(inner_cycles) if v1 else 10 * executed
         norms = executed + 1
         first = "residual_fas"
     else:
-        cycles = executed if v1 else \
-            min(params.maxiter, k * math.ceil(executed / k))
+        cycles = executed if v1 else enqueued(params, executed, k)
         norms = 1
         first = K.variant("residual", params.mode)
-    want = {name: 0 for name in K.KERNELS}
     for name, n in per.items():
         want[name] += n * cycles
     want[first] += norms
@@ -1019,6 +1275,21 @@ def expected_counts(params, hist, k, inner_cycles=()):
     if params.mode == Mode.NEWTON:
         want["restrict"] += executed * max(0, params.num_levels - 2)
     return nonzero(want)
+
+
+def host_reads(params, hist, k, inner_cycles=()):
+    """Host reads of a solve by the schedule: the initial norm, then one a
+    batch (the batch engine, the batched Newton loop) or a cycle (v1); the
+    per-step Newton loop reads F a step beside its inner solve's reads."""
+    from gpusolve_tpu_torch.solver import vcycle as tvc
+
+    executed = len(hist) - 1
+    v1 = tvc.engine(params, DEVICE) == "v1"
+    if newton_batched(params, k):
+        return 1 + math.ceil(executed / k)
+    if params.mode.name == "NEWTON":
+        return 1 + executed + (sum(inner_cycles) if v1 else executed)
+    return 1 + (executed if v1 else math.ceil(executed / k))
 
 
 def main_path(params, label, k=10, plain_maxiter=None, identical=False,
@@ -1031,23 +1302,30 @@ def main_path(params, label, k=10, plain_maxiter=None, identical=False,
 
     from gpusolve_tpu_torch.config import Mode
     from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import vcycle_batch
     from gpusolve_tpu_torch.solver import vcycle as tvc
 
     K.reset_launches()
+    reads0 = vcycle_batch.host_reads
     with counting_inner() as inner_cycles:
         state, hist, secs = run_solve(params, k)
     counts = nonzero(K.launches)
+    reads = vcycle_batch.host_reads - reads0
     steps = len(hist) - 1
-    print(f"main path {label}: engine {tvc.engine(params, DEVICE)}, "
+    print(f"main path {label}: engine {tvc.engine(params, DEVICE)}"
+          f"{', batched Newton loop' if newton_batched(params, k) else ''}, "
           f"{steps} steps in {secs:.3f} s wall "
           f"({1e3 * secs / steps:.2f} ms per step, initial residual "
-          f"included), history {hist}")
+          f"included), {reads} host reads, history {hist}")
     if inner_cycles:
         print(f"main path {label}: inner cycles per step {inner_cycles}")
     print(f"main path {label} launches: {counts}")
     want = expected_counts(params, hist, k, inner_cycles)
     check(counts == want, f"{label}: launch counts {counts} != schedule "
           f"{want}")
+    want_reads = host_reads(params, hist, k, inner_cycles)
+    check(reads == want_reads, f"{label}: {reads} host reads, the "
+          f"schedule's {want_reads}")
     initial = hist[0]
     stop = [i for i, r in enumerate(hist[1:])
             if r <= initial / (1.0 / params.tol)]
@@ -1097,6 +1375,119 @@ def main_path(params, label, k=10, plain_maxiter=None, identical=False,
     del ref_state
     torch.cuda.empty_cache()
     return state, counts, hist
+
+
+def state_fields(state):
+    """Every level's v, f and newton_v (r is scratch: the two Newton
+    loops may leave different spares in it)."""
+    return [(f"level {i} {n}", getattr(lvl, n))
+            for i, lvl in enumerate(state.levels)
+            for n in ("v", "f", "newton_v")]
+
+
+def same_state(a, b):
+    """The fields of state_fields that differ between two states."""
+    import torch
+
+    return [n for (n, x), (_, y) in zip(state_fields(a), state_fields(b))
+            if not torch.equal(x, y)]
+
+
+def newton_loops_agree(params, label, k, batch=None):
+    """The batched Newton loop (check_every=k) against the per-step loop
+    on the kernels from the same state: the same history and every level's
+    v, f and newton_v bit for bit; the batched run's launch counts and
+    host reads equal its schedule.  ``batch``: the batched run's (state,
+    history) when the caller has it.  Returns the per-step history."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    check(newton_batched(params, k), f"{label}: not the batched loop")
+    if batch is None:
+        K.reset_launches()
+        reads0 = vcycle_batch.host_reads
+        with counting_inner() as inner_cycles:
+            state, hist, _ = run_solve(params, k)
+        counts = nonzero(K.launches)
+        reads = vcycle_batch.host_reads - reads0
+        want = expected_counts(params, hist, k)
+        check(counts == want, f"{label}: launch counts {counts} != "
+              f"schedule {want}")
+        check(reads == host_reads(params, hist, k),
+              f"{label}: {reads} host reads")
+        print(f"newton batched {label} K={k}: history {hist}, inner cycles "
+              f"per step {inner_cycles}, {reads} host reads, launches "
+              f"{counts} (the schedule's)")
+    else:
+        state, hist = batch
+    ref_state, ref_hist, _ = run_solve(params, 1)
+    differ = same_state(state, ref_state)
+    print(f"newton batched vs per-step {label} K={k}: histories identical "
+          f"{hist == ref_hist} ({len(hist) - 1} steps), every level's v, f "
+          f"and newton_v bit-identical {not differ}"
+          + (f" (differ: {differ})" if differ else ""))
+    check(hist == ref_hist and not differ,
+          f"{label}: the batched loop left another history or state")
+    del state, ref_state
+    torch.cuda.empty_cache()
+    return ref_hist
+
+
+def newton_sync_count(params, k):
+    """The batched loop's synchronising calls, counted by PyTorch's sync
+    debug mode (a warning each), against its host-read counter: no read
+    slips in beside the one a batch."""
+    import warnings
+
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    state = gt.build_grid(params)
+    torch.cuda.synchronize()
+    reads0 = vcycle_batch.host_reads
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, hist = gt.newton_solve(state, params, check_every=k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    reads = vcycle_batch.host_reads - reads0
+    print(f"newton batched 511^3 K={k} under the sync debug mode: "
+          f"{len(syncs)} synchronising calls, {reads} host reads counted, "
+          f"{len(hist) - 1} steps"
+          + (f"; {sorted({str(w.message)[:80] for w in syncs})}"
+             if len(syncs) != reads else ""))
+    check(len(syncs) == reads == host_reads(params, hist, k),
+          f"newton batched: {len(syncs)} syncs, {reads} reads")
+
+
+def newton_stops_127():
+    """The outer stop inside a batch and at a batch's end, at 127³: tol
+    1e-3 stops the per-step loop before maxiter; the batched loop with
+    K = 10 (the stop mid-batch, the rest of the batch enqueued and
+    skipped on the device) and with K = the steps taken (the stop at the
+    batch's end) at V(3,3), and K = 10 at V(2,1) (odd pre + post: level
+    0's v lies in a data-dependent buffer) must leave the per-step loop's
+    history and state."""
+    import gpusolve_tpu_torch as gt
+
+    base = gt.parse_config(CONFS["newton"], tol=1e-3, print_progress=False)
+    for pre, post in ((3, 3), (2, 1)):
+        p = base.replace(pre_smoothing=pre, post_smoothing=post)
+        label = f"127^3 V({pre},{post}) tol 1e-3"
+        hist = newton_loops_agree(p, label, 10)
+        steps = len(hist) - 1
+        check(steps < p.maxiter and steps % 10,
+              f"{label}: stops after {steps} steps, not inside a batch")
+        if (pre, post) == (3, 3) and steps > 1:
+            newton_loops_agree(p, label, steps)
 
 
 def other_cycles(params127, label):
@@ -1508,6 +1899,68 @@ def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
           f"{fmt_ms(sub['library_device_ms'])}")
 
 
+def time_newton_kernels(params, state, rate, rows):
+    """The batched Newton loop's kernels at the shapes its 511³ main path
+    gives them: finalize_dev_thr on the 511³ residual's partials,
+    newton_zero and newton_update on the 511³ level 0 (v after 3 inner
+    cycles, in the second of two buffers), newton_gate's step; each with
+    its flag clear, so it does its work every call."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    dims = BIG
+    h = params.level_h(0)
+    lvl0 = state.levels[0]
+    n = inner(dims)
+    parts = K.residual(None, lvl0.newton_v, lvl0.f, dims, params, h,
+                       write_r=False, with_norm=True,
+                       newton_v=lvl0.newton_v)
+    ss = torch.empty(1, device=DEVICE)
+    thr = torch.full((1,), -1.0, device=DEVICE)
+    live = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    idone = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    v, nv = lvl0.v.clone(), lvl0.newton_v.clone()
+    vb = torch.zeros_like(v)
+    v_after = [vb if c % 2 else v for c in range(11)]
+    norms = torch.full((10,), -1.0, device=DEVICE)
+    norms[:3] = 1.0
+    nv_int, v_int = nv[1:-1, 1:-1, 1:-1], vb[1:-1, 1:-1, 1:-1]
+    gss = torch.full((1,), 4.0, device=DEVICE)
+    res, thr_in = torch.empty(1, device=DEVICE), torch.empty(1, device=DEVICE)
+    s = "511^3"
+    cases = {
+        # name: (kernel, plain, library, bytes, flops, shape)
+        "finalize_dev_thr": (
+            lambda: K.finalize_dev_thr(parts, ss, thr, live),
+            lambda: K.finalize_dev_thr_plain(parts, ss, thr, live),
+            lambda: torch.sum(parts),
+            8 * parts.numel() + 8, parts.numel(), s,
+        ),
+        "newton_zero": (
+            lambda: K.newton_zero(v, dims, live),
+            lambda: K.newton_zero_plain(v, dims, live),
+            lambda: v[1:-1, 1:-1, 1:-1].zero_(),
+            4 * n, 0, s,
+        ),
+        "newton_update": (
+            lambda: K.newton_update(nv, v_after, norms, dims, live),
+            lambda: K.newton_update_plain(nv, v_after, norms, dims, live),
+            lambda: nv_int.add_(v_int),
+            12 * n + 40, n, s,
+        ),
+        # thr_outer −1: the flags stay clear, so every call does its work.
+        "newton_gate": (
+            lambda: K.newton_gate(gss, 0.0, -1.0, res, live, idone, thr_in),
+            lambda: K.newton_gate_plain(gss, 0.0, -1.0, res, live, idone,
+                                        thr_in),
+            None, 24, 6, "one word",
+        ),
+    }
+    time_cases(cases, rate, rows)
+    check(int(live.item()) == 0, "a timed Newton kernel set its flag")
+
+
 def device_events(prof):
     """(event, device µs) of each kernel or copy on the card, by name; the
     host ops that launched them (aten::…) carry the same device time and
@@ -1630,50 +2083,76 @@ def time_cycles(params, state, rate, label):
 
 
 def time_newton_steps(params, steps=3):
-    """Device and wall ms per outer Newton step: gt.newton_solve from a
-    fresh 511³ state with maxiter ``steps``, between CUDA events (so the
-    initial F is in the total), in two runs for the spread, then a
-    profiler breakdown of a third.  The inner cycles each step ran are
-    the lengths of find_error's histories, which a wrapper records."""
+    """Both outer Newton loops in one call, in turns (per-step, batched,
+    batched, per-step): ms a step by CUDA events around gt.newton_solve
+    from a fresh 511³ state with maxiter ``steps`` (the initial F
+    included), wall ms and host reads a solve, in two runs of each; then a
+    profiled run of each, whose kernels' device time is the busy time and
+    whose idle share is 1 − busy / wall.  The batched loop runs
+    check_every=10 (one batch of ``steps`` steps).  Returns the event ms a
+    step of each run and the busy ms a step, by loop."""
     import torch
 
     import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.ops import vcycle_batch
 
     p = params.replace(maxiter=steps, print_progress=False)
+    loops = {"per-step": 1, "batched": 10}
 
-    def run(window=contextlib.nullcontext()):
+    def run(k, window=contextlib.nullcontext()):
         state = gt.build_grid(p)
         torch.cuda.synchronize()
         inner.clear()
+        reads0 = vcycle_batch.host_reads
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         with window:
             t0 = time.perf_counter()
             a.record()
-            _, hist = gt.newton_solve(state, p)
+            _, hist = gt.newton_solve(state, p, check_every=k)
             b.record()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         check(len(hist) == steps + 1, f"newton timing ran {hist}")
-        return a.elapsed_time(b), wall, hist, list(inner)
+        return (a.elapsed_time(b), wall, hist, list(inner),
+                vcycle_batch.host_reads - reads0)
 
+    events = {name: [] for name in loops}
+    busy = {}
     with counting_inner() as inner:
-        run()  # warm
-        for n in range(2):
-            dev, wall, hist, steps_inner = run()
-            print(f"newton step 511^3 (run {n + 1}): {dev / steps:.3f} "
-                  f"ms/step device (CUDA events around newton_solve, "
-                  f"{steps} steps, the initial F included), "
-                  f"{wall / steps:.3f} ms/step wall; inner cycles per step "
+        for k in loops.values():
+            run(k)  # warm
+        for n, name in enumerate(("per-step", "batched", "batched",
+                                  "per-step")):
+            dev, wall, hist, steps_inner, reads = run(loops[name])
+            events[name].append(dev / steps)
+            print(f"newton step 511^3 {name} loop (run "
+                  f"{len(events[name])}): {dev / steps:.3f} ms/step "
+                  f"(CUDA events around newton_solve, {steps} steps, the "
+                  f"initial F included), {wall / steps:.3f} ms/step wall; "
+                  f"{reads} host reads a solve; inner cycles per step "
                   f"{steps_inner}; history {hist}")
-        window = Traced()
-        _, wall_p, _, _ = run(window)
-        prof = window.prof
-    busy, any_rows = profile_rows(prof, steps, "step")
-    if any_rows:
-        print(f"profile newton busy {busy / steps:.3f} ms/step of "
-              f"{wall_p / steps:.3f} wall -> idle share "
-              f"{1 - busy / wall_p:.3f}")
+        for name, k in loops.items():
+            window = Traced()
+            _, wall_p, _, _, _ = run(k, window)
+            b_ms, any_rows = profile_rows(window.prof, steps,
+                                          f"step ({name})")
+            if not any_rows:
+                print(f"profile newton {name}: no device time recorded "
+                      "(not measured)")
+                continue
+            busy[name] = b_ms / steps
+            print(f"profile newton {name} loop busy {b_ms / steps:.3f} "
+                  f"ms/step of {wall_p / steps:.3f} wall -> idle share "
+                  f"{1 - b_ms / wall_p:.3f}")
+    for name in loops:
+        if name in busy:
+            over = [e / busy[name] - 1 for e in events[name]]
+            print(f"newton step 511^3 {name} loop: events over busy "
+                  f"{', '.join(f'{100 * o:+.1f}%' for o in over)} (the "
+                  f"exit criterion: within 10% in two runs in a row: "
+                  f"{all(abs(o) <= 0.10 for o in over)})")
+    return events, busy
 
 
 def v1_cycle_bytes(params):
@@ -3884,6 +4363,14 @@ def main() -> int:
             launched[kname] += n
         if label != "newton":
             other_cycles(gt.parse_config(CONFS[label]), label)
+    # The batched Newton loop (the 511³ main path above, check_every=10)
+    # against the per-step loop on the kernels, its synchronising calls,
+    # and its outer stop inside a batch and at a batch's end at 127³.
+    newton = gt.parse_config(CONFS["newton"], grid_dim=BIG)
+    newton_loops_agree(newton, "511^3", 10,
+                       batch=(states["newton"], batch_hist["newton"]))
+    newton_sync_count(newton.replace(print_progress=False), 10)
+    newton_stops_127()
     # V(6,6): past the batch engine's sweep cap, solve (and newton_solve's
     # inner solve) runs the v1 kernel.
     hist66 = {}
@@ -3961,6 +4448,7 @@ def main() -> int:
     time_kernels(lin, states["linear"], rate, rows)
     time_mode_kernels(fas, states["nonlinear"], newt, states["newton"],
                       rate, rows)
+    time_newton_kernels(newt, states["newton"], rate, rows)
     lin_ms = time_cycles(lin, states.pop("linear"), rate,
                          "511^3 LINEAR V(3,3)")
     fas_ms = time_cycles(fas, states.pop("nonlinear"), rate,

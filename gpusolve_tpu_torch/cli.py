@@ -14,7 +14,8 @@ Flags:
   --backend {auto,ref,cuda}  CUDA kernels, plain PyTorch ops, or kernels
                              only (see config.py)
   --check-every K            cycles per batch (one host sync per batch) on
-                             the batch engine
+                             the batch engine; in mode 2 outer Newton steps
+                             per batch where it runs on the kernels
   --cycle {V,W,F}            cycling schedule
   --quiet                    no progress lines
   --platform P               ``cpu`` runs on the host; default CUDA
@@ -102,7 +103,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--check-every", type=int, default=1, metavar="K",
         help="batch K cycles per host sync (the early stop runs on the "
-        "device, so the history and final state do not depend on K)",
+        "device, so the history and final state do not depend on K); "
+        "NEWTON mode batches K outer steps per host sync where the batch "
+        "engine runs on the kernels",
     )
     ap.add_argument("--cycle", choices=["V", "W", "F"], default="V")
     ap.add_argument(

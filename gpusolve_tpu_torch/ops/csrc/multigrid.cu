@@ -20,6 +20,20 @@
 //   mg_apply_fas      out += A v / h^2 + gamma v e^v (the FAS tau fold)
 //   mg_subtract       v -= w (FAS: coarse v -= rest_v before prolongation)
 //
+// and the device-batched Newton outer loop's steps (solver/newton.py,
+// _newton_batch), which the JAX package runs as XLA glue around its
+// whole-batch kernel (gpusolve_tpu/solver/newton.py:174-199: lax.cond,
+// the threshold arithmetic, newton_v + v):
+//
+//   mg_finalize_dev_thr  mg_finalize with the stop threshold read from a
+//                        device float (the inner solve's, which the
+//                        previous step's gate writes)
+//   mg_newton_zero       level 0's v = 0, gated by the outer flag
+//   mg_newton_update     u~ += v, v picked on the device from the two
+//                        buffers the smoother ping-pongs, gated
+//   mg_newton_gate       one thread: the outer norm, the outer stop, the
+//                        next step's inner threshold and inner flag
+//
 // Array model (mg_device.cuh): a dense (nx+2, ny+2, nz+2) float32 array
 // per level, z contiguous, with a zero halo that no kernel ever writes.
 //
@@ -187,10 +201,15 @@ __device__ __forceinline__ void finalize_copy(double* stage,
 // w < 32 as shuffles; the pairs and operand order are the tree's.  Every
 // block reads the same done flag at entry, so all return or none does (a
 // block that left alone would leave the others at the cluster barrier).
+//
+// kDevThr: the threshold is read from *thr_dev (written by an earlier
+// kernel on the stream: the Newton gate), else it is `thr`.
+template <bool kDevThr>
 __global__ void __cluster_dims__(kFinCluster, 1, 1)
 __launch_bounds__(kFinBlock)
 finalize_kernel(const double* __restrict__ partials, long long n,
-                float* __restrict__ out, float thr, int* done) {
+                float* __restrict__ out, float thr,
+                const float* __restrict__ thr_dev, int* done) {
   if (*done) return;
   extern __shared__ __align__(16) double stage[];  // kFinRows x kFinBlock
   __shared__ double s[kFinThreads];
@@ -243,7 +262,8 @@ finalize_kernel(const double* __restrict__ partials, long long n,
     if (tid == 0) {
       const float ss = (float)x;
       *out = ss;
-      if (thr >= 0.0f && ss <= thr) *done = 1;
+      const float t = kDevThr ? *thr_dev : thr;
+      if (t >= 0.0f && ss <= t) *done = 1;
     }
   }
 }
@@ -306,6 +326,8 @@ prolong_add_kernel(float* __restrict__ vf, const float* __restrict__ vc,
 // engine's replicated levels keep theirs.  Two planes' interiors lie
 // 2 nz + 7 >= 9 points apart, so no group belongs to two grid rows.  v is
 // __restrict__: the wrapper refuses v and w that share any memory.
+// The same pass adds (the Newton update u~ += v) or stores zeros (the
+// Newton step's zero start of level 0's v, which reads nothing).
 template <bool kVec>
 __device__ __forceinline__ float4 load4(const float* p) {
   if constexpr (kVec) {
@@ -315,11 +337,19 @@ __device__ __forceinline__ float4 load4(const float* p) {
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, kSubMinBlocks)
-subtract_kernel(float* __restrict__ v, const float* __restrict__ w,
-                const int* __restrict__ done, Geom g) {
-  if (*done) return;
+enum FlatOp { kFlatSub, kFlatAdd, kFlatZero };
+
+template <int kOp>
+__device__ __forceinline__ float flat_op(float a, float b) {
+  if constexpr (kOp == kFlatSub) return __fsub_rn(a, b);
+  if constexpr (kOp == kFlatAdd) return __fadd_rn(a, b);
+  return 0.0f;
+}
+
+template <bool kVec, int kOp>
+__device__ __forceinline__ void flat_pass(float* __restrict__ v,
+                                          const float* __restrict__ w,
+                                          const Geom& g) {
   const int i = blockIdx.y + 1;
   const long long plane = i * g.sx;
   const long long first = (plane + g.sy + 1) >> 2;
@@ -327,21 +357,26 @@ subtract_kernel(float* __restrict__ v, const float* __restrict__ w,
   const long long q0 =
       first + (long long)blockIdx.x * kThreads * kSubBatch + threadIdx.x;
   float4 a[kSubBatch], b[kSubBatch];
+  if constexpr (kOp != kFlatZero) {
 #pragma unroll
-  for (int m = 0; m < kSubBatch; ++m) {
-    const long long q = q0 + m * kThreads;
-    if (q <= last) {
-      a[m] = load4<kVec>(v + 4 * q);
-      b[m] = load4<kVec>(w + 4 * q);
+    for (int m = 0; m < kSubBatch; ++m) {
+      const long long q = q0 + m * kThreads;
+      if (q <= last) {
+        a[m] = load4<kVec>(v + 4 * q);
+        b[m] = load4<kVec>(w + 4 * q);
+      }
     }
   }
 #pragma unroll
   for (int m = 0; m < kSubBatch; ++m) {
     const long long q = q0 + m * kThreads;
     if (q > last) continue;
-    const float4 d = make_float4(
-        __fsub_rn(a[m].x, b[m].x), __fsub_rn(a[m].y, b[m].y),
-        __fsub_rn(a[m].z, b[m].z), __fsub_rn(a[m].w, b[m].w));
+    float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (kOp != kFlatZero) {
+      d = make_float4(
+          flat_op<kOp>(a[m].x, b[m].x), flat_op<kOp>(a[m].y, b[m].y),
+          flat_op<kOp>(a[m].z, b[m].z), flat_op<kOp>(a[m].w, b[m].w));
+    }
     // (j, k) of the group's first point within plane i.
     const int rel = (int)(4 * q - plane);
     int j = rel / (int)g.sy;
@@ -360,6 +395,88 @@ subtract_kernel(float* __restrict__ v, const float* __restrict__ w,
       }
     }
   }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kSubMinBlocks)
+subtract_kernel(float* __restrict__ v, const float* __restrict__ w,
+                const int* __restrict__ done, Geom g) {
+  if (*done) return;
+  flat_pass<kVec, kFlatSub>(v, w, g);
+}
+
+// Level 0's v = 0 over the interior, unless the outer flag is set: the
+// zero start of a Newton step's inner solve (solver/newton.py,
+// _prepare_find_error).  Gated so that a step after the outer stop keeps
+// the v the last executed step left.  Bound: bytes (writes v once).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kSubMinBlocks)
+newton_zero_kernel(float* __restrict__ v, const int* __restrict__ done,
+                   Geom g) {
+  if (*done) return;
+  flat_pass<kVec, kFlatZero>(v, nullptr, g);
+}
+
+// u~ += v over the interior, unless the outer flag is set.  Which buffer
+// holds v depends on how many inner cycles ran, which only the device
+// knows: every thread counts the executed entries of the step's row of
+// inner norms (those not -1; ncyc floats, L1 hits after the first warp)
+// and takes vb where bit c of b_mask is set, else va.  Bound: bytes
+// (reads u~ and v, writes u~: 12 B a point).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kSubMinBlocks)
+newton_update_kernel(float* __restrict__ nv, const float* va,
+                     const float* vb, const float* __restrict__ norms,
+                     int ncyc, unsigned b_mask,
+                     const int* __restrict__ done, Geom g) {
+  if (*done) return;
+  int c = 0;
+  for (int q = 0; q < ncyc; ++q) c += norms[q] != -1.0f;
+  flat_pass<kVec, kFlatAdd>(nv, (b_mask >> c) & 1u ? vb : va, g);
+}
+
+// The outer gate of the batched Newton loop (gpusolve_tpu/solver/
+// newton.py:176-179, :194-199), one thread.  Seed (ss null): clear both flags and
+// write the first step's inner threshold from the host's ||F|| `fn`.
+// Else, unless the outer flag is set: res = sqrtf(sum F^2) into *res_out,
+// outer flag = (res >= 0 && res <= thr_outer), the inner flag the next
+// step starts from = the outer flag, and the next step's inner threshold
+// from res.  The inner threshold is the JAX loop's float32 formula,
+// (f32(fn) * 0.1f)^2 moved up 2 ulps: each product rounded on its own
+// (no fma), IEEE sqrtf and nextafterf (no fast-math flag), so it equals
+// numpy's float32 result bit for bit.  Bound: latency (a few words).
+__global__ void __launch_bounds__(1)
+newton_gate_kernel(const float* __restrict__ ss, float fn, float thr_outer,
+                   float* __restrict__ res_out, int* __restrict__ odone,
+                   int* __restrict__ idone, float* __restrict__ thr_in) {
+  float res = fn;
+  int d = 0;
+  if (ss != nullptr) {
+    if (*odone) return;
+    res = sqrtf(*ss);
+    *res_out = res;
+    d = (res >= 0.0f && res <= thr_outer) ? 1 : 0;
+  }
+  *odone = d;
+  *idone = d;
+  const float inf = __int_as_float(0x7f800000);
+  float t = __fmul_rn(res, 0.1f);
+  t = __fmul_rn(t, t);
+  *thr_in = nextafterf(nextafterf(t, inf), inf);
+}
+
+// The grid of a flat pass over (nx, ny, nz): one x-plane a grid row, its
+// interior span, ny * (nz + 2) - 2 points, in groups of 4 floats that
+// may start and end inside a group.
+dim3 flat_grid(const Geom& g) {
+  const long long groups = (g.ny * g.sy + 6) / 4 + 1;
+  return dim3((unsigned)((groups + kThreads * kSubBatch - 1) /
+                         (kThreads * kSubBatch)), g.nx);
+}
+
+bool aligned16(const void* a, const void* b = nullptr,
+               const void* c = nullptr) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c) & 15) == 0;
 }
 
 }  // namespace
@@ -422,11 +539,23 @@ int mg_finalize_stage_bytes() { return kFinStageBytes; }
 int mg_finalize(const double* partials, long long n, float* out, float thr,
                 int* done, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      finalize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      finalize_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kFinStageBytes);
   if (e != cudaSuccess) return (int)e;
-  finalize_kernel<<<kFinCluster, kFinBlock, kFinStageBytes, stream>>>(
-      partials, n, out, thr, done);
+  finalize_kernel<false><<<kFinCluster, kFinBlock, kFinStageBytes, stream>>>(
+      partials, n, out, thr, nullptr, done);
+  return (int)cudaGetLastError();
+}
+
+// mg_finalize with the threshold read from the device float *thr.
+int mg_finalize_dev_thr(const double* partials, long long n, float* out,
+                        const float* thr, int* done, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      finalize_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFinStageBytes);
+  if (e != cudaSuccess) return (int)e;
+  finalize_kernel<true><<<kFinCluster, kFinBlock, kFinStageBytes, stream>>>(
+      partials, n, out, -1.0f, thr, done);
   return (int)cudaGetLastError();
 }
 
@@ -489,16 +618,51 @@ int mg_prolong_add(float* vf, const float* vc, const int* done, int fnx,
 int mg_subtract(float* v, const float* w, const int* done, int nx, int ny,
                 int nz, cudaStream_t stream) {
   const Geom g = make_geom(nx, ny, nz);
-  // Groups of one plane: its interior span, ny * (nz + 2) - 2 points, may
-  // start and end inside a group.
-  const long long groups = (g.ny * g.sy + 6) / 4 + 1;
-  const dim3 grid((unsigned)((groups + kThreads * kSubBatch - 1) /
-                             (kThreads * kSubBatch)), nx);
-  if ((((uintptr_t)v | (uintptr_t)w) & 15) == 0) {
+  const dim3 grid = flat_grid(g);
+  if (aligned16(v, w)) {
     subtract_kernel<true><<<grid, kThreads, 0, stream>>>(v, w, done, g);
   } else {
     subtract_kernel<false><<<grid, kThreads, 0, stream>>>(v, w, done, g);
   }
+  return (int)cudaGetLastError();
+}
+
+int mg_newton_zero(float* v, const int* done, int nx, int ny, int nz,
+                   cudaStream_t stream) {
+  const Geom g = make_geom(nx, ny, nz);
+  const dim3 grid = flat_grid(g);
+  if (aligned16(v)) {
+    newton_zero_kernel<true><<<grid, kThreads, 0, stream>>>(v, done, g);
+  } else {
+    newton_zero_kernel<false><<<grid, kThreads, 0, stream>>>(v, done, g);
+  }
+  return (int)cudaGetLastError();
+}
+
+// norms: the step's ncyc inner norms (-1 where a cycle did not run); bit
+// c of b_mask set: v is in vb after c cycles, else in va.
+int mg_newton_update(float* nv, const float* va, const float* vb,
+                     const float* norms, int ncyc, unsigned b_mask,
+                     const int* done, int nx, int ny, int nz,
+                     cudaStream_t stream) {
+  const Geom g = make_geom(nx, ny, nz);
+  const dim3 grid = flat_grid(g);
+  if (aligned16(nv, va, vb)) {
+    newton_update_kernel<true><<<grid, kThreads, 0, stream>>>(
+        nv, va, vb, norms, ncyc, b_mask, done, g);
+  } else {
+    newton_update_kernel<false><<<grid, kThreads, 0, stream>>>(
+        nv, va, vb, norms, ncyc, b_mask, done, g);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ss null: the seed (see newton_gate_kernel); res_out may then be null.
+int mg_newton_gate(const float* ss, float fn, float thr_outer,
+                   float* res_out, int* odone, int* idone, float* thr_in,
+                   cudaStream_t stream) {
+  newton_gate_kernel<<<1, 1, 0, stream>>>(ss, fn, thr_outer, res_out, odone,
+                                           idone, thr_in);
   return (int)cudaGetLastError();
 }
 

@@ -98,24 +98,28 @@ def residual_op(
     *,
     write_r: bool = True,
     norm_out: Optional[torch.Tensor] = None,
-    thr: float = -1.0,
+    thr=-1.0,
     done: Optional[torch.Tensor] = None,
     newton_v: Optional[torch.Tensor] = None,
 ) -> None:
     """The mode's residual into ``r`` (when ``write_r``); with ``norm_out``
     (a one-element tensor) also Σr² into it, setting ``done`` when
-    ``thr >= 0`` and ``Σr² <= thr``."""
+    ``thr >= 0`` and ``Σr² <= thr``.  ``thr`` is a float, or a one-element
+    float32 tensor on the device (read there: ``finalize_dev_thr``)."""
     with_norm = norm_out is not None
     residual = _pick(params, v, kernels.residual, kernels.residual_plain)
     partials = residual(
         r, v, f, dims, params, h, write_r=write_r, with_norm=with_norm,
         done=done, newton_v=newton_v,
     )
-    if with_norm:
-        finalize = _pick(
-            params, v, kernels.finalize, kernels.finalize_plain
-        )
-        finalize(partials, norm_out, thr, done)
+    if not with_norm:
+        return
+    if isinstance(thr, torch.Tensor):
+        finalize = _pick(params, v, kernels.finalize_dev_thr,
+                         kernels.finalize_dev_thr_plain)
+    else:
+        finalize = _pick(params, v, kernels.finalize, kernels.finalize_plain)
+    finalize(partials, norm_out, thr, done)
 
 
 def restrict_zero_op(

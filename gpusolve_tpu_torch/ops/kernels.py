@@ -50,6 +50,7 @@ import threading
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gpusolve_tpu_torch.config import GridParams, Mode, Stencil
@@ -74,6 +75,7 @@ KERNELS = (
     "residual", "residual_fas", "residual_newton", "finalize",
     "jacobi_sweep", "jacobi_sweep_fas", "jacobi_sweep_newton",
     "restrict_zero", "restrict", "prolong_add", "apply_fas", "subtract",
+    "finalize_dev_thr", "newton_zero", "newton_update", "newton_gate",
     "vcycle_fused",
     "sweep_block", "sweep_block_fas", "sweep_block_newton",
     "residual_block", "residual_block_fas", "residual_block_newton",
@@ -200,6 +202,12 @@ def _bind(path: Path):
         "mg_restrict": ([p, p, p, p, i, i, i, i, i, i, p], i),
         "mg_prolong_add": ([p, p, p, i, i, i, i, i, i, p], i),
         "mg_subtract": ([p, p, p, i, i, i, p], i),
+        "mg_finalize_dev_thr": ([p, ll, p, p, p, p], i),
+        "mg_newton_zero": ([p, p, i, i, i, p], i),
+        "mg_newton_update": (
+            [p, p, p, p, i, ctypes.c_uint, p, i, i, i, p], i
+        ),
+        "mg_newton_gate": ([p, f, f, p, p, p, p, p], i),
         "mg_vcycle_fused": (
             [p, i, i, i, i, i, p, p, p, p, p, i, f, f, p, p, p, p], i
         ),
@@ -321,8 +329,10 @@ def _newton_v_for(params: GridParams, newton_v):
 
 
 # One zero flag per device for the launches given no ``done``.  Only the
-# finalize kernel writes a flag, and only with a stop threshold, which
-# ``finalize`` refuses without a flag of the caller's: so this one stays 0.
+# finalize kernels and the Newton gate write a flag: ``finalize`` only
+# with a stop threshold, which it refuses without a flag of the caller's,
+# ``finalize_dev_thr`` and ``newton_gate`` only into flags the caller
+# passes (they take no default): so this one stays 0.
 _zero_done = {}
 
 
@@ -844,3 +854,233 @@ def subtract(
     )
     _check_rc(rc, "subtract")
     launches["subtract"] += 1
+
+
+# ---------------------------------------------------------------------------
+# The device-batched Newton outer loop (solver/newton.py, _newton_batch):
+# the work the JAX package does as XLA glue around its whole-batch kernel
+# (gpusolve_tpu/solver/newton.py:144-200: lax.cond on the outer flag, the
+# inner threshold's float32 arithmetic, newton_v + v), here kernels that
+# honour the device flags, so up to K outer steps are enqueued with no host
+# read between them.  ``odone`` is the outer flag (a step after the outer
+# stop writes nothing), ``idone`` the inner solve's (it starts each step
+# equal to ``odone``).
+#
+# finalize_dev_thr — finalize (above) with the stop threshold read from a
+# one-element float32 tensor on the device, which the previous step's
+# newton_gate writes.  Same kernel body and sum order (a template
+# parameter), so its Σ is finalize's bit for bit.  Bound: latency.
+# ---------------------------------------------------------------------------
+
+
+def finalize_dev_thr_plain(partials, out, thr, done) -> None:
+    """Plain version of :func:`finalize_dev_thr`."""
+    if _is_done(done):
+        return
+    ss = torch.sum(partials).to(out.dtype).reshape(1)
+    out.copy_(ss)
+    t = thr.reshape(1)
+    done.copy_(((t >= 0) & (ss <= t)).to(torch.int32))
+
+
+def finalize_dev_thr(
+    partials: torch.Tensor,
+    out: torch.Tensor,
+    thr: torch.Tensor,
+    done: torch.Tensor,
+) -> None:
+    """``out[0] = float32(Σ partials)``; set ``done`` when ``thr[0] >= 0``
+    and the sum is ``<= thr[0]``, ``thr`` a one-element float32 tensor on
+    the device."""
+    if partials.device.type == "cpu":
+        return finalize_dev_thr_plain(partials, out, thr, done)
+    dev = _cuda_device(partials)
+    _check(partials, "partials", None, dev, torch.float64)
+    if partials.data_ptr() % 16:
+        raise ValueError("partials must start on a 16-byte boundary (the "
+                         "kernel copies them 16 bytes at a time)")
+    _check(out, "out", (1,), dev)
+    _check(thr, "thr", (1,), dev)
+    _check(done, "done", (1,), dev, torch.int32)
+    rc = lib().mg_finalize_dev_thr(
+        partials.data_ptr(), partials.numel(), out.data_ptr(),
+        thr.data_ptr(), done.data_ptr(), _stream(dev),
+    )
+    _check_rc(rc, "finalize_dev_thr")
+    launches["finalize_dev_thr"] += 1
+
+
+# ---------------------------------------------------------------------------
+# newton_zero — level 0's v = 0 over the interior unless ``done`` is set:
+# the zero start of a Newton step (the zeros_like of
+# gpusolve_tpu/solver/newton.py:69 under the lax.cond of :196).  Bound:
+# bytes (writes v: 4 B/point).  Design: subtract's flat pass storing
+# zeros, 16-byte stores where v is aligned, the halo never written.
+# ---------------------------------------------------------------------------
+
+
+def newton_zero_plain(v, dims, done) -> None:
+    """Plain version of :func:`newton_zero`."""
+    if _is_done(done):
+        return
+    ref.interior(v, dims).zero_()
+
+
+def newton_zero(v: torch.Tensor, dims: Dims, done: torch.Tensor) -> None:
+    """The interior of ``v`` = 0 unless ``done`` is set."""
+    if v.device.type == "cpu":
+        return newton_zero_plain(v, dims, done)
+    dev = _cuda_device(v)
+    _check(v, "v", _padded(dims), dev)
+    _check(done, "done", (1,), dev, torch.int32)
+    rc = lib().mg_newton_zero(v.data_ptr(), done.data_ptr(), *dims,
+                              _stream(dev))
+    _check_rc(rc, "newton_zero")
+    launches["newton_zero"] += 1
+
+
+# ---------------------------------------------------------------------------
+# newton_update — ũ += v over the interior unless ``done`` is set
+# (gpusolve_tpu/solver/newton.py:89 under :196).  The smoother
+# ping-pongs level 0's v with its spare buffer, so which of the two holds
+# v after a step's inner solve depends on how many cycles it ran (its
+# norms that are not −1), which only the device knows: the kernel counts
+# them and picks the buffer.  Bound: bytes (reads ũ and v, writes ũ: 12
+# B/point).  Design: subtract's flat pass, adding.
+# ---------------------------------------------------------------------------
+
+
+def _two_buffers(v_after):
+    """The two tensors of ``v_after`` (the tensor that holds v after c
+    cycles, c = 0, 1, ...; one tensor twice where the parity is even) and
+    the mask whose bit c is set where v is in the second."""
+    va = v_after[0]
+    others = {id(t): t for t in v_after if t is not va}
+    if len(others) > 1:
+        raise ValueError("v_after names more than two buffers")
+    vb = next(iter(others.values()), va)
+    mask = sum(1 << c for c, t in enumerate(v_after) if t is not va)
+    return va, vb, mask
+
+
+def newton_update_plain(nv, v_after, norms, dims, done) -> None:
+    """Plain version of :func:`newton_update`."""
+    if _is_done(done):
+        return
+    c = int(torch.count_nonzero(norms != -1.0))
+    ref.interior(nv, dims).add_(ref.interior(v_after[c], dims))
+
+
+def newton_update(
+    nv: torch.Tensor,
+    v_after,
+    norms: torch.Tensor,
+    dims: Dims,
+    done: torch.Tensor,
+) -> None:
+    """``nv += v`` over the interior unless ``done`` is set, where v is
+    ``v_after[c]`` and c is the count of entries of ``norms`` (the step's
+    inner norms, −1 where a cycle did not run) that are not −1.
+    ``v_after[c]`` is the tensor that holds v after c cycles, c = 0 …
+    len(norms): at most two distinct tensors, neither sharing memory with
+    ``nv``."""
+    if len(v_after) != norms.numel() + 1:
+        raise ValueError(
+            f"v_after has {len(v_after)} entries for {norms.numel()} norms"
+        )
+    va, vb, mask = _two_buffers(v_after)
+    for t in (va, vb):
+        _refuse_overlap(nv, t)
+    if nv.device.type == "cpu":
+        return newton_update_plain(nv, v_after, norms, dims, done)
+    dev = _cuda_device(nv)
+    shape = _padded(dims)
+    _check(nv, "nv", shape, dev)
+    _check(va, "v", shape, dev)
+    _check(vb, "v", shape, dev)
+    _check(norms, "norms", (norms.numel(),), dev)
+    _check(done, "done", (1,), dev, torch.int32)
+    rc = lib().mg_newton_update(
+        nv.data_ptr(), va.data_ptr(), vb.data_ptr(), norms.data_ptr(),
+        norms.numel(), mask, done.data_ptr(), *dims, _stream(dev),
+    )
+    _check_rc(rc, "newton_update")
+    launches["newton_update"] += 1
+
+
+# ---------------------------------------------------------------------------
+# newton_gate — the outer gate (gpusolve_tpu/solver/newton.py:194-199),
+# one thread.  With ``ss`` (the step's ΣF², from comp_f's finalize), unless
+# ``odone`` is set: ``res = sqrt(ΣF²)`` into ``res_out``, ``odone =
+# idone = (res >= 0 and res <= thr_outer)`` and the next step's inner
+# threshold from res into ``thr_in``.  Without ``ss`` (the seed of a
+# batch): both flags cleared and ``thr_in`` from the host's ``fn``.  The
+# inner threshold is the JAX loop's float32 formula (:176-179), see
+# inner_threshold.  Bound: latency (a few words).  Design: one thread; the
+# products rounded one by one, IEEE sqrtf and nextafterf.
+# ---------------------------------------------------------------------------
+
+
+def inner_threshold(fn):
+    """The inner solve's squared stop threshold from ‖F‖, in float32 as
+    the JAX package's batched loop rounds it: ``(f32(fn)·f32(0.1))²``
+    moved up 2 ulps (numpy float32)."""
+    with np.errstate(over="ignore"):  # a huge norm squares to inf
+        t = np.float32(fn) * np.float32(0.1)
+        t = t * t
+    inf = np.float32(np.inf)
+    return np.nextafter(np.nextafter(t, inf, dtype=np.float32), inf,
+                        dtype=np.float32)
+
+
+def newton_gate_plain(ss, fn, thr_outer, res_out, odone, idone,
+                      thr_in) -> None:
+    """Plain version of :func:`newton_gate`, in numpy float32 on the host
+    (numpy's float32 root is correctly rounded, as the kernel's sqrtf and
+    the per-step loop's root are; torch's float32 sqrt on the CPU can miss
+    by an ulp)."""
+    if ss is None:
+        res, d = np.float32(fn), 0
+    else:
+        if _is_done(odone):
+            return
+        res = np.sqrt(np.float32(ss.item()))
+        res_out.fill_(float(res))
+        d = int(res >= 0 and res <= np.float32(thr_outer))
+    odone.fill_(d)
+    idone.fill_(d)
+    thr_in.fill_(float(inner_threshold(res)))
+
+
+def newton_gate(
+    ss: Optional[torch.Tensor],
+    fn: float,
+    thr_outer: float,
+    res_out: Optional[torch.Tensor],
+    odone: torch.Tensor,
+    idone: torch.Tensor,
+    thr_in: torch.Tensor,
+) -> None:
+    """The outer gate after a step (``ss`` given), or the seed of a batch
+    (``ss`` None, from the host's ‖F‖ ``fn``); see the note above.
+    ``thr_outer`` is a float32 value; every tensor has one element."""
+    if odone.device.type == "cpu":
+        return newton_gate_plain(ss, fn, thr_outer, res_out, odone, idone,
+                                 thr_in)
+    dev = _cuda_device(odone)
+    for name, t, dt in (("odone", odone, torch.int32),
+                        ("idone", idone, torch.int32),
+                        ("thr_in", thr_in, torch.float32)):
+        _check(t, name, (1,), dev, dt)
+    if ss is not None:
+        _check(ss, "ss", (1,), dev)
+        _check(res_out, "res_out", (1,), dev)
+    if odone.data_ptr() == idone.data_ptr():
+        raise ValueError("odone and idone must be distinct")
+    rc = lib().mg_newton_gate(
+        ss.data_ptr() if ss is not None else None, fn, thr_outer,
+        res_out.data_ptr() if ss is not None else None, odone.data_ptr(),
+        idone.data_ptr(), thr_in.data_ptr(), _stream(dev),
+    )
+    _check_rc(rc, "newton_gate")
+    launches["newton_gate"] += 1

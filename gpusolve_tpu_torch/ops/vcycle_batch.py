@@ -20,7 +20,9 @@ spare buffer r, so the host tracks which tensor holds v after every cycle
 and, once the norms show how many cycles ran, hands each level the
 tensors it held after the last executed cycle.  Every other field (f,
 rest_v, newton_v) keeps its tensor, and the ops of skipped cycles write
-none of them.
+none of them.  ``enqueue`` and ``hand_over`` are ``run``'s halves
+around its read; the batched Newton loop (``solver/newton.py``) calls
+them around a read of its own.
 
 Per mode, a visit of a non-coarsest level i (JAX: gpusolve_tpu/solver/
 vcycle.py:86-148):
@@ -181,6 +183,63 @@ def run_tail(
         _cycle(levels, params, done)
 
 
+# Host reads of device values by the solve loops, one sync each: the
+# batch's norms here, the initial residual and v1's per-cycle norm
+# (solver/vcycle.py), comp_f's ‖F‖ and the Newton batch's vector
+# (solver/newton.py).
+host_reads = 0
+
+
+def read_host(t: torch.Tensor, timer=None) -> np.ndarray:
+    """``t`` on the host, as numpy: one sync, counted in ``host_reads`` and
+    timed as ``sumBuffer`` when a timer is given."""
+    global host_reads
+    host_reads += 1
+    if timer is None:
+        return t.cpu().numpy()
+    with timer.section("sumBuffer"):
+        return t.cpu().numpy()
+
+
+def enqueue(
+    levels: List[GridLevel],
+    params: GridParams,
+    n: int,
+    norms: torch.Tensor,
+    done: torch.Tensor,
+    held: List[List[Tuple[torch.Tensor, torch.Tensor]]],
+    thr=-1.0,
+) -> None:
+    """Enqueue ``n`` cycles on ``levels`` in place, with no host read:
+    cycle i's finest-level Σr² into ``norms[i]``, and ``done`` set by its
+    finalize when ``thr`` (a float, or a one-element float32 tensor on the
+    device) is met; every op of every cycle reads ``done``.  After each
+    cycle appends each level's ``(v, r)`` to ``held``, so ``held[c]`` (from
+    the caller's entry for c = 0) is what the levels hold after c
+    cycles."""
+    dims0 = params.level_dims()[0]
+    h0 = params.level_h(0)
+    for i in range(n):
+        _cycle(levels, params, done)
+        lvl0 = levels[0]
+        ops.residual_op(
+            None, lvl0.v, lvl0.f, dims0, params, h0, write_r=False,
+            norm_out=norms[i : i + 1], thr=thr, done=done,
+            newton_v=lvl0.newton_v,
+        )
+        held.append([(lvl.v, lvl.r) for lvl in levels])
+
+
+def hand_over(
+    levels: List[GridLevel],
+    held: List[List[Tuple[torch.Tensor, torch.Tensor]]],
+    executed: int,
+) -> None:
+    """Give each level the ``(v, r)`` it held after ``executed`` cycles."""
+    for lvl, (v, r) in zip(levels, held[executed]):
+        lvl.v, lvl.r = v, r
+
+
 def run(
     state: GridState,
     params: GridParams,
@@ -198,29 +257,11 @@ def run(
     when a timer is given)."""
     levels = list(state.levels)
     lvl0 = levels[0]
-    dims0 = params.level_dims()[0]
-    h0 = params.level_h(0)
     n = maxk if ncyc is None else min(ncyc, maxk)
     norms = torch.full((maxk,), -1.0, dtype=lvl0.v.dtype, device=lvl0.v.device)
     done = torch.zeros(1, dtype=torch.int32, device=lvl0.v.device)
-    held: List[List[Tuple[torch.Tensor, torch.Tensor]]] = [
-        [(lvl.v, lvl.r) for lvl in levels]
-    ]
-    for i in range(n):
-        _cycle(levels, params, done)
-        lvl0 = levels[0]
-        ops.residual_op(
-            None, lvl0.v, lvl0.f, dims0, params, h0, write_r=False,
-            norm_out=norms[i : i + 1], thr=thr, done=done,
-            newton_v=lvl0.newton_v,
-        )
-        held.append([(lvl.v, lvl.r) for lvl in levels])
-    if timer is not None:
-        with timer.section("sumBuffer"):
-            out = norms.cpu().numpy()
-    else:
-        out = norms.cpu().numpy()
-    executed = int(np.count_nonzero(out != -1.0))
-    for lvl, (v, r) in zip(levels, held[executed]):
-        lvl.v, lvl.r = v, r
+    held = [[(lvl.v, lvl.r) for lvl in levels]]
+    enqueue(levels, params, n, norms, done, held, thr)
+    out = read_host(norms, timer)
+    hand_over(levels, held, int(np.count_nonzero(out != -1.0)))
     return out

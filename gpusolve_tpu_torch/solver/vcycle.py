@@ -155,7 +155,7 @@ def residual_norm(
         lvl.r, lvl.v, lvl.f, params.level_dims()[0], params,
         params.level_h(0), norm_out=sumsq, newton_v=lvl.newton_v,
     )
-    return state, float(np.sqrt(sumsq.cpu().numpy()[0]))
+    return state, float(np.sqrt(vcycle_batch.read_host(sumsq)[0]))
 
 
 def _solve_batched(
@@ -216,11 +216,7 @@ def _solve_per_cycle(
     for i in range(params.maxiter):
         t0 = time.perf_counter()
         state, sumsq = vcycle_fused(state, params)
-        if timer is not None:
-            with timer.section("sumBuffer"):
-                ss = sumsq.cpu().numpy()[0]
-        else:
-            ss = sumsq.cpu().numpy()[0]
+        ss = vcycle_batch.read_host(sumsq, timer)[0]
         res = float(np.sqrt(dt.type(ss)))
         history.append(res)
         if params.print_progress:
