@@ -84,6 +84,23 @@ Phases (any failure exits non-zero before the last line is printed):
      V(6,6) solve with its idle share, and the cost of one op and its
      grid barrier.
 
+The batch engine's fused legs (ops/csrc/mg_legs.cu, down_leg / up_leg):
+  2. each leg against its plain version in every mode at S = 1..5, at
+     15³, (33,17,9), 63³ and 511³ (the two other stencils at the small
+     shapes), done set and clear: fields bit for bit, the up leg's norm
+     within 1 float32 ulp; FAS and NEWTON on subnormal operands and on
+     quotients that are ties of the float32 grid (the exact walk, which
+     the counter mg_leg_exact_walks must show) and on operands scaled by
+     2^-70 (inside the fast division's range);
+  3. each 511³ main path on the legs against the same solve on the
+     per-op schedule (histories and every level's fields bit for bit);
+  5. each level-0 leg beside its bound and the per-op kernels for the
+     same work; every level's legs against its per-op visit, with the
+     blocks on the exact walk; the V(3,3) cycle on the legs and on the
+     per-op schedule in turns; the Newton step on both.
+  ``python3 chip_smoke.py --legs`` runs only these (the solves in place
+  of the main paths) and prints no contract line.
+
 The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
   1. the dynamic shared memory of each leg launch at 511³ (S = 3) and
      the blocks an SM holds of it, by shared memory and by the occupancy
@@ -223,6 +240,7 @@ SRC = "gpusolve_tpu_torch/ops/csrc/multigrid.cu"
 V1_SRC = "gpusolve_tpu_torch/ops/csrc/vcycle_fused.cu"
 SPMD_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_block.cu"
 LEG_SRC = "gpusolve_tpu_torch/ops/csrc/spmd_leg.cu"
+LEGS_SRC = "gpusolve_tpu_torch/ops/csrc/mg_legs.cu"
 POD_SRC = "gpusolve_tpu_torch/ops/csrc/pod.cu"
 RDMA_SRC = "gpusolve_tpu_torch/ops/csrc/rdma_exchange.cu"
 SHAPES = [(15, 15, 15), (16, 16, 16), (31, 15, 63), (127, 127, 127),
@@ -289,6 +307,14 @@ REPLACES = {
     "pod_up_fas": "gpusolve_tpu/ops/pallas_pod.py:741",
     "pod_up_newton": "gpusolve_tpu/ops/pallas_pod.py:741",
     "rdma_exchange": "gpusolve_tpu/ops/pallas_spmd.py:1919",
+    # The batch engine's fused legs: _vcycle2_call's streamed pass a leg
+    # (stream_pass; the up leg's prolongation is prolong_yz, :499).
+    "down_leg": "gpusolve_tpu/ops/pallas_vcycle2.py:517",
+    "down_leg_fas": "gpusolve_tpu/ops/pallas_vcycle2.py:517",
+    "down_leg_newton": "gpusolve_tpu/ops/pallas_vcycle2.py:517",
+    "up_leg": "gpusolve_tpu/ops/pallas_vcycle2.py:517",
+    "up_leg_fas": "gpusolve_tpu/ops/pallas_vcycle2.py:517",
+    "up_leg_newton": "gpusolve_tpu/ops/pallas_vcycle2.py:517",
 }
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # Operations counted for one e^x (a range reduction, a polynomial and a
@@ -487,6 +513,18 @@ def print_ptxas(log):
                        "newton_update_kernel<1>", "newton_gate_kernel")
            if k not in spills]
     check(not new, f"ptxas reported no {new} (of {sorted(spills)})")
+    # The fused legs: every mode x S = 1..5 x tap order, down and up; the
+    # LINEAR main path's instantiations (S = 3, canonical taps) must not
+    # spill (FAS's and NEWTON's hold the 64-register cap of 1024 threads
+    # with a few spilled words: PERF.md row 6).
+    legs2 = sorted(k for k in spills
+                   if k.startswith(("down_leg_kernel<", "up_leg_kernel<")))
+    check(len(legs2) == 60, f"ptxas reported {len(legs2)} of 60 fused-leg "
+          "instantiations")
+    for k in (f"{d}_leg_kernel<0,3,1>" for d in ("down", "up")):
+        line = spills.get(k, "")
+        check(not re.search(r"[1-9]\d* bytes spill", line),
+              f"{k} spills: {line}")
 
 
 def print_leg_smem(base):
@@ -1013,6 +1051,210 @@ def check_kernels(base, rec):
     print(f"check bit-identical over all shapes: {rec.same}")
 
 
+# The fused legs' shapes (csrc/mg_legs.cu): two small grids, one not
+# 2^k - 1 along every axis, 63³ (a few tiles a plane) and the 511³ level 0.
+LEG_SHAPES = [(15, 15, 15), (33, 17, 9), (63, 63, 63), BIG]
+
+
+def f32_ulps(a, b):
+    """How many float32 ulps (of b) a lies from b."""
+    import numpy as np
+
+    a, b = np.float32(a), np.float32(b)
+    return float(abs(a - b) / np.spacing(b)) if a != b else 0.0
+
+
+def check_fused_legs(base, rec):
+    """down_leg and up_leg against down_leg_plain / up_leg_plain in each
+    mode at S = 1..5 and at LEG_SHAPES (canonical taps; OTHER_TAPS at the
+    three small shapes): every output field bit for bit (the smoothed v,
+    the coarse f, the coarse v, FAS's rest_v; the halos the sentinel they
+    were filled with), and the up leg's norm, finalized, within one
+    float32 ulp of the plain norm (its partials are one a block, not one a
+    32 x 8 x 8 box, so the float64 sum groups otherwise).  A set done flag
+    leaves every output as it was."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode, Stencil
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    worst_ulps = 0.0
+    for n, dims in enumerate(LEG_SHAPES):
+        x = Fields(dims, seed=300 + n)
+        stencils = [("canonical", None)]
+        if dims != BIG:
+            stencils += list(OTHER_TAPS.items())
+        for mode in Mode:
+            nv = x.nv if mode == Mode.NEWTON else None
+            fas = mode == Mode.NONLINEAR
+            dn, up = K.variant("down_leg", mode), K.variant("up_leg", mode)
+            for tname, taps in stencils:
+                p = base.replace(grid_dim=dims, mode=mode,
+                                 print_progress=False)
+                if taps is not None:
+                    p = p.replace(stencil=Stencil(values=taps[0],
+                                                  offsets=taps[1]))
+                h = p.level_h(0)
+                same, ulps = True, []
+                for S in range(1, 6):
+                    outs = [torch.full_like(x.v, 7.0)] + [
+                        torch.full_like(x.vc, 3.0) for _ in range(3)]
+                    want = [t.clone() for t in outs]
+                    K.down_leg(outs[0], x.v, x.f, outs[1], outs[2], dims,
+                               x.cdims, p, h, S, None, nv,
+                               outs[3] if fas else None)
+                    K.down_leg_plain(want[0], x.v, x.f, want[1], want[2],
+                                     dims, x.cdims, p, h, S, None, nv,
+                                     want[3] if fas else None)
+                    rec.fields(outs, want, f"down_leg {dims} S={S}", dn)
+                    same = same and all(
+                        torch.equal(a, b) for a, b in zip(outs, want))
+                    got = torch.full_like(x.v, 5.0)
+                    ref = got.clone()
+                    parts = K.up_leg(got, x.v, x.vc, x.f, dims, x.cdims, p,
+                                     h, S, None, nv, with_norm=True)
+                    pparts = K.up_leg_plain(ref, x.v, x.vc, x.f, dims,
+                                            x.cdims, p, h, S, None, nv,
+                                            with_norm=True)
+                    rec.fields([got], [ref], f"up_leg {dims} S={S}", up)
+                    same = same and torch.equal(got, ref)
+                    norm = torch.empty(1, device=DEVICE)
+                    pnorm = torch.empty(1, device=DEVICE)
+                    K.finalize(parts, norm)
+                    K.finalize_plain(pparts, pnorm)
+                    ulps.append(f32_ulps(norm.item(), pnorm.item()))
+                check(same, f"legs {dims} {mode.name} {tname}: a field "
+                      "differs from the plain version")
+                check(max(ulps) <= 1.0, f"legs {dims} {mode.name} {tname}:"
+                      f" norms {ulps} ulps from the plain norm")
+                worst_ulps = max(worst_ulps, max(ulps))
+                print(f"check down_leg / up_leg {dims} {mode.name} {tname} "
+                      f"S=1..5 vs plain: fields bit-identical={same}, up "
+                      f"leg norm ulps from plain {ulps}")
+            # A set done flag: nothing written.
+            done = torch.ones(1, dtype=torch.int32, device=DEVICE)
+            outs = [torch.full_like(x.v, 7.0)] + [
+                torch.full_like(x.vc, 3.0) for _ in range(3)]
+            K.down_leg(outs[0], x.v, x.f, outs[1], outs[2], dims, x.cdims,
+                       base.replace(grid_dim=dims, mode=mode), 1.0, 3, done,
+                       nv, outs[3] if fas else None)
+            got = torch.full_like(x.v, 5.0)
+            K.up_leg(got, x.v, x.vc, x.f, dims, x.cdims,
+                     base.replace(grid_dim=dims, mode=mode), 1.0, 3, done,
+                     nv, with_norm=True)
+            kept = (all(bool((t == 7.0).all()) for t in outs[:1])
+                    and all(bool((t == 3.0).all()) for t in outs[1:])
+                    and bool((got == 5.0).all()))
+            check(kept, f"legs {dims} {mode.name}: a set done flag let a "
+                  "leg write")
+            print(f"check down_leg / up_leg {dims} {mode.name} done set: "
+                  f"outputs untouched={kept}")
+        del x
+        torch.cuda.empty_cache()
+    print(f"check legs: worst up-leg norm {worst_ulps:g} float32 ulps from "
+          "the plain norm")
+
+
+def exact_walks(reset=True):
+    """Blocks of either fused leg that took the exact walk (mg_legs.cu's
+    div_exact, where a division left the fast path's range) since the last
+    reset."""
+    import ctypes
+
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    n = ctypes.c_ulonglong()
+    K._check_rc(K.lib().mg_leg_exact_walks(ctypes.byref(n), int(reset)),
+                "mg_leg_exact_walks")
+    return n.value
+
+
+def check_legs_exact(base, rec):
+    """The legs where their division leaves the fast path, against the
+    plain versions bit for bit: FAS and NEWTON at (33,17,9), S = 1..3, on
+    fields scaled by 2^-130 (subnormal operands), and on quotients that lie
+    on midpoints of the float32 grid (v = ũ = 0, coarse v = 0, gamma 2, f =
+    m (pre_fac + gamma) 2^-150 with m odd: the first sweep's quotients m
+    2^-150 are ties, which round to even), both of which must take the
+    exact walk; and on fields scaled by 2^-70, tiny operands inside the
+    fast path's range."""
+    import numpy as np
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    dims = (33, 17, 9)
+    x = Fields(dims, seed=390)
+    rng = np.random.default_rng(391)
+    m = rng.choice(np.arange(-7, 8, 2), size=dims).astype(np.float64)
+    for mode in (Mode.NONLINEAR, Mode.NEWTON):
+        p = base.replace(grid_dim=dims, mode=mode, gamma=2.0,
+                         print_progress=False)
+        h = p.level_h(0)
+        den = float(np.float32(np.float32(p.stencil.diag / (h * h))
+                               + np.float32(p.gamma)))
+        check(den % 2 == 0 and den < 2 ** 24,
+              f"legs exact: pre_fac + gamma {den} is not an even integer "
+              "below 2^24, so f = m den 2^-150 is no float32")
+        tie_f = torch.zeros_like(x.f)
+        tie_f[1:-1, 1:-1, 1:-1] = torch.from_numpy(
+            (m * den * 2.0 ** -150).astype(np.float32)).to(DEVICE)
+
+        def scaled(k):
+            return (x.v * 2.0 ** k, x.f * 2.0 ** k, x.nv, x.vc * 2.0 ** k)
+
+        cases = (
+            ("2^-130", scaled(-130), True),
+            ("ties", (torch.zeros_like(x.v), tie_f, torch.zeros_like(x.nv),
+                      torch.zeros_like(x.vc)), True),
+            ("2^-70", scaled(-70), False),
+        )
+        nv_mode = mode == Mode.NEWTON
+        fas = mode == Mode.NONLINEAR
+        dn, up = K.variant("down_leg", mode), K.variant("up_leg", mode)
+        for what, (v, f, nv, vc), forced in cases:
+            nv = nv if nv_mode else None
+            same, walks = True, []
+            for S in range(1, 4):
+                outs = [torch.full_like(v, 7.0)] + [
+                    torch.full_like(vc, 3.0) for _ in range(3)]
+                want = [t.clone() for t in outs]
+                exact_walks()
+                K.down_leg(outs[0], v, f, outs[1], outs[2], dims, x.cdims,
+                           p, h, S, None, nv, outs[3] if fas else None)
+                got = torch.full_like(v, 5.0)
+                parts = K.up_leg(got, v, vc, f, dims, x.cdims, p, h, S,
+                                 None, nv, with_norm=True)
+                walks.append(exact_walks())
+                K.down_leg_plain(want[0], v, f, want[1], want[2], dims,
+                                 x.cdims, p, h, S, None, nv,
+                                 want[3] if fas else None)
+                ref = torch.full_like(v, 5.0)
+                pparts = K.up_leg_plain(ref, v, vc, f, dims, x.cdims, p, h,
+                                        S, None, nv, with_norm=True)
+                rec.fields(outs, want, f"down_leg {what} S={S}", dn)
+                rec.fields([got], [ref], f"up_leg {what} S={S}", up)
+                norm = torch.empty(1, device=DEVICE)
+                pnorm = torch.empty(1, device=DEVICE)
+                K.finalize(parts, norm)
+                K.finalize_plain(pparts, pnorm)
+                same = (same and torch.equal(got, ref)
+                        and all(torch.equal(a, b) for a, b in zip(outs, want))
+                        and f32_ulps(norm.item(), pnorm.item()) <= 1.0)
+            check(same, f"legs {mode.name} {what}: a field or the norm "
+                  "differs from the plain version")
+            if forced:
+                check(all(walks), f"legs {mode.name} {what}: no block took "
+                      f"the exact walk ({walks})")
+            print(f"check down_leg / up_leg {dims} {mode.name} {what} "
+                  f"S=1..3 vs plain: fields bit-identical and norms within "
+                  f"1 ulp={same}, blocks on the exact walk {walks}")
+
+
 def seeded_state(params, seed):
     """A state with seeded level-0 v (scale 0.05) and, in NEWTON, ũ
     (scale 0.3)."""
@@ -1491,9 +1733,12 @@ def newton_stops_127():
 
 
 def other_cycles(params127, label):
+    """W and F cycles at 127³ (3 cycles, or 3 Newton steps), against the
+    plain ops; their launches equal the schedule's.  Returns the launches
+    summed over both."""
     from gpusolve_tpu_torch.ops import kernels as K
-    from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
 
+    total = {}
     for cyc in "WF":
         p = params127.replace(cycle_type=cyc, maxiter=3, tol=1e-12,
                               print_progress=False)
@@ -1502,12 +1747,67 @@ def other_cycles(params127, label):
         counts = nonzero(K.launches)
         _, ref_hist, _ = run_solve(p.replace(backend="ref"), 3)
         worst = histories_agree(hist, ref_hist, f"127^3 {label} {cyc}")
-        per = launches_per_cycle(p)
-        sweep = K.variant("jacobi_sweep", p.mode)
-        check(counts[sweep] == 3 * per[sweep],
-              f"{label} {cyc}: launch counts {counts}")
+        want = expected_counts(p, hist, 3)
+        check(counts == want, f"{label} {cyc}: launch counts {counts} != "
+              f"schedule {want}")
         print(f"127^3 {label} {cyc}-cycle: history {hist} ({secs:.3f} s), "
               f"worst rel diff vs plain {worst:.3e}, launches {counts}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+@contextlib.contextmanager
+def per_op_schedule():
+    """The batch engine with every level visit on the per-op kernels (the
+    schedule W and F cycles past the sweep cap run): both legs refused."""
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    legs = vcycle_batch.legs
+    vcycle_batch.legs = lambda params: (False, False)
+    try:
+        yield
+    finally:
+        vcycle_batch.legs = legs
+
+
+def legs_vs_per_op(params, label, state, hist, k=10):
+    """The main path on the legs against the same solve on the per-op
+    schedule, from the same state: every level's fields bit for bit, each
+    history entry within one float32 ulp (the up leg's norm partials group
+    the float64 sum otherwise), the per-op run's launches its schedule's."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    with per_op_schedule():
+        K.reset_launches()
+        with counting_inner() as inner_cycles:
+            ref, ref_hist, secs = run_solve(params, k)
+        counts = nonzero(K.launches)
+        want = expected_counts(params, ref_hist, k, inner_cycles)
+    check(counts == want, f"{label} per-op schedule: launch counts {counts}"
+          f" != schedule {want}")
+    check(len(hist) == len(ref_hist),
+          f"{label}: legs {len(hist)} entries, per-op {len(ref_hist)}")
+    ulps = [f32_ulps(a, b) for a, b in zip(hist, ref_hist)]
+    check(max(ulps) <= 1.0, f"{label}: legs vs per-op norms {ulps} ulps")
+
+    def fields(st):
+        return [(f"level {i} {n}", getattr(lvl, n))
+                for i, lvl in enumerate(st.levels)
+                for n in ("v", "f", "rest_v", "newton_v")
+                if getattr(lvl, n) is not None]
+
+    differ = [n for (n, a), (_, b) in zip(fields(state), fields(ref))
+              if not torch.equal(a, b)]
+    check(not differ, f"{label}: legs vs per-op fields differ: {differ}")
+    print(f"legs vs per-op schedule {label}: histories identical "
+          f"{hist == ref_hist} (worst {max(ulps):g} float32 ulps), every "
+          f"level's fields bit-identical ({len(fields(state))} fields); "
+          f"per-op run {secs:.3f} s wall, launches {counts}")
+    del ref
+    torch.cuda.empty_cache()
 
 
 def run_cli(args):
@@ -2051,6 +2351,7 @@ def time_cycles(params, state, rate, label):
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    exact_walks()
     t0 = time.perf_counter()
     a.record()
     vcycle_batch.run(state, params, maxk=k)
@@ -2058,11 +2359,13 @@ def time_cycles(params, state, rate, label):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / k
     dev = a.elapsed_time(b) / k
+    walks = exact_walks() / k
     nbytes = cycle_bytes(params)
     print(f"cycle {label}: {dev:.3f} ms/cycle device (CUDA events over "
           f"a {k}-cycle batch), {wall:.3f} ms/cycle wall; "
           f"{nbytes / 1e9:.3f} GB/cycle -> {nbytes / dev / 1e6:.1f} GB/s, "
-          f"bound {nbytes / rate * 1e3:.3f} ms/cycle")
+          f"bound {nbytes / rate * 1e3:.3f} ms/cycle; {walks:g} leg blocks "
+          "a cycle on the exact walk")
     if label.startswith("511^3 LINEAR"):
         fused = fused_cycle_bytes(params)
         print(f"cycle 511^3 fused-leg bound: {fused / 1e9:.3f} GB/cycle -> "
@@ -2079,7 +2382,244 @@ def time_cycles(params, state, rate, label):
               f"{wall_p / k:.3f} wall -> idle share {1 - busy / wall_p:.3f}")
     else:
         print("profile: no device time recorded (not measured)")
-    return dev
+    return dev, (busy / k if any_rows else None)
+
+
+def fused_leg_bytes(name, dims, cdims):
+    """Bytes a leg must move (kernel_bytes' rule): the down leg reads v
+    with its halo, f (and ũ), writes v and the coarse f and v (FAS also
+    rest_v); the up leg reads v with its halo, f (and ũ) and the coarse v
+    with its halo, writes v (the norm's partials are a few KB)."""
+    n, pad, cn = inner(dims), padded(dims), inner(cdims)
+    extra = n if name.endswith("_newton") else 0
+    if name.startswith("down_leg"):
+        return 4 * (pad + 2 * n + extra
+                    + (3 if name.endswith("_fas") else 2) * cn)
+    return 4 * (pad + 2 * n + extra + padded(cdims))
+
+
+def leg_plan(down, dims, S):
+    """mg_leg_plan: hy, ty, hz, tz, L, gx, gy, gz and the shared bytes of
+    a leg over ``dims`` at S sweeps."""
+    import ctypes
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    plan = (ctypes.c_int * 9)()
+    K._check_rc(K.lib().mg_leg_plan(int(down), *dims, S, plan),
+                "mg_leg_plan")
+    return list(plan)
+
+
+def per_op_visit(p, S, dims, cdims, h, v, f, nv, fc, vc, rest, cv, norm):
+    """The per-op kernels of one level visit as two functions: the down
+    half (S sweeps, the residual, its restriction(s) into fc, vc, rest)
+    and the up half (prolong_add of cv, S sweeps, with ``norm`` the
+    norm-only residual).  Each works on its own copy of v, made here: the
+    sweeps ping-pong it with a scratch field and the prolongation adds
+    into it in place, as the cycle does, so v stays as it was and a
+    repeated call walks on from what the last one left."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    fas = p.mode == Mode.NONLINEAR
+    work, out = v.clone(), torch.empty_like(v)
+    spare, out2 = v.clone(), torch.empty_like(v)
+
+    def down():
+        a, b = work, out
+        for _ in range(S):
+            K.jacobi_sweep(b, a, f, dims, p, h, None, nv)
+            a, b = b, a
+        K.residual(b, a, f, dims, p, h, newton_v=nv)
+        if fas:
+            K.restrict(fc, b, dims, cdims)
+            K.restrict(vc, a, dims, cdims, out2=rest)
+        else:
+            K.restrict_zero(fc, vc, b, dims, cdims)
+
+    def up():
+        K.prolong_add(spare, cv, dims, cdims)
+        a, b = spare, out2
+        for _ in range(S):
+            K.jacobi_sweep(b, a, f, dims, p, h, None, nv)
+            a, b = b, a
+        if norm:
+            K.residual(None, a, f, dims, p, h, write_r=False,
+                       with_norm=True, newton_v=nv)
+
+    return down, up
+
+
+def time_legs(params_by_mode, states, rate, rows):
+    """Each leg at the 511³ level 0 (S = 3, the main paths' V(3,3)): its
+    event and device ms beside its bound and its plain version's ms
+    (time_cases), and the per-op kernels for the same work, by events and
+    by device time (per_op_visit: the down leg's 3 sweeps, residual and
+    restriction(s), the up leg's prolongation, 3 sweeps and norm-only
+    residual)."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    dims = BIG
+    for down, name in ((1, "down"), (0, "up")):
+        hy, ty, hz, tz, L, gx, gy, gz, smem = leg_plan(down, dims, 3)
+        print(f"leg plan 511^3 S=3 {name}: a block's tile {ty} (y) x {tz} "
+              f"(z) of its extended tile (halo {hy} / {hz} below), x "
+              f"chunks of {L} planes, grid {gx} x {gy} x {gz} = "
+              f"{gx * gy * gz} blocks, {smem} bytes of shared memory")
+    for mode, p in params_by_mode.items():
+        state = states[mode]
+        cdims = p.level_dims()[1]
+        h = p.level_h(0)
+        lvl0, lvl1 = state.levels[0], state.levels[1]
+        v, f = lvl0.v, lvl0.f
+        nv = lvl0.newton_v if mode == Mode.NEWTON else None
+        out = torch.empty_like(v)
+        fc, vc, rest = lvl1.f.clone(), lvl1.v.clone(), lvl1.v.clone()
+        fas = mode == Mode.NONLINEAR
+        S = p.pre_smoothing
+        dn, up = K.variant("down_leg", mode), K.variant("up_leg", mode)
+        ntaps = len(p.stencil.values)
+        n = inner(dims)
+        point = 2 * ntaps + 4 + (EXP_OPS + 8 if mode != Mode.LINEAR else 0)
+        cases = {
+            dn: (
+                lambda: K.down_leg(out, v, f, fc, vc, dims, cdims, p, h, S,
+                                   None, nv, rest if fas else None),
+                lambda: K.down_leg_plain(out, v, f, fc, vc, dims, cdims, p,
+                                         h, S, None, nv,
+                                         rest if fas else None),
+                None, fused_leg_bytes(dn, dims, cdims),
+                ((S + 1) * point + 7) * n, "511^3 S=3",
+            ),
+            up: (
+                lambda: K.up_leg(out, v, lvl1.v, f, dims, cdims, p, h, S,
+                                 None, nv, with_norm=True),
+                lambda: K.up_leg_plain(out, v, lvl1.v, f, dims, cdims, p, h,
+                                       S, None, nv, with_norm=True),
+                None, fused_leg_bytes(up, dims, cdims),
+                ((S + 1) * point + 12) * n, "511^3 S=3",
+            ),
+        }
+        time_cases(cases, rate, rows)
+
+        per_op = per_op_visit(p, S, dims, cdims, h, v, f, nv, fc, vc,
+                              rest if fas else None, lvl1.v, True)
+        for name, fn in zip((dn, up), per_op):
+            ev, dev = cuda_ms(fn, reps=5), device_ms(fn, reps=5)
+            row = rows[name]
+            share = (f", {100 * row['bound_ms'] / row['device_ms']:.1f}% "
+                     "of its bound" if row["device_ms"] else "")
+            print(f"time {name} 511^3 S=3 vs the per-op kernels for the "
+                  f"same work: leg {fmt_ms(row['device_ms'])} "
+                  f"device{share} (target >= 35%), per-op {ev:.4f} ms "
+                  f"events, {fmt_ms(dev)} device "
+                  f"-> {dev / row['device_ms'] if dev and row['device_ms'] else float('nan'):.2f}x")
+        del out, fc, vc, rest, per_op
+        torch.cuda.empty_cache()
+
+
+def time_leg_levels(params, state, label):
+    """Each non-coarsest level's visit on the legs (down_leg, up_leg)
+    against its per-op visit (per_op_visit), device ms, on the state's
+    fields as a cycle meets them (a LINEAR or NEWTON coarse level's v
+    zero; apply_fas and subtract, the same in both, left out), with the
+    blocks of each leg that took the exact walk; and the sums over the
+    levels below 0."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    fas = params.mode == Mode.NONLINEAR
+    S = params.pre_smoothing
+    all_dims = params.level_dims()
+    below = [0.0, 0.0]
+    for i in range(params.num_levels - 1):
+        lvl, nxt = state.levels[i], state.levels[i + 1]
+        dims, cdims = all_dims[i], all_dims[i + 1]
+        h = params.level_h(i)
+        nv = lvl.newton_v if params.mode == Mode.NEWTON else None
+        v = lvl.v if i == 0 or fas else torch.zeros_like(lvl.v)
+        f, cv = lvl.f, nxt.v
+        out = torch.empty_like(v)
+        fc, vc = nxt.f.clone(), nxt.v.clone()
+        rest = nxt.v.clone() if fas else None
+        norm = i == 0
+
+        def down_leg():
+            K.down_leg(out, v, f, fc, vc, dims, cdims, params, h, S, None,
+                       nv, rest)
+
+        def up_leg():
+            K.up_leg(out, v, cv, f, dims, cdims, params, h, S, None, nv,
+                     with_norm=norm)
+
+        def legs():
+            down_leg()
+            up_leg()
+
+        per_op = per_op_visit(params, S, dims, cdims, h, v, f, nv, fc, vc,
+                              rest, cv, norm)
+
+        def per_op_both():
+            per_op[0]()
+            per_op[1]()
+
+        exact_walks()
+        down_leg()
+        walks_down = exact_walks()
+        up_leg()
+        walks_up = exact_walks()
+        blocks = [(lambda q: q[5] * q[6] * q[7])(leg_plan(d, dims, S))
+                  for d in (1, 0)]
+        leg_ms = device_ms(legs, reps=10)
+        op_ms = device_ms(per_op_both, reps=10)
+        ratio = op_ms / leg_ms if leg_ms and op_ms else float("nan")
+        print(f"level {i} {dims} {label}: legs {fmt_ms(leg_ms)} device, "
+              f"per-op visit {fmt_ms(op_ms)} -> {ratio:.2f}x; blocks on "
+              f"the exact walk: down {walks_down} of {blocks[0]}, up "
+              f"{walks_up} of {blocks[1]}")
+        if i > 0 and leg_ms and op_ms:
+            below[0] += leg_ms
+            below[1] += op_ms
+        del out, fc, vc, rest, per_op
+    print(f"levels 1..{params.num_levels - 2} {label}: legs {below[0]:.4f} "
+          f"ms device, per-op visits {below[1]:.4f} ms")
+    torch.cuda.empty_cache()
+
+
+def time_cycle_schedules(params, state, rate, label):
+    """The V(3,3) cycle on the legs and on the per-op schedule, in turns
+    (legs, per-op, per-op, legs): events and busy ms a cycle, launches a
+    cycle, idle share (time_cycles)."""
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    out = {"legs": [], "per-op": []}
+    for sched in ("legs", "per-op", "per-op", "legs"):
+        ctx = per_op_schedule() if sched == "per-op" else \
+            contextlib.nullcontext()
+        with ctx:
+            launches = sum(vcycle_batch.launches_per_cycle(params).values())
+            dev, busy = time_cycles(params, state, rate,
+                                    f"{label} ({sched}, run "
+                                    f"{len(out[sched]) + 1})")
+        out[sched].append((dev, busy))
+        print(f"cycle {label} {sched}: {launches} launches a cycle")
+    for i in range(2):
+        (dl, bl), (dp, bp) = out["legs"][i], out["per-op"][i]
+        print(f"cycle {label} legs vs per-op (pair {i + 1}): events "
+              f"{dl:.3f} vs {dp:.3f} ms, busy {fmt_ms(bl)} vs {fmt_ms(bp)}"
+              f" -> {dp / dl:.2f}x by events")
+        if bl is not None and bp is not None:
+            print(f"cycle {label}: legs less busy than the per-op schedule "
+                  f"(pair {i + 1}): {bl < bp} ({bl:.3f} vs {bp:.3f} ms)")
+    return out
 
 
 def time_newton_steps(params, steps=3):
@@ -4298,6 +4838,36 @@ def rdma_main_path(params, label, leg_hist, k=10):
     return counts
 
 
+def legs_only(base, rec, rate):
+    """``--legs``: the fused legs alone, a quick loop for work on them
+    (~4 min): their checks against the plain versions, then on each
+    mode's 511³ solve (solve / newton_solve, check_every=10) the level-0
+    legs' times, every level's legs against its per-op visit, and the
+    V(3,3) cycle on both schedules.  Prints no contract line."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+
+    check_fused_legs(base, rec)
+    check_legs_exact(base, rec)
+    rows = {}
+    for label in ("linear", "nonlinear", "newton"):
+        p = gt.parse_config(CONFS[label], grid_dim=BIG,
+                            print_progress=False)
+        state, hist, wall = run_solve(p, 10)
+        print(f"legs: 511^3 {label} solve, {len(hist) - 1} steps in "
+              f"{wall:.3f} s wall, last norm {hist[-1]}")
+        time_legs({p.mode: p}, {p.mode: state}, rate, rows)
+        what = f"511^3 {p.mode.name} V(3,3)"
+        time_leg_levels(p, state, what)
+        time_cycle_schedules(p, state, rate, what)
+        del state
+        torch.cuda.empty_cache()
+    print("chip_smoke --legs: done (no contract line)")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4338,6 +4908,8 @@ def main() -> int:
     base = gt.parse_config(CONFS["linear"])
     print_leg_smem(base)
     rec = Record()
+    if "--legs" in sys.argv[1:]:
+        return legs_only(base, rec, rate)
     check_kernels(base, rec)
     check_vcycle_fused(base, rec)
     check_block_kernels(base, rec)
@@ -4349,6 +4921,8 @@ def main() -> int:
     rows = {}
     check_rdma_kernel(base, rec, rate, rows)
     rdma_ranks()
+    check_fused_legs(base, rec)
+    check_legs_exact(base, rec)
 
     # Phase 3: each main path with its own counts.
     launched = {kname: 0 for kname in K.KERNELS}
@@ -4361,8 +4935,16 @@ def main() -> int:
         )
         for kname, n in counts.items():
             launched[kname] += n
+        legs_vs_per_op(params, f"511^3 {label}", states[label],
+                       batch_hist[label])
         if label != "newton":
             other_cycles(gt.parse_config(CONFS[label]), label)
+        # W and F past the sweep cap: each visit on the per-op kernels.
+        counts = other_cycles(gt.parse_config(
+            CONFS[label], pre_smoothing=6, post_smoothing=6),
+            f"{label} V(6,6)")
+        for kname, n in counts.items():
+            launched[kname] += n
     # The batched Newton loop (the 511³ main path above, check_every=10)
     # against the per-step loop on the kernels, its synchronising calls,
     # and its outer stop inside a batch and at a batch's end at 127³.
@@ -4449,13 +5031,26 @@ def main() -> int:
     time_mode_kernels(fas, states["nonlinear"], newt, states["newton"],
                       rate, rows)
     time_newton_kernels(newt, states["newton"], rate, rows)
-    lin_ms = time_cycles(lin, states.pop("linear"), rate,
-                         "511^3 LINEAR V(3,3)")
-    fas_ms = time_cycles(fas, states.pop("nonlinear"), rate,
-                         "511^3 FAS V(3,3)")
+    from gpusolve_tpu_torch.config import Mode
+
+    time_legs({Mode.LINEAR: lin, Mode.NONLINEAR: fas, Mode.NEWTON: newt},
+              {Mode.LINEAR: states["linear"],
+               Mode.NONLINEAR: states["nonlinear"],
+               Mode.NEWTON: states["newton"]}, rate, rows)
+    sched = {}
+    for p, key in ((lin, "linear"), (fas, "nonlinear"), (newt, "newton")):
+        time_leg_levels(p, states[key], f"511^3 {p.mode.name} V(3,3)")
+        sched[key] = time_cycle_schedules(p, states[key], rate,
+                                          f"511^3 {p.mode.name} V(3,3)")
+    lin_ms = sched["linear"]["legs"][0][0]
+    fas_ms = sched["nonlinear"]["legs"][0][0]
     states.clear()
     torch.cuda.empty_cache()
+    print("newton steps on the legs:")
     time_newton_steps(newt)
+    print("newton steps on the per-op schedule:")
+    with per_op_schedule():
+        time_newton_steps(newt)
     batch66 = time_v1(base, rate, rows)
     time_block_kernels(base, rate, rows)
     time_leg_kernels(base, rate, rows)
@@ -4492,7 +5087,8 @@ def main() -> int:
         row = rows[kname]
         kernels_line.append({
             "name": kname, "route": "cuda",
-            "source": (V1_SRC if kname == "vcycle_fused" else
+            "source": (LEGS_SRC if kname.startswith(("down_leg", "up_leg"))
+                       else V1_SRC if kname == "vcycle_fused" else
                        RDMA_SRC if kname == "rdma_exchange" else
                        POD_SRC if kname.startswith("pod_") else
                        LEG_SRC if kname.startswith("leg_block") else

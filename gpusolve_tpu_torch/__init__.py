@@ -51,6 +51,7 @@ from gpusolve_tpu_torch.dist import (
 )
 from gpusolve_tpu_torch.grid import GridLevel, GridState, build_grid
 from gpusolve_tpu_torch.solver.newton import newton_solve
+from gpusolve_tpu_torch.solver.refine import solve_refine
 from gpusolve_tpu_torch.solver.vcycle import solve, vcycle
 
 __all__ = [
@@ -70,6 +71,7 @@ __all__ = [
     "parse_config",
     "parse_config_text",
     "solve",
+    "solve_refine",
     "solve_spmd",
     "vcycle",
 ]

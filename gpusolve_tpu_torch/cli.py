@@ -25,8 +25,9 @@ Flags:
   --validate                 print the max-abs error against the analytic
                              solution (modes 1 and 2)
   --explain-backend          print (stderr) which engine runs: the batch
-                             of per-op kernels, the v1 whole-cycle kernel,
-                             or the plain ops
+                             of kernels (a level visit as two fused legs,
+                             or per op), the v1 whole-cycle kernel, or
+                             the plain ops
   --profile DIR              trace the solve with torch.profiler and write
                              a Chrome trace into DIR
   --save-state PATH          write a resumable checkpoint (.npz) after the
@@ -193,7 +194,7 @@ def _device(platform):
 
 
 _ENGINE_LINES = {
-    "batch": "single device: batch of per-op CUDA kernels, early stop on "
+    "batch": "single device: batch of CUDA kernels, early stop on "
              "the device (ops/vcycle_batch; the v2 whole-batch kernel's "
              "counterpart, of whose gates only the sweep cap applies: "
              "its TPU layout gates are not ported)",
@@ -221,7 +222,10 @@ def _single_device_notes(params, device, _explain) -> None:
     if kind == "plain":
         why = plain_reason(params, device, params.dtype)
         line += f" ({why}; ops/ref.py)"
-    _explain([line])
+    lines = [line]
+    if kind != "v1":
+        lines.append(vc.legs_note(params))
+    _explain(lines)
 
 
 @contextlib.contextmanager

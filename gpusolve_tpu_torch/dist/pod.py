@@ -423,8 +423,8 @@ class PodEngine(SpmdEngine):
 def launches_per_cycle(plan: PodPlan) -> dict:
     """Kernel launches one pod cycle makes on the card, by kernel
     (``dist/spmd.launches_per_cycle``'s counterpart): one ``pod_down`` a
-    down group, the tail's per-op kernels a tail group (its batch
-    without a norm), one ``pod_up`` a up group, FAS one ``subtract`` (the
+    down group, the batch engine's kernels a tail group (its fused legs
+    and the coarsest sweeps, without a norm), one ``pod_up`` a up group, FAS one ``subtract`` (the
     boundary's v − rest_v) before it; the cycle's norm is the level-0
     leg's, so one ``finalize``."""
     params = plan.params

@@ -5,8 +5,9 @@
 // gpusolve_tpu/ops/pallas_kernels.py::_jacobi_call, ::_residual_call (the
 // residual, its norm and the FAS operator), ::_restrict_call, ::_prolong_call
 // and gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (the whole batch of
-// cycles).  The batch is built here from per-op kernels that the host
-// launches level by level (ops/vcycle_batch.py):
+// cycles).  The host launches the batch level by level (ops/
+// vcycle_batch.py), each level visit as the fused legs of mg_legs.cu where
+// they run, else as these per-op kernels:
 //
 //   mg_residual       r = f - (A v / h^2 + mode term), optional r write,
 //                     per-block sum r^2
@@ -43,8 +44,9 @@
 // design moves each field once per op: a block covers a 32(z) x 8(y) column
 // and walks XCH x-planes, so the +-x taps of one plane were loaded by the
 // block's previous plane and hit in L1, and the +-y/+-z taps hit in L1 from
-// the neighbouring threads' loads.  Fusing the sweeps of a leg into one pass
-// (2.5-D temporal blocking, the TPU kernel's wavefront) is later work.
+// the neighbouring threads' loads.  The sweeps of a leg fused into one pass
+// (the TPU kernel's wavefront) are mg_legs.cu's; these kernels run the
+// coarsest level and the visits the legs refuse.
 //
 // Early stop: every kernel takes the device flag `done` and returns at once
 // when it is set; mg_finalize sets it when thr >= 0 and sum r^2 <= thr.  So

@@ -112,8 +112,14 @@ def residual_op(
         r, v, f, dims, params, h, write_r=write_r, with_norm=with_norm,
         done=done, newton_v=newton_v,
     )
-    if not with_norm:
-        return
+    if with_norm:
+        _finalize(params, v, partials, norm_out, thr, done)
+
+
+def _finalize(params, v, partials, norm_out, thr, done) -> None:
+    """Σ ``partials`` into ``norm_out``; ``done`` set when the threshold
+    (a float, or a one-element float32 tensor on the device, read there
+    by ``finalize_dev_thr``) is met."""
     if isinstance(thr, torch.Tensor):
         finalize = _pick(params, v, kernels.finalize_dev_thr,
                          kernels.finalize_dev_thr_plain)
@@ -193,3 +199,53 @@ def subtract_op(
     """``v −= w`` in place (FAS: coarse v − rest_v)."""
     op = _pick(params, v, kernels.subtract, kernels.subtract_plain)
     op(v, w, dims, done)
+
+
+def down_leg_op(
+    v_out: torch.Tensor,
+    v: torch.Tensor,
+    f: torch.Tensor,
+    f_coarse: torch.Tensor,
+    v_coarse: torch.Tensor,
+    dims: Dims,
+    coarse_dims: Dims,
+    params: GridParams,
+    h: float,
+    sweeps: int,
+    done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
+    rest_v: Optional[torch.Tensor] = None,
+) -> None:
+    """The fused down leg: ``sweeps`` sweeps into ``v_out``, the
+    residual's restriction into ``f_coarse`` and the coarse start
+    (``v_coarse`` = 0; FAS: R(v) into ``v_coarse`` and ``rest_v``)."""
+    op = _pick(params, v, kernels.down_leg, kernels.down_leg_plain)
+    op(v_out, v, f, f_coarse, v_coarse, dims, coarse_dims, params, h,
+       sweeps, done, newton_v, rest_v)
+
+
+def up_leg_op(
+    v_out: torch.Tensor,
+    v: torch.Tensor,
+    v_coarse: torch.Tensor,
+    f: torch.Tensor,
+    dims: Dims,
+    coarse_dims: Dims,
+    params: GridParams,
+    h: float,
+    sweeps: int,
+    done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
+    norm_out: Optional[torch.Tensor] = None,
+    thr=-1.0,
+) -> None:
+    """The fused up leg: ``v + P(v_coarse)`` and ``sweeps`` sweeps into
+    ``v_out``; with ``norm_out`` also Σr² of the result into it, setting
+    ``done`` as :func:`residual_op` does."""
+    op = _pick(params, v, kernels.up_leg, kernels.up_leg_plain)
+    partials = op(
+        v_out, v, v_coarse, f, dims, coarse_dims, params, h, sweeps, done,
+        newton_v, norm_out is not None,
+    )
+    if norm_out is not None:
+        _finalize(params, v, partials, norm_out, thr, done)

@@ -3,7 +3,8 @@ binding, wrappers, and the plain PyTorch version beside each.
 
 The kernels live in ``csrc/``: the per-op kernels in ``multigrid.cu``, the
 whole-V-cycle cooperative kernel in ``vcycle_fused.cu`` (its wrapper is
-``ops/vcycle_fused.py``), the distributed engine's shard-local kernels in
+``ops/vcycle_fused.py``), the batch engine's fused legs in ``mg_legs.cu``
+(wrappers below), the distributed engine's shard-local kernels in
 ``spmd_block.cu`` (their wrappers are ``ops/spmd_kernels.py``), their
 trapezoid leg in ``spmd_leg.cu`` (its wrapper is ``ops/spmd_leg.py``; its
 body in ``leg_device.cuh``), the pod engine's chains of legs in
@@ -62,6 +63,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     CSRC / "multigrid.cu", CSRC / "vcycle_fused.cu", CSRC / "spmd_block.cu",
     CSRC / "spmd_leg.cu", CSRC / "pod.cu", CSRC / "rdma_exchange.cu",
+    CSRC / "mg_legs.cu",
 )
 HEADERS = (CSRC / "mg_device.cuh", CSRC / "leg_device.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
@@ -85,6 +87,8 @@ KERNELS = (
     "pod_down", "pod_down_fas", "pod_down_newton",
     "pod_up", "pod_up_fas", "pod_up_newton",
     "rdma_exchange",
+    "down_leg", "down_leg_fas", "down_leg_newton",
+    "up_leg", "up_leg_fas", "up_leg_newton",
 )
 # Launches of each kernel since the last reset_launches(): only the CUDA
 # launches count, never the plain versions.
@@ -235,6 +239,15 @@ def _bind(path: Path):
         "mg_ipc_handle": ([i, p, p], i),
         "mg_ipc_open": ([i, p, p], i),
         "mg_ipc_close": ([i, p], i),
+        "mg_leg_plan": ([i, i, i, i, i, p], i),
+        "mg_up_leg_blocks": ([i, i, i, i], ll),
+        "mg_leg_exact_walks": ([p, i], i),
+        "mg_down_leg": (
+            [p] * 8 + [i, i, i, p, p, i, f, f, f, f, f, i, i, p], i
+        ),
+        "mg_up_leg": (
+            [p] * 7 + [i, i, i, p, p, i, f, f, f, f, f, i, i, p], i
+        ),
     }
     for name, (args, res) in sig.items():
         fn = getattr(lib, name)
@@ -576,8 +589,9 @@ def finalize(
 # modes.  Bound: bytes (reads v and f, NEWTON also ũ, writes v_out: 12 or
 # 16 B/point; ~17 flops, ~45 with expf and the division).  Design: out of
 # place into the level's spare buffer (the dispatch.smooth ping-pong), with
-# the residual's thread walk; one pass per sweep (the TPU kernel fuses a
-# leg's sweeps into one pass, later work here).
+# the residual's thread walk; one pass per sweep.  The batch engine fuses
+# a leg's sweeps into one pass (down_leg / up_leg below); this kernel runs
+# the coarsest level's sweeps and the legs the gate refuses.
 # ---------------------------------------------------------------------------
 
 
@@ -941,12 +955,14 @@ def newton_zero(v: torch.Tensor, dims: Dims, done: torch.Tensor) -> None:
 
 # ---------------------------------------------------------------------------
 # newton_update — ũ += v over the interior unless ``done`` is set
-# (gpusolve_tpu/solver/newton.py:89 under :196).  The smoother
-# ping-pongs level 0's v with its spare buffer, so which of the two holds
-# v after a step's inner solve depends on how many cycles it ran (its
-# norms that are not −1), which only the device knows: the kernel counts
-# them and picks the buffer.  Bound: bytes (reads ũ and v, writes ũ: 12
-# B/point).  Design: subtract's flat pass, adding.
+# (gpusolve_tpu/solver/newton.py:89 under :196).  The per-op visit's
+# smoother ping-pongs level 0's v with its spare buffer, so with odd
+# sweeps which of the two holds v after a step's inner solve depends on
+# how many cycles it ran (its norms that are not −1), which only the
+# device knows: the kernel counts them and picks the buffer.  (On the
+# fused legs level 0's v ends each cycle in the buffer it began in, and
+# the record names one buffer.)  Bound: bytes (reads ũ and v, writes ũ:
+# 12 B/point).  Design: subtract's flat pass, adding.
 # ---------------------------------------------------------------------------
 
 
@@ -1084,3 +1100,211 @@ def newton_gate(
     )
     _check_rc(rc, "newton_gate")
     launches["newton_gate"] += 1
+
+
+# ---------------------------------------------------------------------------
+# down_leg / up_leg — the structure of
+# gpusolve_tpu/ops/pallas_vcycle2.py::_vcycle2_call (:280): one streamed
+# pass a leg, its sweeps fused (stream_pass :517, restrict_yz :484,
+# prolong_yz :499).  The down leg runs S sweeps, the residual, its
+# restriction into the coarse f and the coarse start (v = 0; FAS: R(v) into
+# the coarse v and rest_v), and writes the smoothed v out of place into
+# ``v_out``; the up leg runs v += P(coarse v) and S sweeps into ``v_out``,
+# and with ``with_norm`` returns the residual's Σr² as per-block partials
+# for :func:`finalize`.  Bound: bytes (LINEAR down reads v and f, writes v
+# and ¼ of a field of coarse f and v: 3.25 fields; up reads v, f and ⅛ of
+# coarse v, writes v: 3.125; FAS and NEWTON a little more).  Design
+# (``csrc/mg_legs.cu``): a block of 32 warps on a 32 × 64 (y, z) tile walks
+# x one plane a step, every stage one plane behind the one before it, the
+# ±x taps in registers, the ±y taps through one shared plane buffer a
+# stage, one barrier a step.  S (1..5) and the mode are template
+# parameters; face-tap stencils only (``legs_take``).  Each plain version
+# is the plain ops it fuses, in the per-op cycle's order.
+# ---------------------------------------------------------------------------
+
+LEG_MAX_SWEEPS = 5  # csrc/mg_legs.cu kLegMaxS: the v2 sweep cap
+
+
+def legs_take(stencil: Stencil, sweeps: int) -> bool:
+    """Whether a leg of ``sweeps`` sweeps runs fused for ``stencil``: 1 to
+    5 sweeps, and face taps only (each offset along at most one axis); the
+    kernel refuses edge and corner taps."""
+    return 1 <= sweeps <= LEG_MAX_SWEEPS and all(
+        sum(abs(o) for o in off) <= 1 for off in stencil.offsets
+    )
+
+
+def _check_leg(params: GridParams, sweeps: int) -> None:
+    if not legs_take(params.stencil, sweeps):
+        raise ValueError(
+            f"the fused legs take 1..{LEG_MAX_SWEEPS} sweeps and face taps "
+            f"only; got {sweeps} sweeps, offsets {params.stencil.offsets}"
+        )
+
+
+def down_leg_plain(
+    v_out, v, f, f_coarse, v_coarse, dims, coarse_dims, params, h, sweeps,
+    done=None, newton_v=None, rest_v=None,
+) -> None:
+    """Plain version of :func:`down_leg`: the per-op plain ops in the
+    cycle's order (sweeps, residual, restrictions)."""
+    nv = _newton_v_for(params, newton_v)
+    _check_leg(params, sweeps)
+    if _is_done(done):
+        return
+    cur = v
+    for _ in range(sweeps):
+        nxt = torch.zeros_like(v)
+        jacobi_sweep_plain(nxt, cur, f, dims, params, h, None, nv)
+        cur = nxt
+    r = torch.zeros_like(v)
+    residual_plain(r, cur, f, dims, params, h, newton_v=nv)
+    if params.mode == Mode.NONLINEAR:
+        restrict_plain(f_coarse, r, dims, coarse_dims)
+        restrict_plain(v_coarse, cur, dims, coarse_dims, out2=rest_v)
+    else:
+        restrict_zero_plain(f_coarse, v_coarse, r, dims, coarse_dims)
+    ref.interior(v_out, dims).copy_(ref.interior(cur, dims))
+
+
+def down_leg(
+    v_out: torch.Tensor,
+    v: torch.Tensor,
+    f: torch.Tensor,
+    f_coarse: torch.Tensor,
+    v_coarse: torch.Tensor,
+    dims: Dims,
+    coarse_dims: Dims,
+    params: GridParams,
+    h: float,
+    sweeps: int,
+    done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
+    rest_v: Optional[torch.Tensor] = None,
+) -> None:
+    """The down leg of a level visit: ``sweeps`` sweeps of ``v`` into the
+    interior of ``v_out``, the residual's full weighting into ``f_coarse``
+    and the coarse start in ``v_coarse`` (zero; NONLINEAR: the full
+    weighting of the smoothed v, also into ``rest_v``)."""
+    if v.device.type == "cpu":
+        return down_leg_plain(
+            v_out, v, f, f_coarse, v_coarse, dims, coarse_dims, params, h,
+            sweeps, done, newton_v, rest_v,
+        )
+    nv = _newton_v_for(params, newton_v)
+    _check_leg(params, sweeps)
+    fas = params.mode == Mode.NONLINEAR
+    if fas and rest_v is None:
+        raise ValueError("NONLINEAR mode needs rest_v")
+    dev = _cuda_device(v)
+    shape, cshape = _padded(dims), _padded(coarse_dims)
+    _check_halving(dims, coarse_dims)
+    for name, t in (("v_out", v_out), ("v", v), ("f", f)):
+        _check(t, name, shape, dev)
+    outs = [("f_coarse", f_coarse), ("v_coarse", v_coarse)]
+    if fas:
+        outs.append(("rest_v", rest_v))
+    for name, t in outs:
+        _check(t, name, cshape, dev)
+    ins = [v, f] + ([nv] if nv is not None else [])
+    if nv is not None:
+        _check(nv, "newton_v", shape, dev)
+    written = [v_out] + [t for _, t in outs]
+    for i, a in enumerate(written):
+        for b in ins + written[i + 1:]:
+            _refuse_overlap(a, b)
+    done = _done_or_zero(done, dev)
+    t = _taps(params.stencil)
+    rc = lib().mg_down_leg(
+        v_out.data_ptr(), v.data_ptr(), f.data_ptr(),
+        nv.data_ptr() if nv is not None else None, f_coarse.data_ptr(),
+        v_coarse.data_ptr(), rest_v.data_ptr() if fas else None,
+        done.data_ptr(), *dims, t.val, t.off, t.n, 1.0 / (h * h),
+        (h * h) / params.stencil.diag, params.omega, params.gamma,
+        params.stencil.diag / (h * h), int(params.mode), int(sweeps),
+        _stream(dev),
+    )
+    name = variant("down_leg", params.mode)
+    _check_rc(rc, name)
+    launches[name] += 1
+
+
+def up_leg_plain(
+    v_out, v, v_coarse, f, dims, coarse_dims, params, h, sweeps, done=None,
+    newton_v=None, with_norm=False,
+) -> Optional[torch.Tensor]:
+    """Plain version of :func:`up_leg`: prolong_add, the sweeps and the
+    norm-only residual, plain; the partials are one float64 Σr²."""
+    nv = _newton_v_for(params, newton_v)
+    _check_leg(params, sweeps)
+    if _is_done(done):
+        return v.new_zeros(1, dtype=torch.float64) if with_norm else None
+    cur = v.clone()
+    prolong_add_plain(cur, v_coarse, dims, coarse_dims)
+    for _ in range(sweeps):
+        nxt = torch.zeros_like(v)
+        jacobi_sweep_plain(nxt, cur, f, dims, params, h, None, nv)
+        cur = nxt
+    ref.interior(v_out, dims).copy_(ref.interior(cur, dims))
+    if not with_norm:
+        return None
+    return residual_plain(None, cur, f, dims, params, h, write_r=False,
+                          with_norm=True, newton_v=nv)
+
+
+def up_leg(
+    v_out: torch.Tensor,
+    v: torch.Tensor,
+    v_coarse: torch.Tensor,
+    f: torch.Tensor,
+    dims: Dims,
+    coarse_dims: Dims,
+    params: GridParams,
+    h: float,
+    sweeps: int,
+    done: Optional[torch.Tensor] = None,
+    newton_v: Optional[torch.Tensor] = None,
+    with_norm: bool = False,
+) -> Optional[torch.Tensor]:
+    """The up leg of a level visit: ``v + P(v_coarse)`` and ``sweeps``
+    sweeps into the interior of ``v_out``.  With ``with_norm`` returns the
+    float64 partial sums of the residual's r² that :func:`finalize`
+    reduces; else None."""
+    if v.device.type == "cpu":
+        return up_leg_plain(
+            v_out, v, v_coarse, f, dims, coarse_dims, params, h, sweeps,
+            done, newton_v, with_norm,
+        )
+    nv = _newton_v_for(params, newton_v)
+    _check_leg(params, sweeps)
+    dev = _cuda_device(v)
+    shape = _padded(dims)
+    _check_halving(dims, coarse_dims)
+    for name, t in (("v_out", v_out), ("v", v), ("f", f)):
+        _check(t, name, shape, dev)
+    _check(v_coarse, "v_coarse", _padded(coarse_dims), dev)
+    if nv is not None:
+        _check(nv, "newton_v", shape, dev)
+    for t in [v, f, v_coarse] + ([nv] if nv is not None else []):
+        _refuse_overlap(v_out, t)
+    done = _done_or_zero(done, dev)
+    L = lib()
+    partials = None
+    if with_norm:
+        partials = torch.empty(
+            L.mg_up_leg_blocks(*dims, int(sweeps)), dtype=torch.float64,
+            device=dev,
+        )
+    t = _taps(params.stencil)
+    rc = L.mg_up_leg(
+        v_out.data_ptr(), v.data_ptr(), v_coarse.data_ptr(), f.data_ptr(),
+        nv.data_ptr() if nv is not None else None,
+        partials.data_ptr() if with_norm else None, done.data_ptr(), *dims,
+        t.val, t.off, t.n, 1.0 / (h * h), (h * h) / params.stencil.diag,
+        params.omega, params.gamma, params.stencil.diag / (h * h),
+        int(params.mode), int(sweeps), _stream(dev),
+    )
+    name = variant("up_leg", params.mode)
+    _check_rc(rc, name)
+    launches[name] += 1
+    return partials

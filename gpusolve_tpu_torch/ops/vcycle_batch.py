@@ -15,26 +15,36 @@ batch.
 On CPU tensors, or with ``backend="ref"``, the same function runs the plain
 ops, which read ``done`` on the host.
 
-State is updated in place: the smoother ping-pongs each level's v with its
-spare buffer r, so the host tracks which tensor holds v after every cycle
-and, once the norms show how many cycles ran, hands each level the
-tensors it held after the last executed cycle.  Every other field (f,
-rest_v, newton_v) keeps its tensor, and the ops of skipped cycles write
-none of them.  ``enqueue`` and ``hand_over`` are ``run``'s halves
-around its read; the batched Newton loop (``solver/newton.py``) calls
-them around a read of its own.
+State is updated in place: the legs and the smoother write each level's v
+out of place into its spare buffer r, and the two trade roles, so the host
+tracks which tensor holds v after every cycle and, once the norms show how
+many cycles ran, hands each level the tensors it held after the last
+executed cycle.  Every other field (f, rest_v, newton_v) keeps its
+tensor, and the ops of skipped cycles write none of them.  ``enqueue``
+and ``hand_over`` are ``run``'s halves around its read; the batched Newton
+loop (``solver/newton.py``) calls them around a read of its own.
 
-Per mode, a visit of a non-coarsest level i (JAX: gpusolve_tpu/solver/
-vcycle.py:86-148):
-  * LINEAR, NEWTON: pre-sweeps, residual, R(r) into the coarse f with the
-    coarse v started at zero, the coarse visits, v += P(coarse v),
-    post-sweeps.  NEWTON's sweeps and residuals read each level's frozen ũ.
-  * NONLINEAR (FAS): pre-sweeps, residual, R(r) into the coarse f, R(v)
-    into the coarse v and rest_v, the tau fold f_c += A_c(R v), the coarse
-    visits, coarse v −= rest_v, v += P(coarse v), post-sweeps.  A coarse v
-    never starts from zero.
-A repeated coarse visit (W, F) continues from the v the previous visit
-left.
+A visit of a non-coarsest level i is two fused legs (``ops/csrc/
+mg_legs.cu``, the structure of the TPU's whole-batch kernel: one streamed
+pass a leg), where ``legs`` allows (pre, resp. post, within the v2 sweep
+cap of 1..5 sweeps, a stencil of face taps); per mode (JAX: gpusolve_tpu/
+solver/vcycle.py:86-148):
+  * LINEAR, NEWTON: the down leg (pre-sweeps, the residual, R(r) into the
+    coarse f, the coarse v zeroed; the smoothed v into the spare buffer),
+    the coarse visits, the up leg (v += P(coarse v), post-sweeps, back
+    into the buffer the down leg read, so level i's v ends each visit
+    where it began).  NEWTON's legs read each level's frozen ũ.
+  * NONLINEAR (FAS): the down leg with R(v) into the coarse v and rest_v
+    in place of the zero start, the tau fold f_c += A_c(R v)
+    (``apply_fas``), the coarse visits, coarse v −= rest_v
+    (``subtract``), the up leg.  A coarse v never starts from zero.
+  * Level 0's up leg also writes the residual's per-block Σr² for the
+    cycle's ``finalize``.
+A half the legs refuse runs the per-op schedule instead: pre-sweeps, the
+residual, the restriction(s); or the prolongation and post-sweeps (and a
+norm-only residual at level 0).  The coarsest level runs pre + post
+sweeps.  A repeated coarse visit (W, F) continues from the v the previous
+visit left.
 
 ``run_tail`` is the batch as the pod engine's replicated tail runs it
 (``dist/pod.py``; ``batch_call`` with ``ncyc`` cycles, ``thr = −1``,
@@ -72,41 +82,68 @@ def level_visits(nlev: int, cycle_type: str) -> List[int]:
     return visits
 
 
+def legs(params: GridParams) -> Tuple[bool, bool]:
+    """Whether a visit of a non-coarsest level runs the fused down leg and
+    the fused up leg (``kernels.legs_take``: pre, resp. post, within 1..5
+    sweeps, the v2 sweep cap, and a stencil of face taps); else that half
+    of the visit runs the per-op schedule."""
+    return (kernels.legs_take(params.stencil, params.pre_smoothing),
+            kernels.legs_take(params.stencil, params.post_smoothing))
+
+
 def launches_per_cycle(params: GridParams, norm: bool = True) -> dict:
     """Kernel launches one cycle makes, by kernel (the count the launch
     counters must show), for the cycle's mode.  Each visit of a
-    non-coarsest level runs pre + post sweeps, one residual, one
-    prolongation and its restriction: LINEAR and NEWTON one
-    ``restrict_zero``; FAS two ``restrict`` (R(r); R(v) into v and
-    rest_v), one ``apply_fas`` and one ``subtract``.  Each visit of the
-    coarsest runs pre + post sweeps; with ``norm`` (not in ``run_tail``)
-    the cycle ends with the norm-only residual and the finalize."""
+    non-coarsest level runs one ``down_leg`` (else pre sweeps, one
+    residual and its restriction: LINEAR and NEWTON one
+    ``restrict_zero``, FAS two ``restrict``) and one ``up_leg`` (else one
+    ``prolong_add`` and post sweeps); FAS adds one ``apply_fas`` and one
+    ``subtract`` a visit.  Each visit of the coarsest runs pre + post
+    sweeps.  With ``norm`` (not in ``run_tail``) the cycle ends with the
+    finalize, its partials from level 0's up leg, or from a norm-only
+    residual where level 0 runs no up leg."""
     nlev = params.num_levels
     visits = level_visits(nlev, params.cycle_type)
-    sweeps = params.pre_smoothing + params.post_smoothing
+    down, up = legs(params)
+    pre, post = params.pre_smoothing, params.post_smoothing
     inner = sum(visits[:-1])
+    fas = params.mode == Mode.NONLINEAR
+    sweeps = (pre + post) * visits[-1] + inner * (
+        (0 if down else pre) + (0 if up else post))
+    norm_residual = int(norm and not (up and nlev > 1))
     counts = {
-        kernels.variant("residual", params.mode): inner + int(norm),
+        kernels.variant("residual", params.mode):
+            (0 if down else inner) + norm_residual,
         "finalize": int(norm),
-        kernels.variant("jacobi_sweep", params.mode): sweeps * sum(visits),
+        kernels.variant("jacobi_sweep", params.mode): sweeps,
+        kernels.variant("down_leg", params.mode): inner if down else 0,
+        kernels.variant("up_leg", params.mode): inner if up else 0,
+        "prolong_add": 0 if up else inner,
     }
-    if params.mode == Mode.NONLINEAR:
-        counts.update(restrict=2 * inner, apply_fas=inner, subtract=inner)
+    if fas:
+        counts.update(restrict=0 if down else 2 * inner, apply_fas=inner,
+                      subtract=inner)
     else:
-        counts["restrict_zero"] = inner
-    counts["prolong_add"] = inner
+        counts["restrict_zero"] = 0 if down else inner
     return {k: n for k, n in counts.items() if n}
 
 
 def _cycle(
-    levels: List[GridLevel], params: GridParams, done: torch.Tensor
+    levels: List[GridLevel],
+    params: GridParams,
+    done: torch.Tensor,
+    norm_out: Optional[torch.Tensor] = None,
+    thr=-1.0,
 ) -> None:
-    """One cycle of ``params.cycle_type`` rooted at the finest level,
-    without the final norm."""
+    """One cycle of ``params.cycle_type`` rooted at the finest level; with
+    ``norm_out`` its finest-level Σr² into it (``done`` set when ``thr``
+    is met), from level 0's up leg where that leg is fused."""
     nlev = len(levels)
     dims = params.level_dims()
     hs = [params.level_h(i) for i in range(nlev)]
     fas = params.mode == Mode.NONLINEAR
+    pre, post = params.pre_smoothing, params.post_smoothing
+    down_fused, up_fused = legs(params)
 
     def smooth_level(i: int, n_iter: int) -> None:
         lvl = levels[i]
@@ -115,44 +152,79 @@ def _cycle(
             lvl.newton_v,
         )
 
-    def cycle_at(i: int, kind: str) -> None:
-        if i == nlev - 1:
-            # Coarsest level: smoothing only, no direct solve.
-            smooth_level(i, params.pre_smoothing + params.post_smoothing)
-            return
-        # Down: pre-smooth, residual, restrict it into the coarse RHS.
-        smooth_level(i, params.pre_smoothing)
+    def down(i: int) -> None:
+        """Pre-smooth, the residual restricted into the coarse RHS, the
+        coarse start."""
         lvl, nxt = levels[i], levels[i + 1]
-        ops.residual_op(
-            lvl.r, lvl.v, lvl.f, dims[i], params, hs[i], done=done,
-            newton_v=lvl.newton_v,
-        )
+        if down_fused:
+            # The smoothed v goes into the spare buffer, which becomes v.
+            ops.down_leg_op(
+                lvl.r, lvl.v, lvl.f, nxt.f, nxt.v, dims[i], dims[i + 1],
+                params, hs[i], pre, done, lvl.newton_v,
+                nxt.rest_v if fas else None,
+            )
+            lvl.v, lvl.r = lvl.r, lvl.v
+        else:
+            smooth_level(i, pre)
+            ops.residual_op(
+                lvl.r, lvl.v, lvl.f, dims[i], params, hs[i], done=done,
+                newton_v=lvl.newton_v,
+            )
+            if fas:
+                ops.restrict_op(nxt.f, lvl.r, dims[i], dims[i + 1], params,
+                                done)
+                ops.restrict_op(
+                    nxt.v, lvl.v, dims[i], dims[i + 1], params, done,
+                    out2=nxt.rest_v,
+                )
+            else:
+                ops.restrict_zero_op(
+                    nxt.f, nxt.v, lvl.r, dims[i], dims[i + 1], params, done
+                )
         if fas:
             # Tau correction: the coarse v starts at R(v), kept in rest_v,
             # and the coarse operator applied to it joins the coarse RHS.
-            ops.restrict_op(nxt.f, lvl.r, dims[i], dims[i + 1], params, done)
-            ops.restrict_op(
-                nxt.v, lvl.v, dims[i], dims[i + 1], params, done,
-                out2=nxt.rest_v,
-            )
             ops.apply_fas_op(
                 nxt.f, nxt.v, dims[i + 1], params, hs[i + 1], done
             )
-        else:
-            ops.restrict_zero_op(
-                nxt.f, nxt.v, lvl.r, dims[i], dims[i + 1], params, done
-            )
-        for sub in _SUBCYCLES[kind]:
-            cycle_at(i + 1, sub)
-        # Up: prolong the coarse correction into v, post-smooth.
+
+    def up(i: int, norm: bool) -> bool:
+        """Prolong the coarse correction into v, post-smooth; returns
+        whether the norm was taken (``norm``: level 0's fused up leg)."""
+        lvl, nxt = levels[i], levels[i + 1]
         if fas:
             ops.subtract_op(nxt.v, nxt.rest_v, dims[i + 1], params, done)
+        if up_fused:
+            ops.up_leg_op(
+                lvl.r, lvl.v, nxt.v, lvl.f, dims[i], dims[i + 1], params,
+                hs[i], post, done, lvl.newton_v,
+                norm_out if norm else None, thr,
+            )
+            lvl.v, lvl.r = lvl.r, lvl.v
+            return norm
         ops.prolong_add_op(
             lvl.v, nxt.v, dims[i + 1], dims[i], params, done
         )
-        smooth_level(i, params.post_smoothing)
+        smooth_level(i, post)
+        return False
 
-    cycle_at(0, params.cycle_type)
+    def cycle_at(i: int, kind: str) -> bool:
+        if i == nlev - 1:
+            # Coarsest level: smoothing only, no direct solve.
+            smooth_level(i, pre + post)
+            return False
+        down(i)
+        for sub in _SUBCYCLES[kind]:
+            cycle_at(i + 1, sub)
+        return up(i, i == 0 and norm_out is not None)
+
+    if cycle_at(0, params.cycle_type) or norm_out is None:
+        return
+    lvl0 = levels[0]
+    ops.residual_op(
+        None, lvl0.v, lvl0.f, dims[0], params, hs[0], write_r=False,
+        norm_out=norm_out, thr=thr, done=done, newton_v=lvl0.newton_v,
+    )
 
 
 def run_tail(
@@ -217,16 +289,8 @@ def enqueue(
     cycle appends each level's ``(v, r)`` to ``held``, so ``held[c]`` (from
     the caller's entry for c = 0) is what the levels hold after c
     cycles."""
-    dims0 = params.level_dims()[0]
-    h0 = params.level_h(0)
     for i in range(n):
-        _cycle(levels, params, done)
-        lvl0 = levels[0]
-        ops.residual_op(
-            None, lvl0.v, lvl0.f, dims0, params, h0, write_r=False,
-            norm_out=norms[i : i + 1], thr=thr, done=done,
-            newton_v=lvl0.newton_v,
-        )
+        _cycle(levels, params, done, norms[i : i + 1], thr)
         held.append([(lvl.v, lvl.r) for lvl in levels])
 
 

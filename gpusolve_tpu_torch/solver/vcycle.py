@@ -7,8 +7,10 @@ of the JAX package's engines, by its gates (``use_fused2``,
 
   * the batch engine, the counterpart of the TPU's v2 whole-batch kernel
     (``_solve_fused2``): batches of up to ``check_every`` cycles
-    (``ops/vcycle_batch.run``), each with an early stop on the device and
-    one host sync, followed by a host re-check of every returned norm with
+    (``ops/vcycle_batch.run``), each level visit as two fused legs (the
+    v2 kernel's streamed passes; per op where pre or post lies outside
+    1..5 or a tap is off the faces: ``legs_note``), each batch with an
+    early stop on the device and one host sync, followed by a host re-check of every returned norm with
     the reference's stop test, written verbatim as
     ``res <= initial / (1.0 / tol)``.  The device threshold is that test
     squared, biased up by 2 ulps, so the device stops whenever the host
@@ -127,6 +129,28 @@ def engine_note(params: GridParams, device) -> Optional[str]:
             "runs the plain ops on the card)"
         )
     return None
+
+
+def legs_note(params: GridParams) -> str:
+    """How the batch engine runs a visit of a non-coarsest level: the two
+    fused legs (``ops/csrc/mg_legs.cu``), or, for a half they refuse, the
+    per-op schedule and why."""
+    down, up = vcycle_batch.legs(params)
+    if down and up:
+        return ("level visit: fused down and up legs (down_leg, up_leg; "
+                "ops/csrc/mg_legs.cu), the coarsest level's sweeps per op")
+    faces = all(sum(abs(o) for o in off) <= 1
+                for off in params.stencil.offsets)
+    halves = []
+    for name, fused, n in (("down", down, params.pre_smoothing),
+                           ("up", up, params.post_smoothing)):
+        if fused:
+            halves.append(f"{name} leg fused")
+        else:
+            why = (f"{n} sweeps, outside 1..{V2_SWEEP_CAP}" if faces else
+                   "a stencil tap off the faces")
+            halves.append(f"{name} leg per op ({why})")
+    return "level visit: " + ", ".join(halves)
 
 
 def vcycle_fused(

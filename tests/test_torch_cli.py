@@ -124,7 +124,8 @@ def test_cli_explain_backend(small_conf, capsys, monkeypatch):
     assert cli.main([path, "--platform", "cpu", "--quiet",
                      "--explain-backend"]) == 0
     err = capsys.readouterr().err
-    assert "backend: single device: batch of per-op CUDA kernels" in err
+    assert "backend: single device: batch of CUDA kernels" in err
+    assert "level visit: fused down and up legs" in err
     assert "note:" not in err
     toks = open(path).read().split()
     toks[6:8] = ["6", "6"]

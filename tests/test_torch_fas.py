@@ -280,10 +280,20 @@ def test_fas_launch_counts_formula():
     _, pt = params_pair((511, 511, 511))
     counts = vcycle_batch.launches_per_cycle(pt)
     assert counts == {
-        "residual_fas": 9, "finalize": 1, "jacobi_sweep_fas": 54,
+        "finalize": 1, "jacobi_sweep_fas": 6, "down_leg_fas": 8,
+        "up_leg_fas": 8, "apply_fas": 8, "subtract": 8,
+    }
+    assert sum(counts.values()) == 39
+    w = vcycle_batch.launches_per_cycle(pt.replace(cycle_type="W"))
+    assert w["down_leg_fas"] == 255 and w["subtract"] == 255
+    # Past the sweep cap each visit runs the per-op schedule.
+    p66 = pt.replace(pre_smoothing=6, post_smoothing=6)
+    counts = vcycle_batch.launches_per_cycle(p66)
+    assert counts == {
+        "residual_fas": 9, "finalize": 1, "jacobi_sweep_fas": 108,
         "restrict": 16, "apply_fas": 8, "subtract": 8, "prolong_add": 8,
     }
-    w = vcycle_batch.launches_per_cycle(pt.replace(cycle_type="W"))
+    w = vcycle_batch.launches_per_cycle(p66.replace(cycle_type="W"))
     assert w["restrict"] == 2 * 255 and w["subtract"] == 255
 
 

@@ -394,22 +394,23 @@ def test_linearize_matches_jax(cycle):
 
 
 def test_launches_per_cycle():
-    """One pod_down and one pod_up a V-cycle, the tail's per-op kernels
+    """One pod_down and one pod_up a V-cycle, the tail's fused legs
     without its norm, FAS one subtract for the boundary; W and F by
     their groups."""
     lin = tpod.PodPlan(_params(0, (511, 511, 511), pre_smoothing=3,
                                post_smoothing=3), (1, 1, 1), 1)
     assert tpod.launches_per_cycle(lin) == {
-        "pod_down": 1, "jacobi_sweep": 48, "residual": 7,
-        "restrict_zero": 7, "prolong_add": 7, "pod_up": 1, "finalize": 1,
+        "pod_down": 1, "jacobi_sweep": 6, "down_leg": 7, "up_leg": 7,
+        "pod_up": 1, "finalize": 1,
     }
     fas = tpod.PodPlan(_params(1, (511, 511, 511), pre_smoothing=3,
                                post_smoothing=3), (1, 1, 1), 3)
     assert tpod.launches_per_cycle(fas) == {
-        "pod_down_fas": 1, "jacobi_sweep_fas": 36, "residual_fas": 5,
-        "restrict": 10, "apply_fas": 5, "subtract": 6,
-        "prolong_add": 5, "pod_up_fas": 1, "finalize": 1,
+        "pod_down_fas": 1, "jacobi_sweep_fas": 6, "down_leg_fas": 5,
+        "up_leg_fas": 5, "apply_fas": 5, "subtract": 6, "pod_up_fas": 1,
+        "finalize": 1,
     }
     w = tpod.PodPlan(_params(2, (63, 63, 63), cycle="W"), (1, 1, 1), 2)
     counts = tpod.launches_per_cycle(w)
     assert counts["pod_down_newton"] == 2 and counts["pod_up_newton"] == 2
+    assert counts["down_leg_newton"] == counts["up_leg_newton"] == 28

@@ -118,14 +118,24 @@ def test_batch_early_stop_and_ncycles(pre, post):
 def test_launch_counts_formula():
     _, pt = params_pair((511, 511, 511))
     assert pt.num_levels == 9
+    # V(3,3): a down and an up leg at each of the 8 non-coarsest visits,
+    # the coarsest's 6 sweeps, the finalize of level 0's up-leg norm.
     counts = vcycle_batch.launches_per_cycle(pt)
     assert counts == {
-        "residual": 9, "finalize": 1, "jacobi_sweep": 54,
+        "finalize": 1, "jacobi_sweep": 6, "down_leg": 8, "up_leg": 8,
+    }
+    assert sum(counts.values()) == 23
+    w = vcycle_batch.launches_per_cycle(pt.replace(cycle_type="W"))
+    assert w["jacobi_sweep"] == 6 * 256 and w["up_leg"] == 255
+    # Past the sweep cap each visit runs the per-op schedule.
+    p66 = pt.replace(pre_smoothing=6, post_smoothing=6)
+    counts = vcycle_batch.launches_per_cycle(p66)
+    assert counts == {
+        "residual": 9, "finalize": 1, "jacobi_sweep": 108,
         "restrict_zero": 8, "prolong_add": 8,
     }
-    assert sum(counts.values()) == 80
-    w = vcycle_batch.launches_per_cycle(pt.replace(cycle_type="W"))
-    assert w["jacobi_sweep"] == 6 * 511 and w["prolong_add"] == 255
+    w = vcycle_batch.launches_per_cycle(p66.replace(cycle_type="W"))
+    assert w["jacobi_sweep"] == 12 * 511 and w["prolong_add"] == 255
 
 
 def test_solve_matches_jax_solve():
