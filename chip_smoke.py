@@ -134,8 +134,8 @@ The distributed engine (dist/spmd.py) on the one-rank (1,1,1) mesh:
      ops within rel 2e-4 above 1e-4·initial and against the v1 engine
      above 1e-2·initial (FAS 1e-1·initial);
   4. the CLI with --mesh 1,1,1 on the three example configs, with --fuse
-     leg and as they are (--fuse auto resolves to the pod engine), and the
-     engine not ported (exit 1);
+     leg and as they are (--fuse auto resolves to the pod engine), and a
+     mesh larger than the world (exit 1);
   5. each shard-local kernel's time, bound, plain and library time at the
      511³ level-0 block, and each leg variant's (event and device ms,
      the launch alone), the level-0 down leg's slab-reading
@@ -210,6 +210,29 @@ the per-leg engine):
   4. (d) --mesh 1,1,1 --halo rdma on the three examples: --fuse auto ->
      leg with the reference's reason, the --fuse leg run's residuals;
   5. device ms per 511³ cycle with halo="rdma" beside halo="ppermute".
+
+The GSPMD engine (dist/sharding.py, dist/gspmd.py; ``shardings=`` on
+solve and newton_solve) on the (1,1,1) mesh:
+  2. a 127³ level and its 63³ coarse level cut into the (2,2,1) boxes of
+     the engine's split and box functions, each box windowed from the
+     whole fields with its neighbours' points as ghosts and run through
+     the per-op kernels (the sweep and the residual in every mode, FAS's
+     operator, restrict_zero, restrict, prolong_add), put back together:
+     bit for bit the kernels on the whole fields;
+  3. solve (LINEAR and FAS V(3,3)) and newton_solve (3 steps) at 511³
+     with shardings=level_shardings(...): launch counts equal to the
+     per-op schedule's for the executed cycles (one cycle a host read),
+     no kernel's plain version on a CUDA tensor, and the history and
+     every level's fields bit for bit the single-device per-op
+     schedule's;
+  4. --mesh 1,1,1 --dist-engine gspmd on the three examples (--validate),
+     with --refine, and a single-level grid (127,127,1) under
+     --dist-engine auto (the reference's note, then the run);
+  5. ms a 511³ cycle (LINEAR, FAS) and a Newton step on it beside the
+     per-op schedule and the legs, in turns: CUDA events, busy, idle
+     share, launches a cycle, peak memory.
+  ``python3 chip_smoke.py --gspmd`` runs only these and prints no
+  contract line.
 
 At the end the zero done flag the wrappers lend launches given none
 must still read 0.  The line before the last is the JSON object
@@ -1868,11 +1891,14 @@ def cli_path(conf, mode_line, newton=False, extra=(), engine="batch of"):
 
 def conf_with(tmp, src, name, **changes):
     """A copy of a config file with tokens changed: maxiter, tol, pre,
-    post."""
+    post, dims (the grid's three)."""
     toks = open(src).read().split()
     where = {"maxiter": 0, "tol": 1, "pre": 6, "post": 7}
     for key, val in changes.items():
-        toks[where[key]] = str(val)
+        if key == "dims":
+            toks[2:5] = [str(d) for d in val]
+        else:
+            toks[where[key]] = str(val)
     path = os.path.join(tmp, name)
     with open(path, "w") as f:
         f.write(" ".join(toks))
@@ -4104,8 +4130,8 @@ def spmd_cli():
     """--mesh 1,1,1 on the example configs, with --fuse leg (the per-leg
     engine, in its replicated tail: tail="auto" on the card), as they are (--fuse auto, the pod engine) and with --halo
     rdma (--fuse auto -> leg, the reference's reason; the --fuse leg
-    run's progress lines, residual for residual), and the not-ported
-    engine."""
+    run's progress lines, residual for residual), and a mesh larger than
+    the world."""
     from gpusolve_tpu_torch.ops import kernels as K
 
     for label, line in (("linear", "Solving linear problem"),
@@ -4179,14 +4205,10 @@ def spmd_cli():
         print(f"cli --mesh 1,1,1 --halo rdma {label} (fuse=auto -> leg): "
               f"the --fuse leg run's residuals, launches "
               f"{nonzero(K.launches)}")
-    rc, _, err = run_cli([CONFS["linear"], "--mesh", "1,1,1",
-                          "--dist-engine", "gspmd"])
-    check(rc == 1 and "not ported" in err,
-          f"cli --mesh --dist-engine gspmd: rc {rc}")
     rc, _, err = run_cli([CONFS["linear"], "--mesh", "2,2,1"])
     check(rc == 1 and "torchrun" in err, f"cli --mesh 2,2,1: rc {rc}")
-    print("cli --mesh: --dist-engine gspmd and a mesh larger than the world "
-          "exit 1")
+    print("cli --mesh: a mesh larger than the world exits 1 (--dist-engine "
+          "gspmd runs: gspmd_cli)")
 
 
 def spmd_kernel_bytes(name, box, cnz=None):
@@ -4838,6 +4860,473 @@ def rdma_main_path(params, label, leg_hist, k=10):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The GSPMD engine (dist/sharding.py, dist/gspmd.py) on the (1,1,1) mesh
+# ---------------------------------------------------------------------------
+
+GSPMD_CARVE = (127, 127, 127)
+GSPMD_SPLIT = (2, 2, 1)
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Counts the calls of every kernel's plain version (``*_plain`` in
+    ops/kernels.py) on a CUDA tensor, by name, in the dict it yields."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    calls = {}
+    saved = {name: getattr(K, name) for name in dir(K)
+             if name.endswith("_plain") and callable(getattr(K, name))}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in list(args) + list(kwargs.values())):
+                calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in saved.items():
+        setattr(K, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+
+
+def check_gspmd_carved(base, rec):
+    """A 127³ level (and its 63³ coarse level) cut into the (2,2,1) boxes
+    of the engine's own split and box functions (``dist/gspmd.py``:
+    ``storage``, ``restrict_box``, ``prolong_boxes``), each box windowed
+    from the whole fields with its neighbours' points as ghosts and run
+    through the per-op CUDA kernels, the blocks put back together: bit for
+    bit the kernels on the whole fields, every mode (the sweep, the
+    residual, FAS's operator; the restrictions and the prolongation).
+    On one card this is how the kernels read non-zero ghosts as the
+    engine feeds them on a mesh."""
+    import torch
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import gspmd
+    from gpusolve_tpu_torch.dist import sharding as tsh
+    from gpusolve_tpu_torch.dist.mesh import Mesh, coords_of
+    from gpusolve_tpu_torch.ops import dispatch
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    n = math.prod(GSPMD_SPLIT)
+
+    def level(p, coords, lev):
+        mesh = Mesh(GSPMD_SPLIT, coords, 0, None, torch.device(DEVICE))
+        return tsh.level_shardings(p, mesh)[lev]
+
+    def rand(dims):
+        t = torch.zeros(tuple(d + 2 for d in dims), device=DEVICE)
+        ref.interior(t, dims).copy_(0.3 * torch.randn(
+            dims, generator=gen, device=DEVICE))
+        return t
+
+    def carve(whole, part, what):
+        out = torch.zeros_like(whole)
+        K.reset_launches()
+        for r in range(n):
+            block, values = part(coords_of(r, GSPMD_SPLIT))
+            out[tuple(slice(lo, hi) for lo, hi in block)] = values
+        launched = nonzero(K.launches)
+        same = torch.equal(out, whole)
+        check(same, f"gspmd carved {what}: the boxes differ from the "
+              "whole field")
+        print(f"check gspmd carved {GSPMD_CARVE[0]}^3 {GSPMD_SPLIT} {what}: "
+              f"bit-identical={same}, launches {launched}")
+
+    for mode in (Mode.LINEAR, Mode.NONLINEAR, Mode.NEWTON):
+        p = base.replace(grid_dim=GSPMD_CARVE, mode=mode)
+        h = p.level_h(0)
+        dims, cdims = p.level_dims()[:2]
+        v, f, nv, vc = rand(dims), rand(dims), rand(dims), rand(cdims)
+
+        def sweep(d, v_, f_, nv_):
+            out = torch.zeros_like(v_)
+            dispatch.smooth(v_, f_, out, d, p, h, 1, None, nv_)
+            return out
+
+        def resid(d, v_, f_, nv_):
+            out = torch.zeros_like(v_)
+            dispatch.residual_op(out, v_, f_, d, p, h, newton_v=nv_)
+            return out
+
+        def fas_op(d, v_, f_, nv_):
+            out = f_.clone()
+            dispatch.apply_fas_op(out, v_, d, p, h)
+            return out
+
+        ops = [("sweep", sweep), ("residual", resid)]
+        if mode == Mode.NONLINEAR:
+            ops.append(("apply_fas", fas_op))
+        for name, op in ops:
+            def part(coords, op=op):
+                sh = level(p, coords, 0)
+                box = gspmd.storage(sh)
+                res = op(sh.local_dims, *(gspmd.window(t, box).contiguous()
+                                          for t in (v, f, nv)))
+                return (tuple((lo + 1, hi - 1) for lo, hi in box),
+                        ref.interior(res, sh.local_dims))
+
+            carve(op(dims, v, f, nv), part, f"{name} {mode.name}")
+        if mode != Mode.LINEAR:
+            continue
+
+        def restricted(coords, zero):
+            shc = level(p, coords, 1)
+            cd = shc.local_dims
+            fine = gspmd.window(v, gspmd.restrict_box(shc, coords))
+            fine = fine.contiguous()
+            out = torch.zeros(tuple(d + 2 for d in cd), device=DEVICE)
+            fd = tuple(2 * d + 1 for d in cd)
+            if zero:
+                dispatch.restrict_zero_op(out, torch.ones_like(out), fine, fd,
+                                          cd, p)
+            else:
+                dispatch.restrict_op(out, fine, fd, cd, p)
+            return (tuple((lo + 1, hi + 1) for lo, hi in shc.box_of(coords)),
+                    ref.interior(out, cd))
+
+        for zero, what in ((True, "restrict_zero"), (False, "restrict")):
+            whole = torch.zeros_like(vc)
+            if zero:
+                dispatch.restrict_zero_op(whole, torch.ones_like(vc), v, dims,
+                                          cdims, p)
+            else:
+                dispatch.restrict_op(whole, v, dims, cdims, p)
+            carve(whole, lambda c, z=zero: restricted(c, z), what)
+
+        def prolonged(coords):
+            shf = level(p, coords, 0)
+            fbox, cbox = gspmd.prolong_boxes(shf, coords)
+            fine = gspmd.window(v, fbox).clone()
+            dispatch.prolong_add_op(fine, gspmd.window(vc, cbox).contiguous(),
+                                    gspmd._dims(cbox), gspmd._dims(fbox), p)
+            block = tuple((lo + 1, hi + 1) for lo, hi in shf.box_of(coords))
+            return block, fine[tuple(slice(lo - o, hi - o) for (lo, hi), (o, _)
+                                     in zip(block, fbox))]
+
+        whole = v.clone()
+        dispatch.prolong_add_op(whole, vc, cdims, dims, p)
+        carve(whole, prolonged, "prolong_add")
+
+
+def gspmd_expected(params, hist, inner_cycles):
+    """Launches of a solve on the GSPMD engine's one-rank mesh: its
+    per-cycle loop runs each executed cycle on the per-op schedule
+    (launches_per_cycle with both legs refused), one cycle a batch, so no
+    cycle is enqueued past the stop; the initial norm; Newton the initial
+    F, and per step R(ũ) into levels 1..L−2, the inner cycles and F."""
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops.vcycle_batch import launches_per_cycle
+
+    with per_op_schedule():
+        per = launches_per_cycle(params)
+    steps = len(hist) - 1
+    newton = params.mode == Mode.NEWTON
+    cycles = sum(inner_cycles) if newton else steps
+    want = {name: 0 for name in K.KERNELS}
+    for name, n in per.items():
+        want[name] += n * cycles
+    norms = steps + 1 if newton else 1
+    want["residual_fas" if newton else K.variant("residual", params.mode)] \
+        += norms
+    want["finalize"] += norms
+    if newton:
+        want["restrict"] += steps * max(0, params.num_levels - 2)
+    return nonzero(want)
+
+
+def gspmd_main_path(params, label):
+    """solve / newton_solve with ``shardings=level_shardings(params,
+    make_mesh((1,1,1)))`` at 511³ (Newton: NEWTON_PLAIN_STEPS steps): the
+    launch counts of gspmd_expected, no kernel's plain version on a CUDA
+    tensor, and the same solve on the single-device per-op schedule
+    (check_every=10; Newton the per-step loop): the history and every
+    level's fields bit for bit."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    newton = params.mode == Mode.NEWTON
+    if newton:
+        params = params.replace(maxiter=NEWTON_PLAIN_STEPS)
+    shs = gt.level_shardings(params, gt.make_mesh((1, 1, 1)))
+    solver = gt.newton_solve if newton else gt.solve
+    K.reset_launches()
+    reads0 = vcycle_batch.host_reads
+    with counting_plain() as plain, counting_inner() as inner_cycles:
+        state = gt.build_grid(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = solver(state, params, shardings=shs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = nonzero(K.launches)
+    reads = vcycle_batch.host_reads - reads0
+    print(f"gspmd main path {label}: {sum(sh.blocked for sh in shs)} blocked "
+          f"levels, {sum(not sh.blocked for sh in shs)} replicated; "
+          f"{len(hist) - 1} steps in {secs:.3f} s wall, {reads} host reads, "
+          f"inner cycles {inner_cycles}, history {hist}")
+    print(f"gspmd main path {label} launches: {counts}")
+    check(not plain, f"gspmd {label}: plain ops ran on CUDA tensors: {plain}")
+    want = gspmd_expected(params, hist, inner_cycles)
+    check(counts == want, f"gspmd {label}: launch counts {counts} != "
+          f"schedule {want}")
+    with per_op_schedule():
+        ref_state, ref_hist, ref_secs = run_solve(params, 1 if newton else 10)
+    check(hist == ref_hist, f"gspmd {label}: history {hist} != the per-op "
+          f"schedule's {ref_hist}")
+
+    def fields(st):
+        return [(f"level {i} {n}", getattr(lvl, n))
+                for i, lvl in enumerate(st.levels)
+                for n in ("v", "f", "rest_v", "newton_v")
+                if getattr(lvl, n) is not None]
+
+    differ = [n for (n, a), (_, b) in zip(fields(state), fields(ref_state))
+              if not torch.equal(a, b)]
+    check(not differ, f"gspmd {label}: fields differ from the per-op "
+          f"schedule's: {differ}")
+    print(f"gspmd vs per-op schedule {label}: histories identical True, "
+          f"every level's fields bit-identical ({len(fields(state))} "
+          f"fields), no plain op on the card; per-op run {ref_secs:.3f} s "
+          "wall")
+    del state, ref_state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gspmd_cli():
+    """--mesh 1,1,1 --dist-engine gspmd on the three examples (127³;
+    --validate in modes 1 and 2) with --explain-backend: the engine's
+    note and lines, the progress lines, the per-op kernels launched and
+    no plain op on the card; --refine on it; and a single-level grid
+    (127,127,1), which the spmd engine refuses, under --dist-engine auto:
+    the reference's note, then the run."""
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    kernel_line = ("backend: dist-engine=gspmd (box fetches over "
+                   "torch.distributed; local compute: the per-op CUDA "
+                   "kernels on each block (ops/dispatch))")
+    with tempfile.TemporaryDirectory() as tmp:
+        single = conf_with(tmp, CONFS["nonlinear"], "single.conf",
+                           dims=(127, 127, 1))
+        runs = [
+            (CONFS["linear"], "Solving linear problem", ["--dist-engine",
+                                                        "gspmd"]),
+            (CONFS["nonlinear"], "Solving nonlinear problem",
+             ["--dist-engine", "gspmd"]),
+            (CONFS["newton"], "Solving newton problem", ["--dist-engine",
+                                                        "gspmd"]),
+            (CONFS["linear"], "Solving linear problem",
+             ["--dist-engine", "gspmd", "--refine"]),
+            (single, "Solving nonlinear problem", []),
+        ]
+        for conf, line, extra in runs:
+            K.reset_launches()
+            newton = line == "Solving newton problem"
+            # The single-level grid is smoothed only: no --validate.
+            validate = line != "Solving linear problem" and \
+                extra == ["--dist-engine", "gspmd"]
+            args = [conf, "--mesh", "1,1,1", "--explain-backend", *extra]
+            args += ["--validate"] if validate else []
+            with counting_plain() as plain:
+                rc, out, err = run_cli(args)
+            what = f"cli --mesh 1,1,1 {' '.join(extra) or '(auto)'} {line}"
+            check(rc == 0, f"{what}: exited {rc}")
+            lines = out.splitlines()
+            check(line in lines, f"{what}: the mode line")
+            progress(lines, newton=newton)
+            check(kernel_line in err, f"{what}: the engine line")
+            if extra:
+                check("debugging" in err, f"{what}: the engine's note")
+            else:
+                check("note: using the gspmd engine (single-level grid)"
+                      in err, f"{what}: the fallback note")
+            check(not plain, f"{what}: plain ops on the card: {plain}")
+            check(K.launches["finalize"] > 0 and sum(
+                n for k, n in K.launches.items()
+                if k.startswith("jacobi_sweep")) > 0,
+                f"{what}: launches {nonzero(K.launches)}")
+            if validate:
+                m = [ln for ln in lines if ln.startswith("max-abs error")]
+                err_v = float(m[0].split(": ")[1])
+                check(math.isfinite(err_v) and err_v < 5e-4,
+                      f"{what}: max-abs error {err_v}")
+            print(f"{what}: rc 0, launches {nonzero(K.launches)}")
+
+
+def busy_ms(prof):
+    """Device ms of every kernel and copy in a Traced window, or None."""
+    total = [us for _, us in device_events(prof)]
+    return sum(total) / 1e3 if total else None
+
+
+def time_gspmd(params, label, rate):
+    """ms a 511³ cycle on the GSPMD engine's (1,1,1) mesh, in its loop (a
+    batch of one cycle and a host read a cycle), beside the single-device
+    per-op schedule and the batch engine on its legs (10-cycle batches),
+    in turns (gspmd, per-op, legs, legs, per-op, gspmd): CUDA events and
+    wall over 10 cycles, launches a cycle, peak memory (the state
+    included), then a profiled run each: busy ms a cycle and the idle
+    share of the profiled wall.  Returns {engine: [(events, busy), ...]}."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist import gspmd
+    from gpusolve_tpu_torch.ops import dispatch
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    k = 10
+    p = params.replace(print_progress=False)
+    shs = gt.level_shardings(p, gt.make_mesh((1, 1, 1)))
+    sharded = gspmd.ShardedOps(shs)
+
+    def gspmd_run(state, n):
+        for _ in range(n):
+            vcycle_batch.run(state, p, maxk=1, ops=sharded)
+
+    def batch_run(state, n):
+        vcycle_batch.run(state, p, maxk=n, ops=dispatch)
+
+    engines = {"gspmd": (gspmd_run, contextlib.nullcontext),
+               "per-op": (batch_run, per_op_schedule),
+               "legs": (batch_run, contextlib.nullcontext)}
+    out = {name: [] for name in engines}
+    for name in ("gspmd", "per-op", "legs", "legs", "per-op", "gspmd"):
+        fn, ctx = engines[name]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_b = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = gt.build_grid(p)
+        if name == "gspmd":
+            state = gt.shard_state(state, shs)
+        with ctx():
+            fn(state, 2)  # warm
+            torch.cuda.synchronize()
+            K.reset_launches()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            fn(state, k)
+            b.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / k
+            dev = a.elapsed_time(b) / k
+            launches = sum(K.launches.values()) / k
+            peak = (torch.cuda.max_memory_allocated() - base_b) / 2**30
+            with Traced() as prof:
+                t0 = time.perf_counter()
+                fn(state, k)
+                torch.cuda.synchronize()
+                wall_p = (time.perf_counter() - t0) * 1e3
+        busy = busy_ms(prof)
+        busy_k = None if busy is None else busy / k
+        out[name].append((dev, busy_k))
+        idle = "not measured" if busy is None else \
+            f"{1 - busy / wall_p:.3f} of the profiled wall " \
+            f"({wall_p / k:.3f} ms/cycle)"
+        print(f"gspmd timing {label} {name} (run {len(out[name])}): "
+              f"{dev:.3f} ms/cycle events, {wall:.3f} wall, busy "
+              f"{fmt_ms(busy_k)}, idle share {idle}; {launches:g} launches "
+              f"a cycle; peak memory {peak:.2f} GiB")
+        del state
+    for i in range(2):
+        (dg, bg), (dp, bp), (dl, bl) = (out[e][i] for e in engines)
+        print(f"gspmd timing {label} pair {i + 1}: gspmd / per-op "
+              f"{dg / dp:.3f} by events, gspmd / legs {dg / dl:.3f}"
+              + (f"; busy {bg:.3f} / {bp:.3f} / {bl:.3f} ms"
+                 if None not in (bg, bp, bl) else ""))
+    return out
+
+
+def time_gspmd_newton(params, steps=NEWTON_PLAIN_STEPS):
+    """ms a 511³ Newton step (``steps`` steps from a fresh state, the
+    initial F included) on the GSPMD engine's (1,1,1) mesh beside the
+    single-device per-step loop on the per-op schedule and on the legs,
+    in turns: CUDA events around newton_solve, host reads a solve, then a
+    profiled run each: busy ms a step and the idle share."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.ops import vcycle_batch
+
+    p = params.replace(maxiter=steps, print_progress=False)
+    shs = gt.level_shardings(p, gt.make_mesh((1, 1, 1)))
+    engines = {"gspmd": (shs, contextlib.nullcontext),
+               "per-op": (None, per_op_schedule),
+               "legs": (None, contextlib.nullcontext)}
+
+    def run(name, window=contextlib.nullcontext()):
+        sh, ctx = engines[name]
+        state = gt.build_grid(p)
+        torch.cuda.synchronize()
+        reads0 = vcycle_batch.host_reads
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with ctx(), window:
+            t0 = time.perf_counter()
+            a.record()
+            _, hist = gt.newton_solve(state, p, shardings=sh)
+            b.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        check(len(hist) == steps + 1, f"gspmd newton timing ran {hist}")
+        return a.elapsed_time(b), wall, vcycle_batch.host_reads - reads0
+
+    for name in engines:
+        run(name)  # warm
+    for name in ("gspmd", "per-op", "legs", "legs", "per-op", "gspmd"):
+        dev, wall, reads = run(name)
+        print(f"gspmd timing newton step 511^3 {name}: {dev / steps:.3f} "
+              f"ms/step events, {wall / steps:.3f} wall, {reads} host reads "
+              "a solve")
+    for name in engines:
+        window = Traced()
+        _, wall_p, _ = run(name, window)
+        busy = busy_ms(window.prof)
+        print(f"gspmd timing newton step 511^3 {name}: busy "
+              f"{fmt_ms(None if busy is None else busy / steps)} a step, "
+              "idle share "
+              + ("not measured" if busy is None else
+                 f"{1 - busy / wall_p:.3f}"))
+
+
+def gspmd_only(base, rec, rate):
+    """``--gspmd``: the GSPMD engine alone (~4 min, the build included):
+    the carved check, the three 511³ main paths against the per-op
+    schedule, the CLI, and the timings.  Prints no contract line."""
+    import gpusolve_tpu_torch as gt
+
+    check_gspmd_carved(base, rec)
+    for label in ("linear", "nonlinear", "newton"):
+        gspmd_main_path(gt.parse_config(CONFS[label], grid_dim=BIG),
+                        f"511^3 {label}")
+    gspmd_cli()
+    for label in ("linear", "nonlinear"):
+        p = gt.parse_config(CONFS[label], grid_dim=BIG)
+        time_gspmd(p, f"511^3 {p.mode.name} V(3,3)", rate)
+    time_gspmd_newton(gt.parse_config(CONFS["newton"], grid_dim=BIG))
+    print("chip_smoke --gspmd: done (no contract line)")
+    return 0
+
+
 def legs_only(base, rec, rate):
     """``--legs``: the fused legs alone, a quick loop for work on them
     (~4 min): their checks against the plain versions, then on each
@@ -4910,6 +5399,8 @@ def main() -> int:
     rec = Record()
     if "--legs" in sys.argv[1:]:
         return legs_only(base, rec, rate)
+    if "--gspmd" in sys.argv[1:]:
+        return gspmd_only(base, rec, rate)
     check_kernels(base, rec)
     check_vcycle_fused(base, rec)
     check_block_kernels(base, rec)
@@ -4918,6 +5409,7 @@ def main() -> int:
     check_leg_ghosts(base, rec)
     check_pod_kernels(base, rec)
     check_junction_legs(base, rec)
+    check_gspmd_carved(base, rec)
     rows = {}
     check_rdma_kernel(base, rec, rate, rows)
     rdma_ranks()
@@ -5007,6 +5499,13 @@ def main() -> int:
                                 leg_hist[label], pod_hist[label])
         for kname, n in counts.items():
             launched[kname] += n
+    # The GSPMD engine on the one-rank mesh: the per-op kernels on its
+    # blocks, bit for bit the single-device per-op schedule.
+    for label in ("linear", "nonlinear", "newton"):
+        params = gt.parse_config(CONFS[label], grid_dim=BIG)
+        counts = gspmd_main_path(params, f"511^3 {label}")
+        for kname, n in counts.items():
+            launched[kname] += n
     missing = [kname for kname, n in launched.items() if n == 0]
     check(not missing, f"kernels no main path launched: {missing}")
 
@@ -5019,6 +5518,7 @@ def main() -> int:
     spmd_cli()
     with tempfile.TemporaryDirectory() as tmp:
         tail_checkpoint(tmp)
+    gspmd_cli()
 
     # Phase 5: times.
     lin = gt.parse_config(CONFS["linear"], grid_dim=BIG,
@@ -5074,6 +5574,10 @@ def main() -> int:
     for p, what in ((lin, "LINEAR"), (fas, "FAS")):
         time_spmd_cycles(p.replace(pre_smoothing=6, post_smoothing=6),
                          f"511^3 {what} V(6,6)", batch66[p.mode], rate)
+    # The GSPMD engine beside the per-op schedule and the legs.
+    for p, what in ((lin, "LINEAR"), (fas, "FAS")):
+        time_gspmd(p, f"511^3 {what} V(3,3)", rate)
+    time_gspmd_newton(newt)
 
     # The one zero flag a device lends the launches given no done flag:
     # no kernel may have written it.

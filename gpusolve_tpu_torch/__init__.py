@@ -19,7 +19,9 @@ per-leg explicit-halo engine on ``torch.distributed``, four shard-local
 CUDA kernels) runs the same three modes on a process mesh; on one card
 as the ``(1, 1, 1)`` mesh, ``solve_spmd(params, make_mesh((1, 1, 1)))``,
 or on the pod engine (every down leg in one launch, every up leg in
-another) with ``fuse="pod"``.
+another) with ``fuse="pod"``.  The GSPMD engine, the fallback where the
+spmd engine refuses a mesh, runs ``solve`` / ``newton_solve`` /
+``solve_refine`` with ``shardings=level_shardings(params, mesh)``.
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``, or ``--platform cpu`` on the CLI).
 
@@ -45,8 +47,11 @@ from gpusolve_tpu_torch.dist import (
     SpmdPlan,
     build_pod_solver,
     choose_npod,
+    level_shardings,
     make_mesh,
+    multihost,
     newton_solve_spmd,
+    shard_state,
     solve_spmd,
 )
 from gpusolve_tpu_torch.grid import GridLevel, GridState, build_grid
@@ -65,11 +70,14 @@ __all__ = [
     "build_grid",
     "build_pod_solver",
     "choose_npod",
+    "level_shardings",
     "make_mesh",
+    "multihost",
     "newton_solve",
     "newton_solve_spmd",
     "parse_config",
     "parse_config_text",
+    "shard_state",
     "solve",
     "solve_refine",
     "solve_spmd",

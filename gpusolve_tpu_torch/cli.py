@@ -39,7 +39,8 @@ Flags:
                              kernels (solver/refine.py)
   --refine-inner-tol T       the inner solves' relative tolerance
 
-Distributed (the spmd engine: dist/spmd.py per leg, dist/pod.py pod):
+Distributed (the spmd engine: dist/spmd.py per leg, dist/pod.py pod; the
+gspmd engine: dist/sharding.py, dist/gspmd.py):
   --mesh X,Y,Z               the process mesh; 1,1,1 runs in one process
                              (on the card, or --platform cpu), larger
                              meshes one process per shard under
@@ -48,22 +49,30 @@ Distributed (the spmd engine: dist/spmd.py per leg, dist/pod.py pod):
                              with --platform cpu, else NCCL, one card per
                              rank); only rank 0 prints
   --dist-engine {auto,spmd,gspmd}, --fuse {auto,leg,pod},
-  --halo {ppermute,rdma}     the JAX CLI's engine flags: spmd, leg, pod,
-                             ppermute and rdma run; gspmd exits 1 (not
-                             ported yet).  --halo rdma exchanges the legs'
-                             x slabs in one CUDA launch of peer writes
-                             (ops/rdma.py); under a y split the two-stage
-                             exchange runs instead, with a note.  --fuse
+  --halo {ppermute,rdma}     the JAX CLI's engine flags.  auto takes spmd
+                             wherever it can run the configuration, else
+                             gspmd with a note (a single-level grid, a
+                             grid smaller than the mesh); gspmd is the
+                             debugging/fallback engine: the single-device
+                             cycle per op on each rank's blocks, each op
+                             fetching the boxes it reads (--fuse and
+                             --halo do not apply to it).  --halo rdma
+                             exchanges the legs' x slabs in one CUDA
+                             launch of peer writes (ops/rdma.py); under a
+                             y split the two-stage exchange runs
+                             instead, with a note.  --fuse
                              auto takes the pod engine where the
                              reference's CLI does (a depth passes its
                              gates), else leg, and says why: --halo rdma
                              and a multi-rank CUDA mesh take leg.  On the
                              card --fuse leg runs the replicated tail
                              (dist/spmd.py, tail="auto")
-With --mesh, --save-state and --load-state write and read the distributed
-engine's checkpoint (utils/checkpoint.save_state_spmd, keyed on the mesh,
+With --mesh on the spmd engine, --save-state and --load-state write and
+read its checkpoint (utils/checkpoint.save_state_spmd, keyed on the mesh,
 the engine and the plan), and --refine runs the inner float32 solves on
-the distributed engine (solver/refine.solve_refine_spmd).
+it (solver/refine.solve_refine_spmd); on the gspmd engine the checkpoint
+is the single-device one (written by rank 0) and --refine runs
+solve_refine with the shardings.
 """
 
 from __future__ import annotations
@@ -73,11 +82,6 @@ import contextlib
 import os
 import sys
 from typing import Optional
-
-# The distributed engine not ported yet, with --mesh.
-_GSPMD_ITEM = "ROADMAP Queue 1 item 3(f), sharding.py"
-_MESH_NOT_PORTED = {("dist_engine", "gspmd"): _GSPMD_ITEM}
-
 
 # The reference announces the mode (gpusolve_tpu/cli.py:411-417).
 _MODE_LINES = {
@@ -168,7 +172,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--dist-engine", choices=["auto", "spmd", "gspmd"], default="auto",
         help="with --mesh: spmd (explicit halo exchange on "
-        "torch.distributed, shard-local CUDA kernels); gspmd is not ported",
+        "torch.distributed, shard-local CUDA kernels); gspmd (the "
+        "debugging/fallback engine: the per-op cycle on each rank's "
+        "blocks); auto: spmd wherever it can run, else gspmd",
     )
     ap.add_argument(
         "--fuse", choices=["auto", "leg", "pod"], default="auto",
@@ -341,9 +347,112 @@ def _pod_refusal(params, mesh_shape, device, halo) -> Optional[str]:
     return None
 
 
+def _run_gspmd(args, params, mesh_shape, device, profile_cm, _explain,
+               started) -> int:
+    """--mesh on the GSPMD engine (dist/gspmd.py): the single-device cycle
+    per op on this process's blocks, a fetch of the boxes each op reads
+    (the JAX CLI's gspmd path, gpusolve_tpu/cli.py:486-510, :626-716)."""
+    import torch.distributed as dist
+
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist import level_shardings, make_mesh
+    from gpusolve_tpu_torch.dist.sharding import gather_field
+    from gpusolve_tpu_torch.grid import build_grid
+    from gpusolve_tpu_torch.ops.dispatch import plain_reason
+    from gpusolve_tpu_torch.solver.newton import newton_solve
+    from gpusolve_tpu_torch.solver.vcycle import solve
+
+    try:
+        multi = dist.is_initialized()
+        mesh = make_mesh(
+            mesh_shape,
+            device=None if multi and device.type == "cuda" else device,
+        )
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    # --refine's inner solves are float32.
+    run = params.replace(dtype="float32") if args.refine else params
+    shardings = level_shardings(run, mesh)
+    if args.refine:
+        print("note: --refine on the gspmd engine runs the per-op cycle "
+              "with a box fetch an op (the debugging path); use "
+              "--dist-engine spmd (the default wherever eligible) for the "
+              "fused inner engine", file=sys.stderr)
+    else:
+        print("note: the gspmd engine is the debugging/fallback path: every "
+              "op fetches the boxes it reads from their owners and runs the "
+              "per-op ops on its block; use --dist-engine spmd (the default "
+              "wherever eligible) for performance", file=sys.stderr)
+    why = plain_reason(run, mesh.device, run.dtype)
+    local = ("the per-op CUDA kernels on each block (ops/dispatch)"
+             if why is None else f"plain ops ({why}; ops/ref.py)")
+    blocked = sum(sh.blocked for sh in shardings)
+    _explain([
+        f"dist-engine=gspmd (box fetches over torch.distributed; local "
+        f"compute: {local})",
+        f"{blocked} blocked levels, {len(shardings) - blocked} replicated",
+    ])
+    if args.refine:
+        from gpusolve_tpu_torch.solver.refine import solve_refine
+
+        with profile_cm:
+            u, _ = solve_refine(params, inner_tol=args.refine_inner_tol,
+                                shardings=shardings)
+        if args.profile:
+            print(f"Wrote profiler trace to {args.profile}")
+        u = gather_field(u, shardings[0])
+        if u is not None:
+            _report(u.cpu().numpy(), params, args)
+        return _end(started)
+    history0, initial_residual = [], None
+    if args.load_state:
+        from gpusolve_tpu_torch.utils.checkpoint import load_state
+
+        if not os.path.isfile(args.load_state):
+            print(f"{args.load_state} does not exist or is not a file",
+                  file=sys.stderr)
+            return 1
+        try:
+            state, it0, history0 = load_state(args.load_state, params,
+                                              shardings=shardings)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        print(f"Resumed from {args.load_state} (iteration {it0})")
+        # The stop threshold keeps the original run's initial residual.
+        if history0:
+            initial_residual = history0[0]
+    else:
+        state = build_grid(params, device=mesh.device)
+    newton = params.mode == Mode.NEWTON
+    with profile_cm:
+        state, history = (newton_solve if newton else solve)(
+            state, params, shardings=shardings,
+            initial_residual=initial_residual, check_every=args.check_every,
+        )
+    if args.profile:
+        print(f"Wrote profiler trace to {args.profile}")
+    if args.save_state:
+        from gpusolve_tpu_torch.utils.checkpoint import save_state
+
+        combined = history0 + history
+        save_state(args.save_state, state, params,
+                   iteration=len(combined) - 1, history=combined)
+        print(f"Saved state to {args.save_state}")
+    if args.dump or args.validate:
+        lvl0 = state.levels[0]
+        solution = gather_field(lvl0.newton_v if newton else lvl0.v,
+                                shardings[0])
+        if solution is not None:
+            _report(solution.cpu().numpy(), params, args)
+    return _end(started)
+
+
 def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
     """--mesh: the spmd engine (per leg, or pod) on this process's
-    shard."""
+    shard, or the gspmd engine (``_run_gspmd``) where spmd cannot run the
+    configuration or ``--dist-engine gspmd`` asks for it."""
     import torch.distributed as dist
 
     from gpusolve_tpu_torch.config import Mode
@@ -356,16 +465,18 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
         spmd_eligible,
     )
 
+    # The engine (gpusolve_tpu/cli.py:338-365): spmd wherever it can run
+    # the configuration, else the gspmd engine, with a note.
     why = spmd_eligible(params, mesh_shape)
-    if why is not None:
-        print(
-            f"the spmd engine cannot run this configuration ({why}); the "
-            "gspmd engine is not ported to gpusolve_tpu_torch yet "
-            f"({_GSPMD_ITEM})",
-            file=sys.stderr,
-        )
+    if args.dist_engine == "auto":
+        args.dist_engine = "gspmd" if why else "spmd"
+        if why:
+            print(f"note: using the gspmd engine ({why})", file=sys.stderr)
+    if args.dist_engine == "spmd" and why is not None:
+        print(f"the spmd engine cannot run this configuration ({why}); "
+              "--dist-engine gspmd runs it", file=sys.stderr)
         return 1
-    if args.fuse == "auto":
+    if args.dist_engine == "spmd" and args.fuse == "auto":
         why = _pod_refusal(params, mesh_shape, device, args.halo)
         args.fuse = "leg" if why else "pod"
         _explain([f"fuse=auto -> {args.fuse}" + (f" ({why})" if why else "")])
@@ -374,6 +485,9 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
         dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
         started = True
     try:
+        if args.dist_engine == "gspmd":
+            return _run_gspmd(args, params, mesh_shape, device, profile_cm,
+                              _explain, started)
         try:
             multi = dist.is_initialized()
             mesh = make_mesh(
@@ -510,11 +624,6 @@ def _mesh_shape(args):
         shape = ()
     if len(shape) != 3 or any(m < 1 for m in shape):
         return None, f"invalid --mesh {args.mesh!r}"
-    for (name, value), item in _MESH_NOT_PORTED.items():
-        if getattr(args, name) == value:
-            flag = "--" + name.replace("_", "-")
-            return None, (f"{flag} {value} is not ported to "
-                          f"gpusolve_tpu_torch yet ({item})")
     return shape, None
 
 

@@ -7,7 +7,9 @@ process group its exchanges run on, and the device its tensors live on.
 
 Ranks map to coordinates row-major, as ``np.asarray(devices).reshape(shape)``
 maps devices in the JAX package: rank ``r`` sits at
-``(r // (my·mz), (r // mz) % my, r % mz)``.
+``(r // (my·mz), (r // mz) % my, r % mz)``, unless the mesh carries an
+``order`` (``multihost.make_topology_mesh``: each host's ranks a
+contiguous block), the rank at each row-major position.
 
 A ``(1, 1, 1)`` mesh needs no process group and makes no collective call.
 Any other shape needs an initialised ``torch.distributed`` group whose
@@ -58,22 +60,30 @@ def factor_devices(n: int) -> Tuple[int, int, int]:
 class Mesh:
     """One process's place in the mesh: the mesh ``shape``, this rank's
     ``coords`` and ``rank``, the process ``group`` (None on a one-rank
-    mesh) and the ``device`` its tensors live on."""
+    mesh), the ``device`` its tensors live on, and the ``order`` of the
+    ranks over the mesh's row-major positions (None: rank = position)."""
 
     shape: Tuple[int, int, int]
     coords: Tuple[int, int, int]
     rank: int
     group: Optional[object]
     device: torch.device
+    order: Optional[Tuple[int, ...]] = None
 
     @property
     def size(self) -> int:
         return math.prod(self.shape)
 
     def rank_of(self, coords) -> int:
-        """The rank at mesh coordinates ``coords`` (row-major)."""
+        """The rank at mesh coordinates ``coords``."""
         _, my, mz = self.shape
-        return (coords[0] * my + coords[1]) * mz + coords[2]
+        pos = (coords[0] * my + coords[1]) * mz + coords[2]
+        return pos if self.order is None else self.order[pos]
+
+    def coords_of(self, rank: int) -> Tuple[int, int, int]:
+        """The mesh coordinates of ``rank``."""
+        pos = rank if self.order is None else self.order.index(rank)
+        return coords_of(pos, self.shape)
 
     def global_rank(self, rank: int) -> int:
         """The rank in the default group of this mesh's ``rank``."""
@@ -111,9 +121,12 @@ def make_mesh(
     shape: Optional[Tuple[int, int, int]] = None,
     group=None,
     device=None,
+    order: Optional[Tuple[int, ...]] = None,
 ) -> Mesh:
     """This process's mesh of ``shape`` (default: the world size
-    factored by ``factor_devices``) over ``group`` (default: the world).
+    factored by ``factor_devices``) over ``group`` (default: the world),
+    its ranks row-major or in ``order`` (the rank at each row-major
+    position).
 
     ``device`` defaults to CUDA (``cuda:{LOCAL_RANK}`` on a multi-rank
     mesh) and raises when there is none; pass ``"cpu"`` for the host."""
@@ -144,4 +157,10 @@ def make_mesh(
     dev = _device_for(dist.get_backend(group), device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(shape, coords_of(rank, shape), rank, group, dev)
+    if order is not None:
+        order = tuple(order)
+        if sorted(order) != list(range(n)):
+            raise ValueError(f"order {order} is not a permutation of the "
+                             f"{n} ranks")
+    pos = rank if order is None else order.index(rank)
+    return Mesh(shape, coords_of(pos, shape), rank, group, dev, order)

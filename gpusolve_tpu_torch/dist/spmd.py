@@ -86,7 +86,7 @@ import torch
 import torch.distributed as dist
 
 from gpusolve_tpu_torch.config import GridParams, Mode
-from gpusolve_tpu_torch.dist.mesh import Mesh, coords_of
+from gpusolve_tpu_torch.dist.mesh import Mesh
 from gpusolve_tpu_torch.grid import GridLevel, GridState, rhs_values, \
     torch_dtype
 from gpusolve_tpu_torch.ops import dispatch as ops
@@ -555,9 +555,7 @@ class _Exchange:
         mx, my = self.plan.mesh_shape[:2]
         out = block.new_zeros((mx * bx, my * by, bz))
         for rank, part in enumerate(parts):
-            dx, dy = self.plan.data_coords(
-                coords_of(rank, self.plan.device_mesh)
-            )
+            dx, dy = self.plan.data_coords(self.mesh.coords_of(rank))
             out[dx * bx:(dx + 1) * bx, dy * by:(dy + 1) * by] = part
         return out
 

@@ -75,10 +75,16 @@ class GridLevel:
 
 @dataclasses.dataclass
 class GridState:
-    """The level hierarchy plus Newton's saved original RHS."""
+    """The level hierarchy plus Newton's saved original RHS.
+
+    ``shardings``: None for a state on one device; for a state placed by
+    ``dist.sharding.shard_state``, one ``LevelSharding`` per level, and
+    each level's tensors are this rank's block of it with a ghost frame
+    (a replicated level whole)."""
 
     levels: Tuple[GridLevel, ...]
     newton_f: Optional[torch.Tensor] = None
+    shardings: Optional[tuple] = None
 
     @property
     def device(self) -> torch.device:
@@ -163,20 +169,24 @@ def rhs_values(params: GridParams, x, y, z) -> torch.Tensor:
     )
 
 
-def _device_rhs(params: GridParams, dtype, device) -> torch.Tensor:
+def _device_rhs(params: GridParams, dtype, device, start=(1, 1, 1),
+                dims=None) -> torch.Tensor:
     """The finest RHS computed on the device in the working dtype; a
-    grid-sized host array never crosses to the card."""
-    nx, ny, nz = params.grid_dim
+    grid-sized host array never crosses to the card.  ``start`` and
+    ``dims``: the box of padded global indices whose values fill the
+    result's interior (default: the whole grid), each point computed as
+    the whole grid computes it."""
+    nx, ny, nz = params.grid_dim if dims is None else dims
     h = params.h
     off = -1.0 if params.mode == Mode.LINEAR else 0.0
 
-    def coord(n):
-        return (torch.arange(1, n + 1, dtype=dtype, device=device) + off) * h
+    def coord(s, n):
+        return (torch.arange(s, s + n, dtype=dtype, device=device) + off) * h
 
     out = torch.zeros((nx + 2, ny + 2, nz + 2), dtype=dtype, device=device)
     out[1:-1, 1:-1, 1:-1] = rhs_values(
-        params, coord(nx)[:, None, None], coord(ny)[None, :, None],
-        coord(nz)[None, None, :],
+        params, coord(start[0], nx)[:, None, None],
+        coord(start[1], ny)[None, :, None], coord(start[2], nz)[None, None, :],
     )
     return out
 

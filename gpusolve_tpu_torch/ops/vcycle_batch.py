@@ -65,7 +65,7 @@ import torch
 
 from gpusolve_tpu_torch.config import GridParams, Mode
 from gpusolve_tpu_torch.grid import GridLevel, GridState
-from gpusolve_tpu_torch.ops import dispatch as ops
+from gpusolve_tpu_torch.ops import dispatch
 from gpusolve_tpu_torch.ops import kernels
 
 _SUBCYCLES = {"V": ("V",), "W": ("W", "W"), "F": ("F", "V")}
@@ -134,16 +134,19 @@ def _cycle(
     done: torch.Tensor,
     norm_out: Optional[torch.Tensor] = None,
     thr=-1.0,
+    ops=dispatch,
 ) -> None:
     """One cycle of ``params.cycle_type`` rooted at the finest level; with
     ``norm_out`` its finest-level Σr² into it (``done`` set when ``thr``
-    is met), from level 0's up leg where that leg is fused."""
+    is met), from level 0's up leg where that leg is fused.  ``ops``:
+    ``ops/dispatch``, or the GSPMD engine's sharded ops
+    (``dist/gspmd.ShardedOps``), which run every visit per op."""
     nlev = len(levels)
     dims = params.level_dims()
     hs = [params.level_h(i) for i in range(nlev)]
     fas = params.mode == Mode.NONLINEAR
     pre, post = params.pre_smoothing, params.post_smoothing
-    down_fused, up_fused = legs(params)
+    down_fused, up_fused = legs(params) if ops is dispatch else (False, False)
 
     def smooth_level(i: int, n_iter: int) -> None:
         lvl = levels[i]
@@ -281,6 +284,7 @@ def enqueue(
     done: torch.Tensor,
     held: List[List[Tuple[torch.Tensor, torch.Tensor]]],
     thr=-1.0,
+    ops=dispatch,
 ) -> None:
     """Enqueue ``n`` cycles on ``levels`` in place, with no host read:
     cycle i's finest-level Σr² into ``norms[i]``, and ``done`` set by its
@@ -288,9 +292,9 @@ def enqueue(
     device) is met; every op of every cycle reads ``done``.  After each
     cycle appends each level's ``(v, r)`` to ``held``, so ``held[c]`` (from
     the caller's entry for c = 0) is what the levels hold after c
-    cycles."""
+    cycles.  ``ops`` as :func:`_cycle` takes it."""
     for i in range(n):
-        _cycle(levels, params, done, norms[i : i + 1], thr)
+        _cycle(levels, params, done, norms[i : i + 1], thr, ops)
         held.append([(lvl.v, lvl.r) for lvl in levels])
 
 
@@ -311,6 +315,7 @@ def run(
     ncyc: Optional[int] = None,
     thr: float = -1.0,
     timer=None,
+    ops=dispatch,
 ) -> np.ndarray:
     """Run up to ``min(ncyc, maxk)`` cycles on ``state`` in place.
 
@@ -318,14 +323,14 @@ def run(
     working dtype, −1 for cycles not executed (stopped by
     ``Σr² <= thr`` with ``thr >= 0``, or beyond ``ncyc``).  The one host
     sync of the batch is the read of this vector (timed as ``sumBuffer``
-    when a timer is given)."""
+    when a timer is given).  ``ops`` as :func:`_cycle` takes it."""
     levels = list(state.levels)
     lvl0 = levels[0]
     n = maxk if ncyc is None else min(ncyc, maxk)
     norms = torch.full((maxk,), -1.0, dtype=lvl0.v.dtype, device=lvl0.v.device)
     done = torch.zeros(1, dtype=torch.int32, device=lvl0.v.device)
     held = [[(lvl.v, lvl.r) for lvl in levels]]
-    enqueue(levels, params, n, norms, done, held, thr)
+    enqueue(levels, params, n, norms, done, held, thr, ops)
     out = read_host(norms, timer)
     hand_over(levels, held, int(np.count_nonzero(out != -1.0)))
     return out

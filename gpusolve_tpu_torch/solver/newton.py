@@ -22,7 +22,9 @@ Two outer loops, chosen as the JAX package chooses (its
     (and the inner ones, which say where each level's v lies);
   * elsewhere the per-step loop, which reads F's norm on the host once a
     step and the inner solve's norms once more.
-Both leave the same history and the same state.
+Both leave the same history and the same state.  Under ``shardings``
+(the GSPMD engine) the per-step loop runs on the sharded ops, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ import numpy as np
 import torch
 
 from gpusolve_tpu_torch.config import GridParams, Mode
+from gpusolve_tpu_torch.dist import gspmd
 from gpusolve_tpu_torch.grid import GridState
-from gpusolve_tpu_torch.ops import dispatch as ops
 from gpusolve_tpu_torch.ops import kernels, vcycle_batch
 from gpusolve_tpu_torch.solver import vcycle as vc
 from gpusolve_tpu_torch.utils.timer import Timer
@@ -53,7 +55,7 @@ def _enqueue_comp_f(
     """F into level 0's f and ΣF² into ``sumsq``, unless ``done`` is
     set."""
     lvl = state.levels[0]
-    ops.residual_op(
+    gspmd.ops_for(state).residual_op(
         lvl.f, lvl.newton_v, state.newton_f, params.level_dims()[0],
         params.replace(mode=Mode.NONLINEAR), params.level_h(0),
         norm_out=sumsq, done=done,
@@ -79,6 +81,7 @@ def _restrict_newton_v(
     restricted (a reference quirk)."""
     levels = state.levels
     dims = params.level_dims()
+    ops = gspmd.ops_for(state)
     for i in range(1, len(levels) - 1):
         ops.restrict_op(
             levels[i].newton_v, levels[i - 1].newton_v, dims[i - 1],
@@ -93,7 +96,8 @@ def _prepare_find_error(state: GridState, params: GridParams) -> None:
 
 
 def _update_newton_v(state: GridState) -> None:
-    """ũ += v on the finest level (both halos are zero)."""
+    """ũ += v on the finest level (both halos are zero at the domain's
+    boundary; a placed state's ghosts are fetched anew before a read)."""
     lvl = state.levels[0]
     lvl.newton_v.add_(lvl.v)
 
@@ -273,6 +277,7 @@ def _newton_solve_batched(
 def newton_solve(
     state: GridState,
     params: GridParams,
+    shardings: Optional[tuple] = None,
     timer: Optional[Timer] = None,
     initial_residual: Optional[float] = None,
     check_every: int = 1,
@@ -290,7 +295,12 @@ def newton_solve(
     batch engine runs on the kernels (``vc.use_fused2``), as the JAX
     package does; elsewhere (the plain ops, float64, the v1 engine) the
     per-step loop runs.  The history and the state do not depend on it.
+
+    ``shardings`` (``dist.level_shardings``): the GSPMD engine's per-step
+    loop; a whole state is placed first, and the placed state is
+    returned (``vc.solve``).
     """
+    state = vc.placed(state, shardings)
     if params.mode != Mode.NEWTON:
         raise ValueError(
             f"newton_solve runs NEWTON mode, got {params.mode.name}"
@@ -311,7 +321,8 @@ def newton_solve(
         initial = float(initial_residual)
         history = []
 
-    if check_every > 1 and vc.use_fused2(params, state.device):
+    if check_every > 1 and state.shardings is None and \
+            vc.use_fused2(params, state.device):
         return _newton_solve_batched(
             state, params, timer, initial, history, fn,
             max(1, min(check_every, params.maxiter)),

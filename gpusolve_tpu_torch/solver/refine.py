@@ -28,7 +28,10 @@ the spmd engine (``dist/spmd.py`` per leg, in either plan, or
 ``dist/pod.py``), the float64 outer defect on the plain ops over the
 whole finest level, which every rank holds; each outer step injects this
 rank's block of the scaled defect (and Newton's linearisation point) into
-the engine's level 0 and gathers the correction back.
+the engine's level 0 and gathers the correction back.  ``solve_refine``
+with ``shardings`` runs the inner solves on the GSPMD engine
+(``dist/gspmd.py``), the float64 outer arrays on level 0's placement
+(``gpusolve_tpu/solver/refine.py:144-200``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from gpusolve_tpu_torch.config import GridParams, Mode
+from gpusolve_tpu_torch.dist import gspmd
+from gpusolve_tpu_torch.dist.sharding import place_rhs
 from gpusolve_tpu_torch.grid import GridLevel, GridState, _device_rhs
 from gpusolve_tpu_torch.grid import build_grid, resolve_device
 from gpusolve_tpu_torch.ops import ref
@@ -61,16 +66,24 @@ def _params32(params: GridParams, inner_iters: int,
 
 
 def _hi_residual(
-    u: torch.Tensor, f: torch.Tensor, params: GridParams
+    u: torch.Tensor, f: torch.Tensor, params: GridParams, sh0=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The float64 defect and its L2 norm (a 0-d tensor) on the finest
     level: LINEAR r = f − A·u/h², other modes the full nonlinear residual
-    F = f − (A·u/h² + γ·u·eᵘ), the NONLINEAR residual at v = u."""
+    F = f − (A·u/h² + γ·u·eᵘ), the NONLINEAR residual at v = u.  With
+    ``sh0`` (level 0's placement) u and f are this rank's tensors of the
+    level: u's ghosts are fetched, and the norm sums every rank's block."""
     p = params if params.mode == Mode.LINEAR else params.replace(
         mode=Mode.NONLINEAR
     )
-    r, sumsq = ref.residual(u, f, params.level_dims()[0], p,
-                            params.level_h(0))
+    if sh0 is None:
+        dims = params.level_dims()[0]
+    else:
+        gspmd.halo(u, sh0)
+        dims = sh0.local_dims
+    r, sumsq = ref.residual(u, f, dims, p, params.level_h(0))
+    if sh0 is not None:
+        sumsq = gspmd.all_sum(sumsq.reshape(1), sh0)[0]
     return r, torch.sqrt(sumsq)
 
 
@@ -108,6 +121,7 @@ def solve_refine(
     timer: Optional[Timer] = None,
     state32: Optional[GridState] = None,
     device=None,
+    shardings: Optional[tuple] = None,
 ) -> Tuple[torch.Tensor, List[float]]:
     """Iterate float64 defect → float32 multigrid correction until
     ``res <= initial/(1/tol)`` (the reference's stop test) or
@@ -119,6 +133,11 @@ def solve_refine(
     the outer iteration; ``inner_tol``/``inner_iters`` the float32
     multigrid solve of each correction equation.  ``device`` defaults to
     CUDA (or ``state32``'s device).
+
+    ``shardings`` (``dist.level_shardings`` of the float32 params): the
+    inner solves on the GSPMD engine, on the mesh's device; u and the
+    RHS are this rank's tensors of level 0 (``dist.sharding.gather_field``
+    assembles u on rank 0).
     """
     if params.dtype != "float32":
         raise ValueError(
@@ -132,8 +151,14 @@ def solve_refine(
     newton = params.mode != Mode.LINEAR
 
     p32 = _params32(params, inner_iters, inner_tol)
+    sh0 = None
+    if shardings is not None:
+        sh0 = shardings[0]
+        device = sh0.mesh.device
+        dims = sh0.local_dims
     if state32 is None:
         state32 = build_grid(p32, device=device)
+    state32 = vc.placed(state32, shardings)
     # The inner Jacobian solves never read newton_f (only the outer
     # newton_solve does).
     state32 = dataclasses.replace(state32, newton_f=None)
@@ -141,9 +166,12 @@ def solve_refine(
 
     u = torch.zeros(tuple(d + 2 for d in dims), dtype=torch.float64,
                     device=dev)
-    f_hi = hi_rhs(params, dev)
+    if sh0 is None:
+        f_hi = hi_rhs(params, dev)
+    else:
+        f_hi = place_rhs(params, sh0, torch.float64, dev)
 
-    r_hi, res = _hi_residual(u, f_hi, params)
+    r_hi, res = _hi_residual(u, f_hi, params, sh0)
     initial = float(res)
     word = "newton iter" if params.mode == Mode.NEWTON else "iter"
     if params.print_progress:
@@ -163,7 +191,7 @@ def solve_refine(
             state32, p32, timer=timer, check_every=inner_iters
         )
         _accumulate(u, state32.levels[0].v, s, dims)
-        r_hi, res = _hi_residual(u, f_hi, params)
+        r_hi, res = _hi_residual(u, f_hi, params, sh0)
         if timer is not None:
             with timer.section("sumBuffer"):
                 res_f = float(res)

@@ -29,6 +29,11 @@ the Mosaic pass cap, the VMEM budget, the coarsest level's residency) are
 not ported: a configuration the JAX package sends to v1 only for one of
 them runs the batch engine here (``--explain-backend`` says so).
 
+Under ``shardings`` (the GSPMD engine, ``dist/gspmd.py``) the same
+cycle runs on the sharded ops, per op, in the JAX package's per-cycle
+loop: one host read a cycle and the verbatim stop test; ``check_every``
+does not apply.
+
 The cycle (V, W or F) is the recursion ``cycle_at`` in
 ``ops/vcycle_batch.py``: the coarsest level is smoothed only (pre + post
 sweeps); a coarse v starts at zero on each visit of its parent (LINEAR,
@@ -46,6 +51,8 @@ import numpy as np
 import torch
 
 from gpusolve_tpu_torch.config import GridParams
+from gpusolve_tpu_torch.dist import gspmd
+from gpusolve_tpu_torch.dist.sharding import shard_state
 from gpusolve_tpu_torch.grid import GridState
 from gpusolve_tpu_torch.ops import dispatch as ops
 from gpusolve_tpu_torch.ops import vcycle_batch
@@ -66,8 +73,8 @@ def _fused_capable(params: GridParams, device) -> bool:
     """The JAX package's gates on its fused kernels that are about the
     algorithm or the engine: the kernels run (``ops.plain_reason``: not
     ``backend="ref"``, float32, on a CUDA device, the JAX package's "on
-    TPU") and the grid has at least 48³ points.  Its shardings gate waits
-    for the distributed engines: the port has no sharded state yet."""
+    TPU") and the grid has at least 48³ points.  Its shardings gate is
+    ``solve``'s: a placed state runs the GSPMD engine's per-cycle loop."""
     if ops.plain_reason(params, device, params.dtype) is not None:
         return False
     return math.prod(params.grid_dim) >= FUSED_MIN_POINTS
@@ -164,18 +171,32 @@ def vcycle_fused(
 def vcycle(state: GridState, params: GridParams) -> Tuple[GridState, float]:
     """One cycle of ``params.cycle_type``; returns the state (updated in
     place) and the finest-level residual norm."""
-    norms = vcycle_batch.run(state, params, maxk=1)
+    norms = vcycle_batch.run(state, params, maxk=1,
+                             ops=gspmd.ops_for(state))
     return state, float(np.sqrt(norms[0]))
 
 
+def placed(state: GridState, shardings) -> GridState:
+    """``state`` under ``shardings``: a whole state is placed
+    (``dist/sharding.shard_state``); a placed one must carry them."""
+    if shardings is None:
+        return state
+    if state.shardings is None:
+        return shard_state(state, shardings)
+    if tuple(state.shardings) != tuple(shardings):
+        raise ValueError("the state is placed by other shardings")
+    return state
+
+
 def residual_norm(
-    state: GridState, params: GridParams
+    state: GridState, params: GridParams, shardings=None
 ) -> Tuple[GridState, float]:
     """The mode's residual at the finest level, stored in level 0's r, and
-    its norm."""
+    its norm (under ``shardings``, over every rank's block)."""
+    state = placed(state, shardings)
     lvl = state.levels[0]
     sumsq = lvl.v.new_empty(1)
-    ops.residual_op(
+    gspmd.ops_for(state).residual_op(
         lvl.r, lvl.v, lvl.f, params.level_dims()[0], params,
         params.level_h(0), norm_out=sumsq, newton_v=lvl.newton_v,
     )
@@ -191,21 +212,27 @@ def _solve_batched(
     check_every: int,
 ) -> Tuple[GridState, List[float]]:
     """Batches of up to ``check_every`` cycles with the early stop on the
-    device, then the verbatim host stop test on every returned norm."""
+    device, then the verbatim host stop test on every returned norm.  A
+    placed state runs batches of one cycle on the sharded ops, with no
+    stop on the device: the JAX package's per-cycle loop."""
     dt = _np_dtype(state)
-    k = max(1, min(check_every, params.maxiter))
+    cycle_ops = gspmd.ops_for(state)
+    placed_state = state.shardings is not None
+    k = 1 if placed_state else max(1, min(check_every, params.maxiter))
     thr = dt.type((initial / (1.0 / params.tol)) ** 2)
     thr = np.nextafter(
         np.nextafter(thr, dt.type(np.inf), dtype=dt),
         dt.type(np.inf), dtype=dt,
     )
+    thr = -1.0 if placed_state else float(thr)
     i = 0
     done = False
     while i < params.maxiter and not done:
         m = min(k, params.maxiter - i)
         t0 = time.perf_counter()
         arr = vcycle_batch.run(
-            state, params, maxk=k, ncyc=m, thr=float(thr), timer=timer
+            state, params, maxk=k, ncyc=m, thr=thr, timer=timer,
+            ops=cycle_ops,
         )
         batch_ms = (time.perf_counter() - t0) * 1000.0
         executed = [float(x) for x in arr if x >= 0.0]
@@ -257,6 +284,7 @@ def _solve_per_cycle(
 def solve(
     state: GridState,
     params: GridParams,
+    shardings: Optional[tuple] = None,
     timer: Optional[Timer] = None,
     initial_residual: Optional[float] = None,
     check_every: int = 1,
@@ -273,7 +301,12 @@ def solve(
 
     ``check_every``: cycles per host sync on the batch engine; the v1
     engine syncs once a cycle (see the module note).
+
+    ``shardings`` (``dist.level_shardings``): the GSPMD engine; a whole
+    state is placed first, and the placed state is returned.  A state
+    placed already runs it with no ``shardings`` given.
     """
+    state = placed(state, shardings)
     if timer is None and params.print_progress:
         timer = Timer()
     if initial_residual is None:
@@ -284,6 +317,6 @@ def solve(
     else:
         initial = float(initial_residual)
         history = []
-    if engine(params, state.device) == "v1":
+    if state.shardings is None and engine(params, state.device) == "v1":
         return _solve_per_cycle(state, params, timer, initial, history)
     return _solve_batched(state, params, timer, initial, history, check_every)

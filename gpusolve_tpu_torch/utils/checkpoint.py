@@ -16,6 +16,13 @@ every coarse v is restarted and every coarse f rewritten by the cycle, so
 a resumed solve, given the original run's initial residual for its stop
 test, repeats the uninterrupted run's remaining iterations exactly.
 
+A state of the GSPMD engine (placed by ``dist/sharding.shard_state``)
+saves and loads in the same single-device format, as the JAX package's
+global arrays do: ``save_state`` gathers every level to rank 0, which
+writes; ``load_state(..., shardings=)`` reads the file on every rank and
+places it.  So a GSPMD checkpoint resumes on one device, and the other
+way round.
+
 The distributed engines (``dist/spmd.py``, per leg in either plan, and
 ``dist/pod.py``) checkpoint with ``save_state_spmd``: the JAX package's
 keys (``s_0``, ``s_1``, ... the flat per-level ``v, f`` and the mode's
@@ -62,7 +69,19 @@ def save_state(
     history: Optional[List[float]] = None,
 ) -> None:
     """Write the solver state (all levels' v, plus newton_v/newton_f in
-    Newton mode) and progress metadata."""
+    Newton mode) and progress metadata.  A placed state is gathered to
+    rank 0, which writes (collective)."""
+    if state.shardings is not None:
+        from gpusolve_tpu_torch.dist.sharding import gather_state
+
+        mesh = state.shardings[0].mesh
+        whole = gather_state(state)
+        if mesh.rank == 0:
+            save_state(path, whole, params, iteration, history)
+        if mesh.size > 1:
+            # No rank reads the file before it is written.
+            torch.distributed.barrier(group=mesh.group)
+        return
     arrays = {}
     for l, lvl in enumerate(state.levels):
         arrays[f"v_{l}"] = _host(lvl.v)
@@ -88,10 +107,17 @@ def _fill(dst: torch.Tensor, arr: np.ndarray, dims) -> None:
     dst.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
 
 
-def load_state(path: str, params: GridParams, device=None):
-    """Rebuild a GridState from a checkpoint on ``device`` (default CUDA).
-    Returns ``(state, iteration, history)``.  Raises ValueError on a
-    configuration mismatch."""
+def load_state(path: str, params: GridParams, device=None, shardings=None):
+    """Rebuild a GridState from a checkpoint on ``device`` (default CUDA),
+    placed by ``shardings`` when given (on the mesh's device).  Returns
+    ``(state, iteration, history)``.  Raises ValueError on a configuration
+    mismatch."""
+    if shardings is not None:
+        from gpusolve_tpu_torch.dist.sharding import shard_state
+
+        state, iteration, history = load_state(
+            path, params, shardings[0].mesh.device)
+        return shard_state(state, shardings), iteration, history
     with np.load(path, allow_pickle=False) as z:
         fp = str(z["__fingerprint__"])
         if fp != _fingerprint(params):

@@ -1,9 +1,10 @@
 """The port's CLI on the CPU: the reference's output lines in every mode,
 the flags of the JAX CLI's single-device surface, --explain-backend's
 engine lines, and --mesh: the spmd engine (per leg, or pod; --halo
-rdma) on the one-rank mesh with the JAX CLI's lines, and a clear exit 1
-for the distributed engine not ported yet, for flags that do not go
-together and for a mesh larger than the world."""
+rdma) and the gspmd engine (asked for, or the fallback where spmd cannot
+run) on the one-rank mesh with the JAX CLI's lines, and a clear exit 1
+for flags that do not go together and for a mesh larger than the
+world."""
 
 import os
 import re
@@ -212,7 +213,8 @@ def test_cli_mesh_lines_match_jax(small_conf, capsys, mode):
 
 
 @pytest.mark.parametrize("args,message", [
-    (["--mesh", "1,1,1", "--dist-engine", "gspmd"], "not ported"),
+    (["--mesh", "1,1,1", "--dist-engine", "gspmd", "--load-state", "x.npz"],
+     "does not exist"),
     (["--mesh", "1,1,1", "--refine", "--dtype", "float64"], "incompatible"),
     (["--mesh", "1,1,1", "--refine", "--save-state", "x.npz"],
      "incompatible"),
@@ -225,17 +227,68 @@ def test_cli_mesh_exits_1(small_conf, capsys, args, message):
     assert message in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--dist-engine", "gspmd"], "ROADMAP Queue 1 item 3(f), sharding.py"),
-    (["--mesh", "32,1,1"], "ROADMAP Queue 1 item 3(f), sharding.py"),
+@pytest.mark.parametrize("args,rc,message", [
+    (["--dist-engine", "gspmd"], 0,
+     "note: the gspmd engine is the debugging/fallback path"),
+    (["--mesh", "32,1,1"], 1, "torchrun --nproc-per-node 32"),
 ])
-def test_cli_mesh_refusal_names_roadmap_item(small_conf, capsys, args, item):
-    """Each refusal with --mesh names the ROADMAP item that ports it: the
-    gspmd engine, asked for or where the reference falls back to it (a
-    mesh the spmd engine cannot run)."""
+def test_cli_mesh_refusal_names_roadmap_item(small_conf, capsys, args, rc,
+                                             message):
+    """The two --mesh refusals that named the ROADMAP item of the gspmd
+    engine now run it: asked for, it solves with the reference's note; as
+    the reference's fallback where the spmd engine cannot run the mesh
+    (a grid smaller than it), it says so and, on one process, asks for
+    the processes the mesh needs."""
     assert cli.main([small_conf(), "--platform", "cpu", "--mesh", "1,1,1",
-                     *args]) == 1
-    assert item in capsys.readouterr().err
+                     *args]) == rc
+    err = capsys.readouterr().err
+    assert message in err
+    if rc:
+        assert "note: using the gspmd engine (grid (15, 15, 15) too small " \
+               "for mesh (32, 1, 1))" in err
+
+
+def test_cli_gspmd_lines_match_jax(small_conf, capsys):
+    """--mesh 1,1,1 --dist-engine gspmd prints the JAX CLI's lines with
+    the same flags, the same numbers to the printed digits in float64,
+    and says what its local compute is under --explain-backend."""
+    from gpusolve_tpu import cli as jax_cli
+
+    path = small_conf(mode=1, dims=(15, 15, 15), maxiter=3)
+    flags = ["--mesh", "1,1,1", "--dist-engine", "gspmd", "--dtype",
+             "float64", "--validate"]
+    assert cli.main([path, "--platform", "cpu", "--explain-backend",
+                     *flags]) == 0
+    out, err = capsys.readouterr()
+    assert "backend: dist-engine=gspmd (box fetches over " \
+           "torch.distributed; local compute: plain ops (float64" in err
+    assert "debugging/fallback path" in err
+    assert jax_cli.main([path, *flags]) == 0
+    ref_out = capsys.readouterr().out
+    num = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+
+    def shape(text):
+        lines = [re.sub(r"Took \d+ms.*", "", ln) for ln in text.splitlines()]
+        return ([num.sub("#", ln) for ln in lines],
+                [float(x) for ln in lines for x in num.findall(ln)])
+
+    got, want = shape(out), shape(ref_out)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-9)
+
+
+def test_cli_single_level_falls_back_to_gspmd(small_conf, capsys):
+    """A single-level grid, which the spmd engine cannot run, takes the
+    gspmd engine under --dist-engine auto with the reference's note, and
+    runs: the progress lines, numbered, with a falling residual."""
+    path = small_conf(mode=1, dims=(15, 15, 1), maxiter=3)
+    assert cli.main([path, "--platform", "cpu", "--mesh", "1,1,1"]) == 0
+    out, err = capsys.readouterr()
+    assert "note: using the gspmd engine (single-level grid)" in err
+    iters = [LINE.match(ln) for ln in out.splitlines() if LINE.match(ln)]
+    assert [int(m.group(1)) for m in iters] == [0, 1, 2]
+    res = [float(m.group(2)) for m in iters]
+    assert all(b < a for a, b in zip(res, res[1:]))
 
 
 def test_cli_mesh_fuse_pod(small_conf, capsys):

@@ -334,10 +334,9 @@ def test_launches_per_cycle_counts(monkeypatch, mode, cycle, pre, post,
 # The public names
 # ---------------------------------------------------------------------------
 
-# The JAX package's distributed names the port has not yet: ROADMAP Queue 1
-# item 3(f), the GSPMD engine (gpusolve_tpu/dist/sharding.py) and the
-# multi-host helpers.
-WAITING = {"level_shardings", "shard_state", "multihost"}
+# The JAX package's distributed names the port has not yet: none since the
+# GSPMD engine (dist/sharding.py) and the multi-host helpers were ported.
+WAITING = set()
 
 
 def test_all_matches_jax_package():
@@ -347,3 +346,4 @@ def test_all_matches_jax_package():
     assert callable(gt.solve_refine)
     missing = set(jdist.__all__) - set(tdist.__all__)
     assert missing == WAITING
+    assert set(jdist.__all__) <= set(tdist.__all__)
