@@ -60,6 +60,15 @@ Phases (any failure exits non-zero before the last line is printed):
      --save-state/--load-state resuming to the uninterrupted history;
      --refine at 127³ to tol 1e-10 (LINEAR and Newton); --dtype float64
      at 127³ on the card (the plain ops, no kernel launch); --profile;
+  4b. dryrun.entry()'s cycle (63³ LINEAR V(3,3), its counts zeroed just
+     before it) against the same cycle on the plain ops (histories_agree);
+     the parity check (gpusolve_tpu_torch/scripts/parity.py) at 63³ and
+     127³ in the three modes: the ref, batch, batch-perop, v1, spmd-leg,
+     spmd-classic, spmd-rdma, pod and gspmd engines against the float64
+     host solver (cpu_native, built with g++), one line a row with its
+     margin, each under 1, pod-y recorded as skipped (it needs 2 ranks);
+     --backend cpu-native on examples/linear_127.conf at 63³ (no kernel
+     launch) against the batch engine's history;
   5. times at 511³ with CUDA events: device ms per LINEAR and FAS cycle
      over a 10-cycle batch and per Newton step of newton_solve (the
      per-step and the batched loop in turns, with host reads a solve,
@@ -74,8 +83,10 @@ Phases (any failure exits non-zero before the last line is printed):
      floor (the flag set) and torch.sum; subtract beside its 80 % target
      and torch.sub; the batched Newton loop's kernels at 511³
      (newton_update beside add_, newton_zero beside zero_,
-     finalize_dev_thr beside torch.sum, newton_gate); and a one-field
-     copy as the stream ceiling; the v1
+     finalize_dev_thr beside torch.sum, newton_gate); the card's row of
+     utils/tuning.py and its measured stream ceiling
+     (probe_ceiling_gbps(refresh=True): a copy of a padded 511³ field),
+     on one line; the v1
      kernel's ms per cycle at V(3,3) and V(6,6) in the
      three modes beside the batch engine's at the same configuration,
      their bytes and bounds, each level-0 op inside it beside the per-op
@@ -355,15 +366,12 @@ def check(cond, msg):
 
 
 def mem_rate(name: str) -> float:
-    """Published device-memory rate of the card, bytes/s."""
-    if "H200" in name:
-        return 4.8e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12
-    check("H100" in name, f"no memory rate on record for {name!r}")
-    return 3.35e12
+    """Published device-memory rate of the card, bytes/s: its row of the
+    port's table (utils/tuning.py), which must have one."""
+    from gpusolve_tpu_torch.utils import tuning
+
+    check(tuning.known_kind(name), f"no memory rate on record for {name!r}")
+    return tuning.for_kind(name).peak_hbm_gbps * 1e9
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1988,6 +1996,102 @@ def cli_flags(tmp):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: the entry cycle, parity against the host solver, cpu-native
+# ---------------------------------------------------------------------------
+
+PARITY_SIZES = (63, 127)
+
+
+def entry_path():
+    """dryrun.entry()'s cycle on the card (its counts zeroed just before
+    and read just after) against the same cycle on the plain ops on the
+    card, by histories_agree's rule.  Returns the counts."""
+    import torch
+
+    from gpusolve_tpu_torch import dryrun
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.solver.vcycle import vcycle
+
+    fn, (state,) = dryrun.entry()
+    params = fn.keywords["params"]
+    K.reset_launches()
+    _, res = fn(state)
+    torch.cuda.synchronize()
+    counts = nonzero(K.launches)
+    _, (pstate,) = dryrun.entry()
+    K.reset_launches()
+    _, want = vcycle(pstate, params.replace(backend="ref"))
+    check(not nonzero(K.launches), "entry: the plain cycle launched a kernel")
+    worst = histories_agree([res], [want], "entry cycle vs plain")
+    check(counts.get("down_leg", 0) > 0 and counts.get("up_leg", 0) > 0,
+          f"entry: the cycle ran no fused leg {counts}")
+    print(f"entry path 63^3 LINEAR V(3,3): residual {res} vs plain {want} "
+          f"(rel {worst:.3e}); launches {counts}")
+    return counts
+
+
+def parity_phase():
+    """The parity check (gpusolve_tpu_torch/scripts/parity.py) at 63³
+    and 127³, every mode, every engine, against the float64 host solver:
+    each ran row's margin under 1 (an engine that fails to run raises),
+    pod-y recorded as skipped on the one card."""
+    from gpusolve_tpu_torch.scripts import parity
+
+    t0 = time.perf_counter()
+    for size in PARITY_SIZES:
+        for mode in (0, 1, 2):
+            rows = parity.judge_group(size, mode, list(parity.ENGINES),
+                                      parity.golden(size, mode), "cuda")
+            ran = [r["engine"] for r in rows if "history" in r]
+            check(ran == [e for e in parity.ENGINES if e != "pod-y"],
+                  f"parity {size}^3 mode {mode}: ran {ran}")
+            skipped = [r for r in rows if "skipped" in r]
+            check([r["engine"] for r in skipped] == ["pod-y"],
+                  f"parity {size}^3 mode {mode}: skipped {skipped}")
+            print(f"parity {size}^3 mode={mode} pod-y: skipped: "
+                  f"{skipped[0]['skipped']}")
+            bad = [(r["engine"], r["margin"]) for r in rows
+                   if not r["ok"]]
+            check(not bad, f"parity {size}^3 mode {mode}: {bad}")
+    print(f"parity: {len(PARITY_SIZES) * 3 * (len(parity.ENGINES) - 1)} "
+          f"rows, every margin < 1, in {time.perf_counter() - t0:.1f} s")
+
+
+def native_cli(tmp):
+    """--backend cpu-native on examples/linear_127.conf at 63³: the JAX
+    CLI's lines, no kernel launch, and its float64 history against the
+    batch engine's on the card: rel 2e-4 while the residual is >= 1e-3 of
+    the initial, within 1e-4 of the initial below (float32's floor lies
+    near 1.5e-5 of it at 63³)."""
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    conf = conf_with(tmp, CONFS["linear"], "native63.conf", dims=(63,) * 3)
+    K.reset_launches()
+    rc, out, err = run_cli([conf, "--backend", "cpu-native",
+                            "--explain-backend"])
+    check(rc == 0, f"cli --backend cpu-native exited {rc}")
+    lines = out.splitlines()
+    check(lines[:2] == [f"Using config file {conf}",
+                        "Solving linear problem"], "cli cpu-native: lines")
+    check("backend: cpu-native: the C++/OpenMP host solver" in err,
+          "cli cpu-native: engine line")
+    check(not nonzero(K.launches), f"cli cpu-native launched {K.launches}")
+    initial, res = progress(lines)
+    native = [initial] + res
+    params = gt.parse_config(conf, print_progress=False)
+    _, batch, _ = run_solve(params, 10)
+    check(native[-1] <= initial * params.tol,
+          f"cli cpu-native did not reach tol: {native}")
+    for i, (g, w) in enumerate(zip(batch, native)):
+        lim = 2e-4 * w if w >= 1e-3 * initial else 1e-4 * initial
+        check(abs(g - w) <= lim, f"cli cpu-native vs batch: entry {i} "
+              f"{g} vs {w}")
+    print(f"cli --backend cpu-native 63^3: {native} against the batch "
+          f"engine's {batch}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -2135,11 +2239,17 @@ def time_kernels(params, state, rate, rows):
     norm_bytes = kernel_bytes("residual", dims) - 4 * n  # r not written
     print(f"time residual norm-only 511^3: {norm_only:.4f} ms, bound "
           f"{norm_bytes / rate * 1e3:.4f} ms")
-    dst = torch.empty_like(v)
-    copy_ms = cuda_ms(lambda: dst.copy_(v), reps=20)
-    print(f"time copy of one 511^3 field: {copy_ms:.4f} ms = "
-          f"{2 * 4 * padded(dims) / copy_ms / 1e6:.1f} GB/s (stream "
-          f"ceiling)")
+    from gpusolve_tpu_torch.utils import tuning
+
+    name = torch.cuda.get_device_name(0)
+    ceiling = tuning.probe_ceiling_gbps(refresh=True)
+    check(ceiling is not None and ceiling > 0, "no measured ceiling")
+    print(f"tuning: {name}: row {tuning.for_kind(name)} (a row of its own: "
+          f"{tuning.known_kind(name)}); probe_ceiling_gbps(refresh=True) "
+          f"{ceiling:.1f} GB/s (stream ceiling: CUDA events over "
+          f"{tuning.PROBE_REPS} copies of one padded 511^3 float32 field), "
+          f"{100 * ceiling / tuning.for_kind(name).peak_hbm_gbps:.1f} % of "
+          f"the row's peak")
 
 
 def time_mode_kernels(fas_params, fas_state, newton_params, newton_state,
@@ -5519,6 +5629,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tail_checkpoint(tmp)
     gspmd_cli()
+
+    # Phase 4b: the entry cycle, parity against the float64 host solver,
+    # and the host solver on the CLI.
+    for kname, n in entry_path().items():
+        launched[kname] += n
+    parity_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        native_cli(tmp)
 
     # Phase 5: times.
     lin = gt.parse_config(CONFS["linear"], grid_dim=BIG,

@@ -11,8 +11,13 @@ mode 2 runs ``newton_solve``, whose solution is level 0's ``newton_v``.
 Flags:
   --dtype {float32,float64}  float32 runs the CUDA kernels; float64 runs
                              the plain ops (on the card, or the CPU)
-  --backend {auto,ref,cuda}  CUDA kernels, plain PyTorch ops, or kernels
-                             only (see config.py)
+  --backend {auto,ref,cuda,cpu-native}
+                             CUDA kernels, plain PyTorch ops, kernels only
+                             (see config.py), or the C++/OpenMP host
+                             solver in float64 (cpu_native.py; no card
+                             needed, V cycles only, no --refine or
+                             --profile; --mesh is checked but the host
+                             solver runs the whole grid)
   --check-every K            cycles per batch (one host sync per batch) on
                              the batch engine; in mode 2 outer Newton steps
                              per batch where it runs on the kernels
@@ -83,6 +88,8 @@ import os
 import sys
 from typing import Optional
 
+from gpusolve_tpu_torch.config import BACKENDS
+
 # The reference announces the mode (gpusolve_tpu/cli.py:411-417).
 _MODE_LINES = {
     0: "Solving linear problem",
@@ -101,9 +108,11 @@ def build_argparser() -> argparse.ArgumentParser:
         "--dtype", choices=["float32", "float64"], default="float32"
     )
     ap.add_argument(
-        "--backend", choices=["auto", "ref", "cuda"], default="auto",
+        "--backend", choices=BACKENDS, default="auto",
         help="auto: CUDA kernels on the card, plain ops on the CPU; ref: "
-        "plain PyTorch ops on any device; cuda: kernels only",
+        "plain PyTorch ops on any device; cuda: kernels only; cpu-native: "
+        "the C++/OpenMP host solver in float64 "
+        "(ops/csrc/gpusolve_cpu.cpp)",
     )
     ap.add_argument(
         "--check-every", type=int, default=1, metavar="K",
@@ -347,6 +356,64 @@ def _pod_refusal(params, mesh_shape, device, halo) -> Optional[str]:
     return None
 
 
+def _resolve_engine(args, params, mesh_shape, device,
+                    _explain) -> Optional[str]:
+    """Settles ``--dist-engine auto`` and ``--fuse auto`` on ``args`` (the
+    JAX CLI's choice, gpusolve_tpu/cli.py:338-409): spmd wherever it can
+    run the configuration, else the gspmd engine, with a note; the pod
+    engine wherever its gates allow.  Returns why an explicit
+    ``--dist-engine spmd`` cannot run, or None."""
+    from gpusolve_tpu_torch.dist.spmd import spmd_eligible
+
+    why = spmd_eligible(params, mesh_shape)
+    if args.dist_engine == "auto":
+        args.dist_engine = "gspmd" if why else "spmd"
+        if why:
+            print(f"note: using the gspmd engine ({why})", file=sys.stderr)
+    if args.dist_engine == "spmd" and why is not None:
+        return (f"the spmd engine cannot run this configuration ({why}); "
+                "--dist-engine gspmd runs it")
+    if args.dist_engine == "spmd" and args.fuse == "auto":
+        why = _pod_refusal(params, mesh_shape, device, args.halo)
+        args.fuse = "leg" if why else "pod"
+        _explain([f"fuse=auto -> {args.fuse}" + (f" ({why})" if why else "")])
+    return None
+
+
+def _run_native(args, params, mesh_shape, _explain) -> int:
+    """``--backend cpu-native``: the whole solve on the C++/OpenMP host
+    solver in float64, with the JAX CLI's lines and each iteration's wall
+    ms as the native loop measured it (gpusolve_tpu/cli.py:428-447).  A
+    ``--mesh`` is settled as on the card, with its notes, and then not
+    used: the host solver runs the whole grid, as in the JAX CLI."""
+    import torch
+
+    from gpusolve_tpu_torch import cpu_native
+    from gpusolve_tpu_torch.config import Mode
+
+    if mesh_shape is not None:
+        _resolve_engine(args, params, mesh_shape, torch.device("cpu"),
+                        _explain)
+    solution, history, cycle_ms = cpu_native.solve_native(
+        params, with_times=True
+    )
+    _explain([
+        f"cpu-native: the C++/OpenMP host solver in float64 "
+        f"(ops/csrc/gpusolve_cpu.cpp, {cpu_native.num_threads()} threads)"
+        + ("; the mesh is not used" if mesh_shape is not None else "")
+    ])
+    if params.print_progress:
+        newton = params.mode == Mode.NEWTON
+        first = "Inital newton residual" if newton else "Inital residual"
+        print(f"{first}: {history[0]:.6g}")
+        word = "newton iter" if newton else "iter"
+        for i, res in enumerate(history[1:]):
+            print(f"{word}: {i} residual: {res:.6g} "
+                  f"Took {int(cycle_ms[i])}ms")
+    _report(solution, params, args)
+    return 0
+
+
 def _run_gspmd(args, params, mesh_shape, device, profile_cm, _explain,
                started) -> int:
     """--mesh on the GSPMD engine (dist/gspmd.py): the single-device cycle
@@ -462,24 +529,12 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
         gather_solution,
         newton_solve_spmd,
         solve_spmd,
-        spmd_eligible,
     )
 
-    # The engine (gpusolve_tpu/cli.py:338-365): spmd wherever it can run
-    # the configuration, else the gspmd engine, with a note.
-    why = spmd_eligible(params, mesh_shape)
-    if args.dist_engine == "auto":
-        args.dist_engine = "gspmd" if why else "spmd"
-        if why:
-            print(f"note: using the gspmd engine ({why})", file=sys.stderr)
-    if args.dist_engine == "spmd" and why is not None:
-        print(f"the spmd engine cannot run this configuration ({why}); "
-              "--dist-engine gspmd runs it", file=sys.stderr)
+    refused = _resolve_engine(args, params, mesh_shape, device, _explain)
+    if refused:
+        print(refused, file=sys.stderr)
         return 1
-    if args.dist_engine == "spmd" and args.fuse == "auto":
-        why = _pod_refusal(params, mesh_shape, device, args.halo)
-        args.fuse = "leg" if why else "pod"
-        _explain([f"fuse=auto -> {args.fuse}" + (f" ({why})" if why else "")])
     started = False
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
         dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
@@ -648,9 +703,11 @@ def _main(args) -> int:
         if why:
             print(why, file=sys.stderr)
             return 1
+    native = args.backend == "cpu-native"
     if args.refine:
         incompat = [
             ("--dtype float64", args.dtype == "float64"),
+            ("--backend cpu-native", native),
             ("--save-state/--load-state",
              bool(args.save_state or args.load_state)),
         ]
@@ -670,23 +727,38 @@ def _main(args) -> int:
     from gpusolve_tpu_torch.solver.newton import newton_solve
     from gpusolve_tpu_torch.solver.vcycle import solve
 
-    try:
-        device = resolve_device(_device(args.platform))
-    except (ValueError, RuntimeError) as e:
-        print(str(e), file=sys.stderr)
-        return 1
+    device = None
+    if not native:  # the host solver needs no card
+        try:
+            device = resolve_device(_device(args.platform))
+        except (ValueError, RuntimeError) as e:
+            print(str(e), file=sys.stderr)
+            return 1
 
     print(f"Using config file {args.config}")
     try:
         params = parse_config(
             args.config,
-            dtype=args.dtype,
+            dtype="float64" if native else args.dtype,
             backend=args.backend,
             print_progress=not args.quiet,
             cycle_type=args.cycle,
         )
     except ValueError as e:
         print(str(e), file=sys.stderr)
+        return 1
+    if native and args.profile:
+        print(
+            "--profile needs a JAX device backend (jax.profiler); the "
+            "cpu-native backend has no trace hooks",
+            file=sys.stderr,
+        )
+        return 1
+    if native and args.cycle != "V":
+        print(
+            "--cycle W/F is not available on the cpu-native backend",
+            file=sys.stderr,
+        )
         return 1
     print(_MODE_LINES[params.mode])
     if not params.properly_nested:
@@ -696,6 +768,14 @@ def _main(args) -> int:
             "guaranteed (this matches the reference's behavior)",
             file=sys.stderr,
         )
+
+    def _explain(lines):
+        if args.explain_backend:
+            for ln in lines:
+                print(f"backend: {ln}", file=sys.stderr)
+
+    if native:
+        return _run_native(args, params, mesh_shape, _explain)
     if args.devices:
         if device.type == "cuda":
             name = torch.cuda.get_device_name(device)
@@ -703,11 +783,6 @@ def _main(args) -> int:
         else:
             print("Device [0]: cpu")
         print("Using device [0]")
-
-    def _explain(lines):
-        if args.explain_backend:
-            for ln in lines:
-                print(f"backend: {ln}", file=sys.stderr)
 
     profile_cm = contextlib.nullcontext()
     if args.profile:

@@ -7,11 +7,15 @@ jax).  The 14-line positional format, ``Mode``, ``Stencil`` and
 and message for message, so a config parses to equal values in both
 packages.
 
-One field differs: ``backend`` takes ``"auto" | "ref" | "cuda"``.
+One field differs: ``backend`` takes ``"auto" | "ref" | "cuda" |
+"cpu-native"``.
   * ``auto`` — the CUDA kernels for CUDA tensors, the plain PyTorch ops for
     CPU tensors;
   * ``ref``  — the plain PyTorch ops on any device (the oracle path);
-  * ``cuda`` — the CUDA kernels; a CPU tensor raises.
+  * ``cuda`` — the CUDA kernels; a CPU tensor raises;
+  * ``cpu-native`` — the C++ host solver in float64
+    (``cpu_native.solve_native``, ``--backend cpu-native``); the device
+    solvers refuse it.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import enum
 import math
 from typing import Tuple
 
-BACKENDS = ("auto", "ref", "cuda")
+BACKENDS = ("auto", "ref", "cuda", "cpu-native")
 
 
 class Mode(enum.IntEnum):
@@ -95,7 +99,7 @@ class GridParams:
     stencil: Stencil
     print_progress: bool = True
     dtype: str = "float32"  # "float32" | "float64" (float64: plain ops only)
-    backend: str = "auto"  # "auto" | "ref" | "cuda", see the module note
+    backend: str = "auto"  # one of BACKENDS, see the module note
     # "V" recurses once per level, "W" twice, "F" F-then-V.  Each coarse
     # visit continues from the previous visit's v; every visit restricts
     # afresh and starts its own coarser v anew (at zero, or at the

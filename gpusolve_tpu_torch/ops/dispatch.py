@@ -38,6 +38,11 @@ def plain_reason(params: GridParams, device, dtype) -> Optional[str]:
     solver's engine choice read.  ``backend="cuda"`` raises where it cannot
     launch the kernels."""
     device = torch.device(device)
+    if params.backend == "cpu-native":
+        raise ValueError(
+            "backend='cpu-native' is the C++ host solver "
+            "(cpu_native.solve_native), not a device backend"
+        )
     if params.backend == "ref":
         return "--backend ref"
     if params.backend == "cuda" and device.type != "cuda":

@@ -24,7 +24,7 @@ def port_sources():
     for dirpath, _, names in os.walk(PKG):
         files += [
             os.path.join(dirpath, n) for n in names
-            if n.endswith((".py", ".cu", ".cuh"))
+            if n.endswith((".py", ".cu", ".cuh", ".cpp"))
         ]
     return files
 
@@ -35,7 +35,11 @@ def test_import_leaves_jax_out():
         "gpusolve_tpu_torch.interop, gpusolve_tpu_torch.ops.vcycle_batch, "
         "gpusolve_tpu_torch.dist.spmd, gpusolve_tpu_torch.ops.spmd_kernels, "
         "gpusolve_tpu_torch.dist.pod, gpusolve_tpu_torch.ops.pod, "
-        "gpusolve_tpu_torch.ops.spmd_leg, gpusolve_tpu_torch.ops.rdma; "
+        "gpusolve_tpu_torch.ops.spmd_leg, gpusolve_tpu_torch.ops.rdma, "
+        "gpusolve_tpu_torch.cpu_native, gpusolve_tpu_torch.utils.tuning, "
+        "gpusolve_tpu_torch.dryrun, gpusolve_tpu_torch.scripts.parity, "
+        "gpusolve_tpu_torch.scripts.experiments, "
+        "gpusolve_tpu_torch.scripts.plotter; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gpusolve_tpu' or m.startswith('gpusolve_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -60,6 +64,13 @@ def test_sources_import_no_jax():
             text = f.read()
         assert not pat.search(text), path
         assert "import jax" not in text, path
+
+
+def test_sources_cover_the_host_solver_and_scripts():
+    names = {os.path.relpath(p, PKG) for p in port_sources()}
+    assert {"cpu_native.py", "ops/csrc/gpusolve_cpu.cpp", "utils/tuning.py",
+            "dryrun.py", "scripts/parity.py", "scripts/experiments.py",
+            "scripts/plotter.py"} <= names
 
 
 def test_build_grid_without_device_needs_cuda(monkeypatch):
