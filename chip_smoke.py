@@ -245,6 +245,33 @@ solve and newton_solve) on the (1,1,1) mesh:
   ``python3 chip_smoke.py --gspmd`` runs only these and prints no
   contract line.
 
+The pod chains' in-kernel exchange between ranks (ops/pod.py
+ChainPeers, the multi-rank instantiations of csrc/pod.cu), on 2 and 4
+processes spawned on the card (a gloo group over a FileStore; the
+engines' other traffic through host copies):
+  1. no multi-rank chain instantiation may spill;
+  2. on (2,1,1), (4,1,1) and (2,2,1): pod_down / pod_up in every mode at
+     511³ (choose_npod's depth and depth 1), 15³ and (33,17,9), 20
+     launches each with new contents, every field and the boundary block
+     bit for bit their plain versions over the same group on the card
+     (the first launch also the legs one by one through leg_block with
+     the host exchange, and its norm; at 15³ and (33,17,9) also the
+     plain chains on CPU copies over the group, LINEAR bit for bit, FAS
+     and NEWTON within RTOL); the waits per exchange step and the launch
+     times, labelled time-sliced;
+  3. on (2,1,1) and (2,2,1): solve_spmd (LINEAR, FAS V(3,3), 5 cycles)
+     and newton_solve_spmd (2 steps) with fuse="pod" at 511³: launch
+     counts equal to the schedule (one pod_down_ranks and one
+     pod_up_ranks a V-cycle), no host slab exchange and no rdma_exchange,
+     the history equal to the plain ops' on the card and within rel 2e-4
+     of the per-leg engine on the same ranks and of the single-device
+     batch engine; ms a cycle per rank, time-sliced;
+  4. a wait past its limit (1 s, rank 0 launching alone) fails the
+     launch with the wrapper's RuntimeError naming the chain and rank.
+  ``python3 chip_smoke.py --pod-ranks`` runs only these and prints no
+  contract line; ``--pod-cycle`` times the one-rank 511³ pod cycle
+  (copied into another tree, it times that tree's).
+
 At the end the zero done flag the wrappers lend launches given none
 must still read 0.  The line before the last is the JSON object
 {"kernels": [...]}, each kernel with its event ms and its device_ms (and
@@ -340,6 +367,14 @@ REPLACES = {
     "pod_up": "gpusolve_tpu/ops/pallas_pod.py:741",
     "pod_up_fas": "gpusolve_tpu/ops/pallas_pod.py:741",
     "pod_up_newton": "gpusolve_tpu/ops/pallas_pod.py:741",
+    # The multi-rank chains: the same TPU kernels, their in-kernel
+    # exchange (_emit_barrier / _emit_exchange) in the launch.
+    "pod_down_ranks": "gpusolve_tpu/ops/pallas_pod.py:494",
+    "pod_down_ranks_fas": "gpusolve_tpu/ops/pallas_pod.py:494",
+    "pod_down_ranks_newton": "gpusolve_tpu/ops/pallas_pod.py:494",
+    "pod_up_ranks": "gpusolve_tpu/ops/pallas_pod.py:741",
+    "pod_up_ranks_fas": "gpusolve_tpu/ops/pallas_pod.py:741",
+    "pod_up_ranks_newton": "gpusolve_tpu/ops/pallas_pod.py:741",
     "rdma_exchange": "gpusolve_tpu/ops/pallas_spmd.py:1919",
     # The batch engine's fused legs: _vcycle2_call's streamed pass a leg
     # (stream_pass; the up leg's prolongation is prolong_yz, :499).
@@ -498,27 +533,50 @@ def kernel_bytes(name, dims, cdims=None, outputs=2):
 # ---------------------------------------------------------------------------
 
 
-def print_ptxas(log):
+def print_ptxas(log, checked=True):
     """One line per kernel instantiation: registers and spills.  The
-    LINEAR per-op instantiations, the leg, the rdma kernel and every
-    instantiation of the v1 kernel and of residual_restrict_kernel must
-    not spill."""
-    name = None
+    LINEAR per-op instantiations, the leg, the rdma kernel, every
+    instantiation of the v1 kernel and of residual_restrict_kernel and the
+    multi-rank pod chains must not spill (``checked``: a tree's own
+    kernels; another tree's are only printed)."""
+    def short(mangled):
+        k = re.search(r"\d+([A-Za-z_]+_kernel|tile_call|exchange_step|"
+                      r"neighbour_wait)(I(?:L[ib]\d+E)+E)?", mangled)
+        args = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
+        return (k.group(1) + (f"<{','.join(args)}>" if args else "")
+                if k else mangled)
+
+    name = prop = None
     spills = {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"\d+([A-Za-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
-                          m.group(1))
-            args = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
-            name = (k.group(1) + (f"<{','.join(args)}>" if args else "")
-                    if k else m.group(1))
+            name = short(m.group(1))
             continue
-        if name and "spill" in line:
-            spills[name] = line.strip()
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            prop = short(m.group(1))
+            continue
+        if prop and "spill" in line:
+            spills[prop] = line.strip()
+            if prop != name:  # a device function the kernels call
+                print(f"ptxas: function {prop}: {spills[prop]}")
+            prop = None
+            continue
         if name and "registers" in line:
             print(f"ptxas: {name}: {line.split(':', 1)[-1].strip()}; "
                   f"{spills.get(name, '')}")
+    if not checked:
+        return
+    # The multi-rank pod chains (pod_kernel<M, up, 0, canon, 1>) must not
+    # spill.
+    ranks = sorted(k for k in spills
+                   if re.fullmatch(r"pod_kernel<\d,\d,0,\d,1>", k))
+    check(len(ranks) == 12, f"ptxas reported {len(ranks)} of 12 multi-rank "
+          f"chain kernels: {ranks}")
+    for k in ranks:
+        check(not re.search(r"[1-9]\d* bytes spill", spills[k]),
+              f"{k} spills: {spills[k]}")
     legs = sorted(k for k in spills if k.startswith("leg_kernel<"))
     check(len(legs) == 36 and "rdma_kernel" in spills,
           f"ptxas reported {len(legs)} of 36 leg_kernel instantiations "
@@ -1324,6 +1382,24 @@ def clone_state(state):
         for lvl in state.levels
     )
     return gt.GridState(levels=levels, newton_f=cl(state.newton_f))
+
+
+def host_state(state):
+    """A copy of ``state`` on the CPU."""
+    import dataclasses
+
+    import gpusolve_tpu_torch as gt
+
+    def cp(t):
+        return None if t is None else t.cpu()
+
+    levels = tuple(
+        dataclasses.replace(lvl, v=cp(lvl.v), f=cp(lvl.f), r=cp(lvl.r),
+                            rest_v=cp(lvl.rest_v),
+                            newton_v=cp(lvl.newton_v))
+        for lvl in state.levels
+    )
+    return gt.GridState(levels=levels, newton_f=cp(state.newton_f))
 
 
 def level_fields(state):
@@ -4784,6 +4860,47 @@ def check_rdma_kernel(base, rec, rate, rows):
     torch.cuda.empty_cache()
 
 
+def spawn_ranks(fn, m, args, what, limit):
+    """``fn(rank, m, store, out_dir, *args)`` on ``m`` spawned processes
+    (a gloo group over a FileStore); their results, one dict a rank.  Any
+    failing rank, or no end in ``limit`` s, fails the run."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            fn, args=(m, os.path.join(tmp, "store"), tmp, *args),
+            nprocs=m, join=False, start_method="spawn")
+        deadline = time.monotonic() + limit
+        failed = None
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"{what} m={m}: no end in {limit} s")
+        except (mp.ProcessRaisedException,
+                mp.ProcessExitedException) as e:
+            failed = e
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        results = []
+        for rank in range(m):
+            path = os.path.join(tmp, f"rank{rank}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    results.append(json.load(f))
+        if failed is not None:  # what the ranks did before it, then why
+            for res in results:
+                for ln in res["lines"]:
+                    print(ln)
+            raise SmokeFailure(f"{what} m={m}: {failed}") from failed
+        check(len(results) == m, f"{what} m={m}: {len(results)} results")
+    bad = [f"rank {r['rank']}: {r.get('error')}" for r in results
+           if not r["ok"]]
+    check(not bad, f"{what} m={m}: {'; '.join(bad)}")
+    return results
+
+
 def _rdma_rank(rank, m, store_path, out_dir):
     """Phase (b) on one of ``m`` processes sharing the card: see
     rdma_ranks.  Writes its lines, numbers and verdict to
@@ -4906,37 +5023,10 @@ def rdma_ranks():
     contents each, every slab bit-identical to the plain version over the
     same group on CPU copies; then the kernel's, the library's and the
     wrapper's times.  Any failing rank fails the run."""
-    import torch.multiprocessing as mp
-
     for m in RDMA_RANKS:
-        with tempfile.TemporaryDirectory() as tmp:
-            ctx = mp.start_processes(
-                _rdma_rank, args=(m, os.path.join(tmp, "store"), tmp),
-                nprocs=m, join=False, start_method="spawn")
-            deadline = time.monotonic() + 420
-            try:
-                while not ctx.join(timeout=5):
-                    check(time.monotonic() < deadline,
-                          f"rdma ranks m={m}: no end in 420 s")
-            except (mp.ProcessRaisedException,
-                    mp.ProcessExitedException) as e:
-                raise SmokeFailure(f"rdma ranks m={m}: {e}") from e
-            finally:
-                for proc in ctx.processes:
-                    if proc.is_alive():
-                        proc.terminate()
-            results = []
-            for rank in range(m):
-                path = os.path.join(tmp, f"rank{rank}.json")
-                check(os.path.exists(path), f"rdma rank {rank}/{m}: no result")
-                with open(path) as f:
-                    results.append(json.load(f))
-        for res in results:
+        for res in spawn_ranks(_rdma_rank, m, (), "rdma ranks", 420):
             for ln in res["lines"]:
                 print(f"check {ln}" if "bit-identical" in ln else ln)
-        bad = [f"rank {r['rank']}: {r.get('error')}" for r in results
-               if not r["ok"]]
-        check(not bad, f"rdma ranks m={m}: {'; '.join(bad)}")
 
 
 def rdma_main_path(params, label, leg_hist, k=10):
@@ -4968,6 +5058,524 @@ def rdma_main_path(params, label, leg_hist, k=10):
     del state
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The pod chains' in-kernel exchange on ranks that share the card
+# ---------------------------------------------------------------------------
+
+# Processes spawned on the card -> the meshes their chains run on; the
+# engine runs on POD_ENGINE_MESHES.
+POD_RANKS = {2: ((2, 1, 1),), 4: ((4, 1, 1), (2, 2, 1))}
+POD_ENGINE_MESHES = ((2, 1, 1), (2, 2, 1))
+POD_RANK_ITERS = 20   # launches a chain, new contents each
+POD_RANK_SMALL = ((15, 15, 15), (33, 17, 9))
+
+
+def fill_pod_state(eng, state, seed):
+    """Seeded v (0.05), f (100), ũ (0.3) and rest_v (0.05) on levels
+    0..nd of ``state`` in place, inside each box (normal numbers drawn on
+    the card from a generator seeded with ``seed``)."""
+    import torch
+
+    from gpusolve_tpu_torch.ops import spmd_kernels as SK
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    for l in range(eng.nd + 1):
+        lvl, box = state.levels[l], eng.boxes[l]
+        for name, scale in (("v", 0.05), ("f", 100.0), ("newton_v", 0.3),
+                            ("rest_v", 0.05)):
+            t = getattr(lvl, name)
+            if t is not None:
+                t[SK.box_slices(box)] = scale * torch.randn(
+                    SK.box_dims(box), generator=gen, device=DEVICE)
+
+
+def run_rank_chain(eng, state, how, up):
+    """The whole down (or up) chain of a multi-rank pod engine over
+    ``state``: its kernel with the in-kernel exchange ("kernel"), its
+    plain version with the host exchange ("plain"), or one leg_block
+    launch a leg with the host exchange ("legs"); the up chain prolongs
+    this rank's window of the tail root's v.  Returns the norm partials
+    (up) or None."""
+    from gpusolve_tpu_torch.ops import pod as PD
+    from gpusolve_tpu_torch.ops import spmd_leg as SL
+
+    p, levels = eng.params, list(state.levels)
+    S = p.post_smoothing if up else p.pre_smoothing
+    legs = eng.up_legs(0, levels, eng._root_coarse(levels[eng.npod])) \
+        if up else eng.down_legs(0, levels)
+    if how == "kernel":
+        return eng._run_chain(up, 0, legs)
+    if how == "plain":
+        return (PD.pod_up_plain if up else PD.pod_down_plain)(
+            legs, p, S, eng.exchange)
+    part = None
+    for leg in legs:
+        slabs = {name: eng.exchange(t, g)
+                 for name, t, g in PD._leg_fields(leg, p.mode)}
+        cslabs = slabs.pop("c", None)
+        out = SL.leg_block(leg.v_out, leg.v, leg.f, slabs, leg.box,
+                           leg.glob, p, leg.h, S, **leg.kwargs(cslabs))
+        if out is not None:
+            part = out
+    return part
+
+
+def exchange_bytes(peers):
+    """Bytes a rank's chain moves between ranks: each slab it sends read
+    once and written once into the neighbour's buffer."""
+    n = 0
+    for x in peers.layout.sets:
+        bx, by, bz = x.shape
+        for ax in (0, 1):
+            sends = sum((ax, s) in peers.peers for s in (-1, 1))
+            rows = by + 2 * x.g if peers.layout.ys else by
+            n += sends * (x.g * rows * bz if ax == 0 else bx * x.g * bz)
+    return 8 * n
+
+
+def pod_rank_cases(p, mesh_shape):
+    """(dims, npod) of the chain checks on a mesh: the 511³ grid at
+    choose_npod's depth and at depth 1, and POD_RANK_SMALL at the depths
+    1 and 2 the gates allow."""
+    from gpusolve_tpu_torch.dist.pod import PodPlan, choose_npod
+
+    mxy = (mesh_shape[0], mesh_shape[1] * mesh_shape[2])
+    d = choose_npod(p.replace(grid_dim=BIG), mxy)
+    cases = [(BIG, d)] + ([(BIG, 1)] if d != 1 else [])
+    for dims in POD_RANK_SMALL:
+        q = p.replace(grid_dim=dims)
+        cases += [(dims, n) for n in (1, 2) if len(q.level_dims()) > n
+                  and PodPlan(q, mesh_shape, n).refusal() is None]
+    return cases
+
+
+@contextlib.contextmanager
+def counting_slabs():
+    """Counts the host slab exchanges (_Exchange.slabs)."""
+    from gpusolve_tpu_torch.dist import spmd as tsp
+
+    calls = {"n": 0}
+    fn = tsp._Exchange.slabs
+
+    def counted(self, *args, **kwargs):
+        calls["n"] += 1
+        return fn(self, *args, **kwargs)
+
+    tsp._Exchange.slabs = counted
+    try:
+        yield calls
+    finally:
+        tsp._Exchange.slabs = fn
+
+
+def _rank_chains(mesh, rate, result):
+    """The chain checks of one mesh on this rank (see pod_ranks)."""
+    import dataclasses
+
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.config import Mode
+    from gpusolve_tpu_torch.dist.pod import build_pod_solver
+    from gpusolve_tpu_torch.ops import kernels as K
+    from gpusolve_tpu_torch.ops import pod as PD
+
+    rank, m = mesh.rank, mesh.size
+    base = gt.parse_config(CONFS["linear"], print_progress=False)
+    for dims, npod in pod_rank_cases(base, mesh.shape):
+        for mode in Mode:
+            p = base.replace(mode=mode, grid_dim=dims)
+            eng = build_pod_solver(p, mesh, npod=npod)
+            tag = (f"{'x'.join(map(str, dims))} {mesh.shape} npod={npod} "
+                   f"{mode.name} blocks "
+                   f"{[eng.plan.shape(l) for l in range(npod + 1)]}")
+            seeded = eng.init_state()
+            # At the small shapes also the plain chains on CPU copies over
+            # the same group (the 511³ ones would take minutes a launch).
+            ceng = None if dims == BIG else build_pod_solver(
+                p, dataclasses.replace(mesh, device=torch.device("cpu")),
+                npod=npod)
+            stats = {}
+            for it in range(POD_RANK_ITERS):
+                fill_pod_state(eng, seeded, 9000 + 97 * it + rank)
+                for up in (False, True):
+                    name = K.variant("pod_up_ranks" if up
+                                     else "pod_down_ranks", mode)
+                    res = {}
+                    # The legs one by one on the first launch of a case.
+                    hows = ("kernel", "plain", "legs")[:3 if it == 0 else 2]
+                    for how in hows + (("cpu",) if ceng is not None
+                                       else ()):
+                        on = ceng if how == "cpu" else eng
+                        st = host_state(seeded) if how == "cpu" else \
+                            clone_state(seeded)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        part = run_rank_chain(
+                            on, st, "plain" if how == "cpu" else how, up)
+                        torch.cuda.synchronize()
+                        wall = (time.perf_counter() - t0) * 1e3
+                        ss = None
+                        if part is not None:
+                            ss = st.levels[0].v.new_empty(1)
+                            (K.finalize_plain if how in ("plain", "cpu")
+                             else K.finalize)(part, ss)
+                            ss = float(ss)
+                        got = pod_fields(st, npod) + [
+                            t.clone() for t in on._boundary()]
+                        res[how] = (got, ss, wall)
+                        del st
+                    got, ss_k, wall = res["kernel"]
+                    bad = [i for i, (a, b) in enumerate(zip(got,
+                                                            res["plain"][0]))
+                           if not torch.equal(a, b)]
+                    check(not bad, f"{name} rank {rank} {tag} launch {it}: "
+                          f"fields {bad} differ from the plain version")
+                    if it == 0:
+                        bad = [i for i, (a, b) in enumerate(
+                            zip(got, res["legs"][0])) if not torch.equal(a, b)]
+                        check(not bad and ss_k == res["legs"][1],
+                              f"{name} rank {rank} {tag}: != its legs one "
+                              f"by one (fields {bad}, norm {ss_k} vs "
+                              f"{res['legs'][1]})")
+                    if ss_k is not None:
+                        ssp = res["plain"][1]
+                        check(abs(ss_k - ssp) <= RTOL * abs(ssp),
+                              f"{name} rank {rank} {tag}: norm {ss_k} vs "
+                              f"plain {ssp}")
+                    peers = eng.ex.rdma[("pod", up, 0)]
+                    s = stats.setdefault(name, {"wall": [], "plain": [],
+                                                "waits": [], "norm_same": True,
+                                                "cpu_err": 0.0,
+                                                "cpu_same": True})
+                    if ceng is not None:
+                        # LINEAR bit for bit; FAS and NEWTON within RTOL
+                        # (the CPU's exp rounds apart from CUDA's).
+                        for a, b in zip(got, res["cpu"][0]):
+                            a = a.cpu()
+                            diff = float((a - b).abs().max())
+                            s["cpu_err"] = max(s["cpu_err"], diff)
+                            s["cpu_same"] &= bool(torch.equal(a, b))
+                            check(diff <= RTOL * float(b.abs().max())
+                                  and (mode != Mode.LINEAR
+                                       or torch.equal(a, b)),
+                                  f"{name} rank {rank} {tag} launch {it}: "
+                                  f"{diff:.3e} from the plain chain on CPU "
+                                  "copies")
+                    s["wall"].append(wall)
+                    s["plain"].append(res["plain"][2])
+                    s["waits"].append(peers.last_waits_ms())
+                    if ss_k is not None:
+                        s["norm_same"] &= ss_k == res["plain"][1]
+                del res, got
+            for up in (False, True):
+                name = K.variant("pod_up_ranks" if up else "pod_down_ranks",
+                                 mode)
+                s = stats[name]
+                peers = eng.ex.rdma[("pod", up, 0)]
+                waits = [sum(w) / len(w) for w in zip(*s["waits"])]
+                blocks, per_sm, smem = PD.last_grid[name]
+                result["lines"].append(
+                    f"check {name} rank {rank}/{m} {tag}: "
+                    f"{POD_RANK_ITERS} launches, every field bit-identical "
+                    f"to the plain version over the group, the first also "
+                    f"to the legs one by one (and its norm); norm vs plain "
+                    f"identical {s['norm_same']}; grid {blocks} blocks "
+                    f"({per_sm} an SM), {smem} bytes of shared memory a "
+                    "block" + ("" if ceng is None else
+                               f"; the plain chain on CPU copies over the "
+                               f"group: identical {s['cpu_same']}, max abs "
+                               f"err {s['cpu_err']:.3e}"))
+                steps = " ".join(f"{ph}{'xy'[ax]}:{w:.3f}" for (ph, ax), w
+                                 in zip(peers.layout.steps, waits[1:]))
+                wall = sorted(s["wall"])[len(s["wall"]) // 2]
+                plain = sorted(s["plain"])[len(s["plain"]) // 2]
+                result["lines"].append(
+                    f"time {name} rank {rank}/{m} {tag} ({m} processes "
+                    f"time-slicing the card): launch to sync {wall:.3f} ms "
+                    f"(median), plain {plain:.3f} ms; mean waits ms: start "
+                    f"{waits[0]:.3f}, by step (phase, axis) {steps}")
+                if dims == BIG and npod != 1 and mesh.shape == (2, 1, 1):
+                    nbytes, ops = chain_bytes(eng, up)
+                    nbytes += exchange_bytes(peers)
+                    bound = max(nbytes / rate, ops / F32_PEAK) * 1e3
+                    result["rows"][name] = {
+                        "ms": wall, "device_ms": None, "plain_ms": plain,
+                        "bound_ms": bound,
+                        "bound_by": "bytes" if nbytes / rate
+                        >= ops / F32_PEAK else "operations",
+                        "library_ms": None, "library_device_ms": None}
+            eng.close()
+            del eng, seeded, ceng
+            torch.cuda.empty_cache()
+
+
+def _rank_engine(mesh, batch_hist, result):
+    """The engine checks of one mesh on this rank (see pod_ranks)."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.pod import choose_npod
+    from gpusolve_tpu_torch.ops import kernels as K
+
+    rank, m = mesh.rank, mesh.size
+    for label in ("linear", "nonlinear", "newton"):
+        newton = label == "newton"
+        params = gt.parse_config(CONFS[label], grid_dim=BIG,
+                                 maxiter=2 if newton else 5,
+                                 print_progress=False)
+
+        def run(p, fuse):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if newton:
+                state, hist, plan = gt.newton_solve_spmd(p, mesh, fuse=fuse)
+            else:
+                state, hist, plan = gt.solve_spmd(p, mesh, fuse=fuse)
+            torch.cuda.synchronize()
+            return state, hist, plan, time.perf_counter() - t0
+
+        K.reset_launches()
+        with counting_spmd_inner() as inner, counting_slabs() as slabs:
+            state, hist, plan, secs = run(params, "pod")
+        counts = nonzero(K.launches)
+        want = spmd_expected(plan, hist, inner)
+        tag = f"511^3 {label} {mesh.shape}"
+        depth = choose_npod(params, (plan.mesh_shape[0],
+                                     plan.mesh_shape[1]))
+        check(plan.npod == depth, f"pod ranks {tag}: depth {plan.npod}, "
+              f"choose_npod {depth}")
+        check(counts == want, f"pod ranks {tag} rank {rank}: launches "
+              f"{counts} != schedule {want}")
+        check("rdma_exchange" not in counts and slabs["n"] == 0,
+              f"pod ranks {tag}: {slabs['n']} host slab exchanges, "
+              f"{counts.get('rdma_exchange', 0)} rdma_exchange launches")
+        result["counts"].append(counts)
+        result["lines"].append(
+            f"pod ranks path {tag} rank {rank}/{m}: depth {plan.npod} "
+            f"(blocks {[plan.shape(l) for l in range(plan.npod + 1)]}), "
+            f"{len(hist) - 1} steps in {secs:.3f} s wall, history {hist}; "
+            f"launches {counts} = the schedule; 0 host slab exchanges")
+        # ms a cycle on this rank: 5 more cycles of the same engine.
+        eng = plan._engine
+        if not newton:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.run_cycles(state, 5)
+            ms = (time.perf_counter() - t0) * 1e3 / 5
+            waits = {f"{'up' if k[1] else 'down'}": [
+                round(w, 3) for w in r.last_waits_ms()]
+                for k, r in eng.ex.rdma.items() if k[0] == "pod"}
+            result["lines"].append(
+                f"time pod ranks cycle {tag} rank {rank}/{m}: {ms:.3f} ms a "
+                f"V(3,3) cycle by the host clock ({m} processes "
+                f"time-slicing the card), the last cycle's waits ms "
+                f"(start, then each step) {waits}")
+        eng.close()
+        del state, eng
+        K.reset_launches()
+        _, ref_hist, _, ref_secs = run(params.replace(backend="ref"), "pod")
+        check(all(n == 0 for n in K.launches.values()),
+              f"pod ranks {tag}: the plain pod path launched a kernel")
+        check(hist[:len(ref_hist)] == ref_hist,
+              f"pod ranks {tag}: kernels {hist} != plain ops {ref_hist}")
+        _, leg_hist, leg_plan, leg_secs = run(params, "leg")
+        leg_plan._engine.close()
+        worst = {}
+        for what, other in (("per-leg engine", leg_hist),
+                            ("batch engine", batch_hist[label])):
+            n = min(len(hist), len(other))
+            worst[what] = histories_agree(hist[:n], other[:n],
+                                          f"pod ranks {tag} vs {what}",
+                                          floor=1e-2)
+        result["lines"].append(
+            f"check pod ranks {tag} rank {rank}/{m}: identical to the plain "
+            f"ops on the card ({ref_secs:.1f} s); worst rel diff vs the "
+            f"per-leg engine on the same ranks {worst['per-leg engine']:.3e}"
+            f" ({leg_secs:.1f} s), vs the single-device batch engine "
+            f"{worst['batch engine']:.3e}")
+        torch.cuda.empty_cache()
+
+
+def _pod_rank(rank, m, store_path, out_dir, meshes, batch_hist):
+    """One of ``m`` processes sharing the card: see pod_ranks.  Writes its
+    lines, rows, counts and verdict to ``out_dir/rank{rank}.json``."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from gpusolve_tpu_torch.dist.mesh import Mesh, coords_of
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, m),
+                            rank=rank, world_size=m)
+    result = {"rank": rank, "ok": False, "lines": [], "rows": {},
+              "counts": []}
+    try:
+        rate = mem_rate(torch.cuda.get_device_name(0))
+        for shape in meshes:
+            mesh = Mesh(shape, coords_of(rank, shape), rank,
+                        dist.group.WORLD, torch.device(DEVICE))
+            _rank_chains(mesh, rate, result)
+            if shape in POD_ENGINE_MESHES:
+                _rank_engine(mesh, batch_hist, result)
+        result["ok"] = True
+    except Exception as e:
+        result["error"] = f"{type(e).__name__}: {e}"
+        raise  # the parent stops the other ranks and fails
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        if result["ok"]:
+            dist.destroy_process_group()
+
+
+def _timeout_rank(rank, m, store_path, out_dir):
+    """A wait past its limit (see pod_ranks): on a (2,1,1) mesh both ranks
+    build a down chain's peer registry; rank 0 launches the chain alone
+    with a 1 s limit and must get the wrapper's RuntimeError naming the
+    chain, the rank and the wait; rank 1 launches nothing."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.mesh import Mesh, coords_of
+    from gpusolve_tpu_torch.dist.pod import build_pod_solver
+    from gpusolve_tpu_torch.ops import pod as PD
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(store_path, m)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=m)
+    result = {"rank": rank, "ok": False, "lines": [], "rows": {},
+              "counts": []}
+    try:
+        shape = (m, 1, 1)
+        mesh = Mesh(shape, coords_of(rank, shape), rank, dist.group.WORLD,
+                    torch.device(DEVICE))
+        p = gt.parse_config(CONFS["linear"], grid_dim=(63, 63, 63),
+                            print_progress=False)
+        eng = build_pod_solver(p, mesh, npod=1)
+        legs = eng.down_legs(0, list(eng.init_state().levels))
+        peers = PD.ChainPeers(eng.ex, legs, p, False)
+        PD.WAIT_LIMIT_S = 1.0
+        if rank == 0:
+            t0 = time.perf_counter()
+            msg = "no error"
+            try:
+                PD.pod_down(legs, p, p.pre_smoothing, eng.exchange, peers)
+            except RuntimeError as e:
+                msg = str(e)
+            secs = time.perf_counter() - t0
+            result["lines"].append(
+                f"check pod ranks timeout: rank 0 launched pod_down_ranks "
+                f"alone (wait limit {PD.WAIT_LIMIT_S:g} s): after "
+                f"{secs:.2f} s {msg.splitlines()[0]}")
+            store.set("timeout_done", "1")
+            check("pod_down_ranks on rank 0" in msg
+                  and "start barrier" in msg, f"no timeout error: {msg}")
+        else:
+            store.wait(["timeout_done"])
+        result["ok"] = True
+    except Exception as e:
+        result["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+
+
+def pod_cycle_times(reps=3):
+    """ms a 511³ V(3,3) cycle (LINEAR, FAS) of the one-rank pod engine,
+    CUDA events over 10 cycles, ``reps`` times: the one-rank chains'
+    times, for a comparison of two trees in one call."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+    from gpusolve_tpu_torch.dist.pod import build_pod_solver
+
+    mesh = gt.make_mesh((1, 1, 1))
+    for label in ("linear", "nonlinear"):
+        p = gt.parse_config(CONFS[label], grid_dim=BIG, print_progress=False)
+        eng = build_pod_solver(p, mesh)
+        state = eng.init_state()
+        sums = torch.empty(10, device=DEVICE)
+        eng.run_cycles(state, 2)
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            for i in range(10):
+                eng.cycle(state, sums[i:i + 1])
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / 10)
+        print(f"pod one-rank cycle 511^3 {p.mode.name} V(3,3) npod="
+              f"{eng.npod}: {' '.join(f'{t:.4f}' for t in times)} ms/cycle "
+              f"(CUDA events over 10 cycles, {reps} runs) in {HERE}")
+        eng.close()
+        del eng, state
+        torch.cuda.empty_cache()
+
+
+def pod_ranks(rows, launched, rec=None):
+    """The pod chains' in-kernel exchange on 2 and 4 processes sharing the
+    card (spawned; a gloo group over a FileStore carries the IPC handles
+    and the host exchange of the references; the library built by this
+    process before the spawn).  On each mesh: pod_down / pod_up in every
+    mode, at 511³ (choose_npod's depth and depth 1) and at POD_RANK_SMALL,
+    POD_RANK_ITERS launches each with new contents, every field (and the
+    boundary block) bit for bit their plain versions over the same group
+    on the card, the first launch also the legs one by one through
+    leg_block with the host exchange and their norm (the plain's within
+    RTOL), and at POD_RANK_SMALL the plain chains on CPU copies (LINEAR
+    bit for bit, FAS and NEWTON within RTOL); the waits per step and the
+    times, labelled time-sliced.  On POD_ENGINE_MESHES:
+    solve_spmd (LINEAR, FAS V(3,3), 5 cycles) and newton_solve_spmd (2
+    steps) with fuse="pod" at 511³: launch counts equal to the schedule,
+    no host slab exchange and no rdma_exchange; the history equal to the
+    plain ops' on the card and within rel 2e-4 above 1e-2·initial of the
+    per-leg engine on the same ranks and of the single-device batch
+    engine.  Then a wait past its limit (_timeout_rank).  Merges the
+    engine's launches (summed over the ranks) into ``launched`` and the
+    kernels-line rows into ``rows``."""
+    import torch
+
+    import gpusolve_tpu_torch as gt
+
+    batch_hist = {}
+    for label in ("linear", "nonlinear", "newton"):
+        newton = label == "newton"
+        p = gt.parse_config(CONFS[label], grid_dim=BIG,
+                            maxiter=2 if newton else 5, print_progress=False)
+        state = gt.build_grid(p)
+        _, batch_hist[label] = (gt.newton_solve if newton else gt.solve)(
+            state, p)
+        del state
+        torch.cuda.empty_cache()
+    for m, meshes in POD_RANKS.items():
+        t0 = time.perf_counter()
+        results = spawn_ranks(_pod_rank, m, (meshes, batch_hist),
+                              "pod ranks", 900)
+        print(f"pod ranks m={m} on {list(meshes)}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        for res in results:
+            for ln in res["lines"]:
+                print(ln)
+            for counts in res["counts"]:
+                for kname, n in counts.items():
+                    launched[kname] = launched.get(kname, 0) + n
+            for kname, row in res["rows"].items():
+                rows.setdefault(kname, row)
+                if rec is not None:  # every check above is bit for bit
+                    rec.errs[kname] = 0.0
+    for res in spawn_ranks(_timeout_rank, 2, (), "pod ranks timeout", 180):
+        for ln in res["lines"]:
+            print(ln)
 
 
 # ---------------------------------------------------------------------------
@@ -5498,7 +6106,7 @@ def main() -> int:
     K.lib()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(path, HERE)}")
-    print_ptxas(log)
+    print_ptxas(log, "--pod-cycle" not in sys.argv[1:])
     print(f"finalize: one cluster of 8 blocks x 128 threads, "
           f"{K.lib().mg_finalize_stage_bytes()} bytes of dynamic shared "
           f"memory a block beside ptxas's static ones")
@@ -5511,6 +6119,14 @@ def main() -> int:
         return legs_only(base, rec, rate)
     if "--gspmd" in sys.argv[1:]:
         return gspmd_only(base, rec, rate)
+    if "--pod-cycle" in sys.argv[1:]:
+        pod_cycle_times()
+        print("chip_smoke --pod-cycle: done (no contract line)")
+        return 0
+    if "--pod-ranks" in sys.argv[1:]:
+        pod_ranks({}, {})
+        print("chip_smoke --pod-ranks: done (no contract line)")
+        return 0
     check_kernels(base, rec)
     check_vcycle_fused(base, rec)
     check_block_kernels(base, rec)
@@ -5616,6 +6232,8 @@ def main() -> int:
         counts = gspmd_main_path(params, f"511^3 {label}")
         for kname, n in counts.items():
             launched[kname] += n
+    # The multi-rank pod engine on processes sharing the card.
+    pod_ranks(rows, launched, rec)
     missing = [kname for kname, n in launched.items() if n == 0]
     check(not missing, f"kernels no main path launched: {missing}")
 

@@ -69,7 +69,7 @@ gspmd engine: dist/sharding.py, dist/gspmd.py):
                              auto takes the pod engine where the
                              reference's CLI does (a depth passes its
                              gates), else leg, and says why: --halo rdma
-                             and a multi-rank CUDA mesh take leg.  On the
+                             takes leg.  On the
                              card --fuse leg runs the replicated tail
                              (dist/spmd.py, tail="auto")
 With --mesh on the spmd engine, --save-state and --load-state write and
@@ -335,7 +335,7 @@ def _spmd_notes(params, eng, args, _explain) -> None:
     _explain(lines)
 
 
-def _pod_refusal(params, mesh_shape, device, halo) -> Optional[str]:
+def _pod_refusal(params, mesh_shape, halo) -> Optional[str]:
     """Why ``--fuse auto`` takes the per-leg engine, or None for pod
     (the JAX CLI's choice, gpusolve_tpu/cli.py:378-409; ``--backend ref``
     stands for its ``--backend xla``)."""
@@ -345,19 +345,13 @@ def _pod_refusal(params, mesh_shape, device, halo) -> Optional[str]:
         return f"--halo {halo} is a per-leg engine feature"
     if params.backend == "ref":
         return "--backend ref requests the plain ops"
-    n = mesh_shape[0] * mesh_shape[1] * mesh_shape[2]
-    if n > 1 and device.type == "cuda":
-        return ("a multi-rank CUDA mesh: the pod chains' mid-chain "
-                "exchange is not ported (ROADMAP Queue 2, rows 12-14 "
-                "across cards)")
     if choose_npod(params, (mesh_shape[0], mesh_shape[1] * mesh_shape[2])) \
             is None:
         return "geometry/mode outside the pod gates"
     return None
 
 
-def _resolve_engine(args, params, mesh_shape, device,
-                    _explain) -> Optional[str]:
+def _resolve_engine(args, params, mesh_shape, _explain) -> Optional[str]:
     """Settles ``--dist-engine auto`` and ``--fuse auto`` on ``args`` (the
     JAX CLI's choice, gpusolve_tpu/cli.py:338-409): spmd wherever it can
     run the configuration, else the gspmd engine, with a note; the pod
@@ -374,7 +368,7 @@ def _resolve_engine(args, params, mesh_shape, device,
         return (f"the spmd engine cannot run this configuration ({why}); "
                 "--dist-engine gspmd runs it")
     if args.dist_engine == "spmd" and args.fuse == "auto":
-        why = _pod_refusal(params, mesh_shape, device, args.halo)
+        why = _pod_refusal(params, mesh_shape, args.halo)
         args.fuse = "leg" if why else "pod"
         _explain([f"fuse=auto -> {args.fuse}" + (f" ({why})" if why else "")])
     return None
@@ -392,8 +386,7 @@ def _run_native(args, params, mesh_shape, _explain) -> int:
     from gpusolve_tpu_torch.config import Mode
 
     if mesh_shape is not None:
-        _resolve_engine(args, params, mesh_shape, torch.device("cpu"),
-                        _explain)
+        _resolve_engine(args, params, mesh_shape, _explain)
     solution, history, cycle_ms = cpu_native.solve_native(
         params, with_times=True
     )
@@ -531,7 +524,7 @@ def _run_mesh(args, params, mesh_shape, device, profile_cm, _explain) -> int:
         solve_spmd,
     )
 
-    refused = _resolve_engine(args, params, mesh_shape, device, _explain)
+    refused = _resolve_engine(args, params, mesh_shape, _explain)
     if refused:
         print(refused, file=sys.stderr)
         return 1

@@ -15,9 +15,12 @@ A ``(1, 1, 1)`` mesh needs no process group and makes no collective call.
 Any other shape needs an initialised ``torch.distributed`` group whose
 size is the product of the shape (start the processes with ``torchrun``).
 CPU tensors exchange over gloo, CUDA tensors over NCCL, each rank on
-``cuda:{LOCAL_RANK}``.  NCCL takes one rank per card, so on a one-card
-machine the card runs ``(1, 1, 1)`` only, and multi-rank runs are CPU
-runs over gloo.
+``cuda:{LOCAL_RANK}``.  NCCL takes one rank per card, so ``make_mesh``
+puts one rank on each card.  Processes that share one card can still
+form a mesh: a gloo group built by hand and a ``Mesh`` over it with
+their CUDA device, whose engines send host copies through the group
+(``dist/spmd._Exchange.staged``) while tensors and kernels stay on the
+card.
 """
 
 from __future__ import annotations

@@ -32,14 +32,17 @@ Newton and gather helpers run here unchanged): per level ``v, f, r``
 then the tail levels in ``(n+2)³``.  Each leg writes its level's spare
 buffer ``r`` and the two trade roles, as the per-leg engine's legs do.
 
-Where it runs: on the card, the one-rank ``(1, 1, 1)`` mesh, the chains
-on their CUDA kernels (float32) or their plain versions (float64,
-``backend="ref"``).  On a larger mesh the chains' exchange between legs
-is peer-to-peer traffic into the neighbours' memory inside the chain
-(ROADMAP Queue 2, rows 12-14 across cards, which wait for a machine with
-two cards), so a multi-rank CUDA mesh raises; on
-gloo CPU ranks the plain chains run, exchanging each leg's slabs on the
-host (``_Exchange.slabs``), x- and y-split.
+Where it runs: on the card the chains run on their CUDA kernels
+(float32) or their plain versions (float64, ``backend="ref"``).  On a
+multi-rank CUDA mesh each chain exchanges its legs' slabs between ranks
+inside its launch, as the TPU kernels do: the engine builds one peer
+registry a chain (``ops/pod.ChainPeers``, kept with the rdma exchange's
+in ``self.ex.rdma`` and released with them by ``close()``, collectively);
+nothing falls back to the host exchange.  Ranks that share one card over
+a gloo group run it too (the group then carries the rest, the gathers
+and sums, through host copies: ``_Exchange.staged``).  The plain chains
+(CPU ranks over gloo, or ``backend="ref"``) exchange each leg's slabs on
+the host (``_Exchange.slabs``), x- and y-split.
 """
 
 from __future__ import annotations
@@ -266,12 +269,6 @@ class PodEngine(SpmdEngine):
 
     def __init__(self, params: GridParams, mesh: Mesh, cutoff: int = 4,
                  local_backend: str = "auto", npod: Optional[int] = None):
-        if mesh.size > 1 and mesh.device.type == "cuda":
-            raise ValueError(
-                "fuse='pod' on a multi-rank CUDA mesh: the chains' exchange "
-                "between legs is in-kernel peer-to-peer traffic (ROADMAP "
-                "Queue 2, rows 12-14 across cards); run fuse='leg'"
-            )
         mesh_xy = (mesh.shape[0], mesh.shape[1] * mesh.shape[2])
         if npod is None:
             npod = choose_npod(params, mesh_xy, cutoff)
@@ -298,8 +295,24 @@ class PodEngine(SpmdEngine):
         self.exchange = self.ex.slabs if mesh.size > 1 else None
         self._done = torch.zeros(1, dtype=torch.int32, device=self.device)
 
-    def _chain(self, kernel, plain):
-        return self._op(kernel, plain)
+    def _run_chain(self, up: bool, a: int, legs: List[pod.Leg]):
+        """One chain: its kernel (on a multi-rank mesh with the chain's
+        peer registry, built on first use, collectively) or its plain
+        version, per the engine's ``plain_reason``."""
+        prm = self.params
+        S = prm.post_smoothing if up else prm.pre_smoothing
+        if self.plain_reason is not None:
+            plain = pod.pod_up_plain if up else pod.pod_down_plain
+            return plain(legs, prm, S, self.exchange)
+        peers = None
+        if self.mesh.size > 1 and self.device.type == "cuda":
+            key = ("pod", up, a)
+            peers = self.ex.rdma.get(key)
+            if peers is None:
+                peers = self.ex.rdma[key] = pod.ChainPeers(self.ex, legs,
+                                                           prm, up)
+        return (pod.pod_up if up else pod.pod_down)(legs, prm, S,
+                                                    self.exchange, peers)
 
     # -- the three stages ----------------------------------------------------
 
@@ -347,10 +360,8 @@ class PodEngine(SpmdEngine):
     def _pod_down(self, a: int, levels) -> None:
         """The down chain a..npod-1 in one launch; where the tail is not in
         place, its boundary outputs then gathered into the tail's root."""
-        prm, npod = self.params, self.npod
-        self._chain(pod.pod_down, pod.pod_down_plain)(
-            self.down_legs(a, levels), prm, prm.pre_smoothing, self.exchange
-        )
+        npod = self.npod
+        self._run_chain(False, a, self.down_legs(a, levels))
         for l in range(a, npod):
             levels[l].v, levels[l].r = levels[l].r, levels[l].v
         self._gather_root(levels[npod])
@@ -373,11 +384,8 @@ class PodEngine(SpmdEngine):
         if self.fas:
             ops.subtract_op(root.v, root.rest_v, self.plan.dims[npod], prm,
                             self._done)
-        partials = self._chain(pod.pod_up, pod.pod_up_plain)(
-            self.up_legs(a, levels, self._root_coarse(root)), prm,
-            prm.post_smoothing,
-            self.exchange,
-        )
+        partials = self._run_chain(
+            True, a, self.up_legs(a, levels, self._root_coarse(root)))
         for l in range(a, npod):
             levels[l].v, levels[l].r = levels[l].r, levels[l].v
         return partials
@@ -424,11 +432,14 @@ def launches_per_cycle(plan: PodPlan) -> dict:
     """Kernel launches one pod cycle makes on the card, by kernel
     (``dist/spmd.launches_per_cycle``'s counterpart): one ``pod_down`` a
     down group, the batch engine's kernels a tail group (its fused legs
-    and the coarsest sweeps, without a norm), one ``pod_up`` a up group, FAS one ``subtract`` (the
-    boundary's v − rest_v) before it; the cycle's norm is the level-0
-    leg's, so one ``finalize``."""
+    and the coarsest sweeps, without a norm), one ``pod_up`` a up group,
+    FAS one ``subtract`` (the boundary's v − rest_v) before it; the
+    cycle's norm is the level-0 leg's, so one ``finalize``.  On a
+    multi-rank mesh the chains count as ``pod_down_ranks`` /
+    ``pod_up_ranks``."""
     params = plan.params
     mode = params.mode
+    ranks = "_ranks" if plan.mesh_shape[0] * plan.mesh_shape[1] > 1 else ""
     counts = {}
 
     def add(name, n=1):
@@ -436,7 +447,7 @@ def launches_per_cycle(plan: PodPlan) -> dict:
 
     for grp in _linearize(params.cycle_type, plan.npod):
         if grp[0] == "down":
-            add(kernels.variant("pod_down", mode))
+            add(kernels.variant("pod_down" + ranks, mode))
         elif grp[0] == "tail":
             tail = params.replace(grid_dim=plan.dims[plan.npod],
                                   cycle_type=grp[1])
@@ -447,7 +458,7 @@ def launches_per_cycle(plan: PodPlan) -> dict:
         else:
             if mode == Mode.NONLINEAR:
                 add("subtract")
-            add(kernels.variant("pod_up", mode))
+            add(kernels.variant("pod_up" + ranks, mode))
     add("finalize")
     return counts
 
@@ -457,5 +468,5 @@ def build_pod_solver(params: GridParams, mesh: Mesh, cutoff: int = 4,
                      local_backend: str = "auto") -> PodEngine:
     """This rank's pod engine (``gpusolve_tpu/dist/pod.py:204``): at
     ``choose_npod``'s depth, or ``npod``.  Raises ``ValueError`` where the
-    gates refuse every depth, and on a multi-rank CUDA mesh."""
+    gates refuse every depth."""
     return PodEngine(params, mesh, cutoff, local_backend, npod)

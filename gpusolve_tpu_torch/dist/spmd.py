@@ -439,17 +439,27 @@ class _Exchange:
         self.plan = plan
         self.dc = plan.data_coords(mesh.coords)
         self._zeros = {}
-        self.rdma = {}  # the rdma exchange's registries (ops/rdma.py)
+        # The peer-memory registries (ops/rdma.py, ops/pod.py), released
+        # by close().
+        self.rdma = {}
+        # Gloo carries no CUDA tensor point to point or in a gather: ranks
+        # that share one card over a gloo group send host copies.
+        self.staged = (mesh.size > 1 and mesh.device.type == "cuda"
+                       and dist.get_backend(mesh.group) == "gloo")
 
-    def _peer(self, ax: int, step: int) -> Optional[int]:
+    def neighbour(self, ax: int, step: int) -> Optional[int]:
+        """The mesh rank ``step`` along data axis ``ax`` (0 x, 1 the
+        folded y), or None past the mesh's edge."""
         c = list(self.dc)
         c[ax] += step
         if not 0 <= c[ax] < self.plan.mesh_shape[ax]:
             return None
         mz = self.plan.device_mesh[2]
-        return self.mesh.global_rank(
-            self.mesh.rank_of((c[0], c[1] // mz, c[1] % mz))
-        )
+        return self.mesh.rank_of((c[0], c[1] // mz, c[1] % mz))
+
+    def _peer(self, ax: int, step: int) -> Optional[int]:
+        nb = self.neighbour(ax, step)
+        return None if nb is None else self.mesh.global_rank(nb)
 
     def zeros(self, shape, like: torch.Tensor) -> torch.Tensor:
         """A zero tensor, cached per shape (read only)."""
@@ -472,7 +482,7 @@ class _Exchange:
             for t, step, slot in sends:
                 if t is None:
                     continue
-                t = t.contiguous()
+                t = t.cpu().contiguous() if self.staged else t.contiguous()
                 to, frm = self._peer(ax, step), self._peer(ax, -step)
                 if to is not None:
                     p2p.append(dist.P2POp(dist.isend, t, to,
@@ -484,6 +494,9 @@ class _Exchange:
             if p2p:
                 for work in dist.batch_isend_irecv(p2p):
                     work.wait()
+            if self.staged:
+                got = [None if g is None else g.to(self.mesh.device)
+                       for g in got]
         for t, _, slot in sends:
             if t is not None and got[slot] is None:
                 got[slot] = self.zeros(t.shape, t)
@@ -539,7 +552,11 @@ class _Exchange:
         rdma.close(self)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        if self.mesh.size > 1:
+        if self.staged:
+            host = t.cpu()
+            dist.all_reduce(host, group=self.mesh.group)
+            t.copy_(host)
+        elif self.mesh.size > 1:
             dist.all_reduce(t, group=self.mesh.group)
         return t
 
@@ -548,9 +565,12 @@ class _Exchange:
         ``(mx·bx, MY·by, bz)``."""
         if self.mesh.size == 1:
             return block
-        block = block.contiguous()
-        parts = [torch.empty_like(block) for _ in range(self.mesh.size)]
-        dist.all_gather(parts, block, group=self.mesh.group)
+        sent = block.cpu().contiguous() if self.staged else \
+            block.contiguous()
+        parts = [torch.empty_like(sent) for _ in range(self.mesh.size)]
+        dist.all_gather(parts, sent, group=self.mesh.group)
+        if self.staged:
+            parts = [t.to(self.mesh.device) for t in parts]
         bx, by, bz = block.shape
         mx, my = self.plan.mesh_shape[:2]
         out = block.new_zeros((mx * bx, my * by, bz))

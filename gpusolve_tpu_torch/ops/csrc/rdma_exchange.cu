@@ -19,10 +19,10 @@
 //
 // The TPU kernel's neighbour barrier and its wait for every send and
 // receive are host-ordered around this launch (ops/rdma.py: stream sync
-// and a process-group barrier before and after), not in-kernel flags: the
-// ranks of one card are processes whose contexts the card time-slices, so
-// a kernel spinning on a neighbour's flag would wait whole time slices or
-// hang.  The TPU layout (the zz lane extent, the VMEM zero slab, the DMA
+// and a process-group barrier before and after), not in-kernel flags as
+// the pod chains' (pod.cu), whose waits on one card last until the
+// neighbour's context is scheduled: about a time slice each (PERF.md).
+// The TPU layout (the zz lane extent, the VMEM zero slab, the DMA
 // semaphore pairs) is not carried over.
 //
 // Bound: bytes (each slab sent is read once and written once, each edge

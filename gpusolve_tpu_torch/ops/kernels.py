@@ -86,6 +86,8 @@ KERNELS = (
     "leg_block", "leg_block_fas", "leg_block_newton",
     "pod_down", "pod_down_fas", "pod_down_newton",
     "pod_up", "pod_up_fas", "pod_up_newton",
+    "pod_down_ranks", "pod_down_ranks_fas", "pod_down_ranks_newton",
+    "pod_up_ranks", "pod_up_ranks_fas", "pod_up_ranks_newton",
     "rdma_exchange",
     "down_leg", "down_leg_fas", "down_leg_newton",
     "up_leg", "up_leg_fas", "up_leg_newton",
@@ -231,7 +233,9 @@ def _bind(path: Path):
         "mg_leg_grid": ([p, p], i),
         "mg_leg_occupancy": ([p, p], i),
         "mg_leg_block": ([p, p, p, p, p, i, p], i),
-        "mg_pod_chain": ([i, i, p, p, p, p, p, i, p, p], i),
+        "mg_pod_chain": ([i, i, p, p, p, p, p, i, p, p, i, p], i),
+        "mg_host_alloc": ([ll, p, p], i),
+        "mg_host_free": ([p], i),
         "mg_rdma_exchange": ([p, p, p, i, p], i),
         "mg_ipc_alloc": ([i, ll, p], i),
         "mg_ipc_free": ([i, p], i),

@@ -21,22 +21,26 @@ them, in launch order:
 On CUDA tensors one launch runs the chain, each leg the per-leg kernel's
 body, so the chain equals its legs launched one by one through
 ``leg_block``, bit for bit: a cooperative launch whose grid barrier
-separates the legs, or for a chain of one leg (the one-rank plan's depth
-1) one block a tile.  It runs on the one-rank mesh only: between legs on
-a larger mesh the TPU kernels exchange slabs by writing into the
-neighbours' memory inside the chain, whose in-kernel waits wait for a
-machine with two cards (ROADMAP Queue 2, rows 12-14 across cards), so a
-chain with an ``exchange`` raises on CUDA.  On CPU tensors
-the plain version chains ``leg_block_plain``, exchanging each leg's slabs
-on the host through ``exchange(t, depth)`` (``dist/spmd._Exchange.slabs``)
-on a multi-rank mesh.
+separates the legs, or for a chain of one leg on the one-rank mesh (its
+plan's depth 1) one block a tile.  On a multi-rank CUDA mesh the chain
+exchanges the legs' ghost slabs between ranks inside the launch, as the
+TPU kernels do (``_emit_barrier`` / ``_emit_exchange``): each rank writes
+its face planes into its neighbours' receive buffers through the peer
+registry (``ChainPeers``, one per engine, chain and mode), with flag
+words for a neighbour barrier at the start and for each exchange step,
+and the legs read their slabs from this rank's buffers; the launch equals
+the legs one by one through ``leg_block`` with the host exchange, bit for
+bit.  On CPU tensors the plain version chains ``leg_block_plain``,
+exchanging each leg's slabs on the host through ``exchange(t, depth)``
+(``dist/spmd._Exchange.slabs``) on a multi-rank mesh.
 
 The wrappers keep the ``ops/kernels.py`` contract: outputs are passed in
 (every leg's ``v_out`` is the level's spare buffer: no leg writes what it
 reads); a CPU tensor runs the plain version; a CUDA float32 tensor is
 checked and launched on the current stream, a launch error raises, and
 ``kernels.launches["pod_down[_fas|_newton]"]`` and ``["pod_up…"]`` count
-the launches.
+the launches (on a multi-rank mesh ``["pod_down_ranks…"]`` and
+``["pod_up_ranks…"]``).
 
 Pod geometry (``pod_levels``): the levels' blocks in the port's layout.
 x halves exactly down the chain (a fine block is twice its coarse one,
@@ -51,16 +55,20 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from gpusolve_tpu_torch.config import GridParams, Mode
-from gpusolve_tpu_torch.ops import kernels
+from gpusolve_tpu_torch.ops import kernels, rdma
 from gpusolve_tpu_torch.ops import spmd_leg as sl
 from gpusolve_tpu_torch.ops.spmd_kernels import Box, box_empty
 
 MAX_LEGS = 8           # a chain's legs (csrc/pod.cu kMaxPod)
+MAX_STEPS = 16         # exchange steps of a chain (csrc/pod.cu kMaxSteps)
+MAX_JOBS = 320         # row copies of a chain (csrc/pod.cu kMaxXJobs)
+WAIT_LIMIT_S = 30.0    # an in-kernel wait for a neighbour traps past this
 SMEM_MAX = 232448      # dynamic shared memory a block may use (H100)
 _TY, _TZ = 16, 32      # the leg's tile (csrc/leg_device.cuh)
 
@@ -184,22 +192,31 @@ def _check_chain(legs: Sequence[Leg], params: GridParams, S: int,
             raise ValueError("every down leg restricts")
 
 
+def _leg_fields(leg: Leg, mode: Mode):
+    """The fields whose ghost slabs a leg reads, in exchange order:
+    ``(name, tensor, depth)`` for f, v (not from a zero start), ũ
+    (NEWTON) and the coarse block (corr-first)."""
+    out = [("f", leg.f, sl.G)]
+    if not leg.src_zero:
+        out.append(("v", leg.v, sl.G))
+    if mode == Mode.NEWTON:
+        out.append(("nv", leg.newton_v, sl.G))
+    if leg.coarse is not None:
+        out.append(("c", leg.coarse, sl.GC))
+    return out
+
+
 def _chain_plain(legs: Sequence[Leg], params: GridParams, S: int,
                  exchange: Optional[Exchange]) -> Optional[torch.Tensor]:
     """The legs one by one through ``leg_block_plain``, each with its
     slabs from ``exchange`` (None: the one-rank mesh, zero ghosts)."""
-    newton = params.mode == Mode.NEWTON
     partials = None
     for leg in legs:
         slabs = cslabs = None
         if exchange is not None:
-            slabs = {"f": exchange(leg.f, sl.G)}
-            if not leg.src_zero:
-                slabs["v"] = exchange(leg.v, sl.G)
-            if newton:
-                slabs["nv"] = exchange(leg.newton_v, sl.G)
-            if leg.coarse is not None:
-                cslabs = exchange(leg.coarse, sl.GC)
+            slabs = {name: exchange(t, g)
+                     for name, t, g in _leg_fields(leg, params.mode)}
+            cslabs = slabs.pop("c", None)
         out = sl.leg_block_plain(
             leg.v_out, leg.v, leg.f, slabs, leg.box, leg.glob, params,
             leg.h, S, **leg.kwargs(cslabs),
@@ -224,23 +241,263 @@ def pod_up_plain(legs: Sequence[Leg], params: GridParams, T: int,
     return _chain_plain(legs, params, T, exchange)
 
 
+# ---------------------------------------------------------------------------
+# The exchange between ranks inside a chain
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class XSet:
+    """One exchange set of a chain: the ghost slabs of field ``name``
+    (``_leg_fields``) of leg ``leg``, a block of ``shape``, ``g`` deep,
+    exchanged in ``phase``: 0, before the first leg, for a chain input;
+    ``leg`` for what an earlier leg of the chain writes (the down chain's
+    coarse f, FAS also v; the up chain's coarse v)."""
+
+    phase: int
+    leg: int
+    name: str
+    shape: Tuple[int, int, int]
+    g: int
+
+
+def exchange_sets(legs: Sequence[Leg], params: GridParams) -> List[XSet]:
+    """The chain's exchange sets by phase, in leg and ``_leg_fields``
+    order within a phase (the TPU kernels' sets,
+    gpusolve_tpu/ops/pallas_pod.py:626-681 and :887-942): the down
+    chain's phase 0 holds the head's v and f and every leg's ũ, phase i
+    leg i's f (FAS: and v); the up chain's phase 0 every leg's v, f and ũ
+    and the head's coarse block, phase i leg i's coarse block (the
+    previous leg's output)."""
+    written = set()
+    out = []
+    for i, leg in enumerate(legs):
+        for name, t, g in _leg_fields(leg, params.mode):
+            out.append(XSet(i if id(t) in written else 0, i, name,
+                            tuple(t.shape), g))
+        written.update(id(t) for t in (leg.v_out, *(leg.cout or ()))
+                       if t is not None)
+    return sorted(out, key=lambda x: x.phase)
+
+
+def exchange_steps(sets: Sequence[XSet], mesh_xy) -> List[Tuple[int, int]]:
+    """``(phase, axis)`` of each step: per phase a y step (under a y
+    split) and then an x step (with more than one rank along x)."""
+    axes = [ax for ax in (1, 0) if mesh_xy[ax] > 1]
+    return [(ph, ax) for ph in sorted({x.phase for x in sets}) for ax in axes]
+
+
+def _parts(x: XSet, ys: bool) -> Dict[str, Tuple[int, ...]]:
+    """The receive buffers of a set: its x slabs (y-extended under a y
+    split) and, under a y split, its y slabs."""
+    bx, by, bz = x.shape
+    xs = (x.g, by + 2 * x.g if ys else by, bz)
+    out = {"xlo": xs, "xhi": xs}
+    if ys:
+        out.update(ylo=(bx, x.g, bz), yhi=(bx, x.g, bz))
+    return out
+
+
+def _align(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+class ChainLayout:
+    """The exchange of one chain on a ``(mx, my)`` data mesh: its sets and
+    steps, and one rank's allocation: the flag words first (four start
+    words, four a step: one per neighbour, -x, +x, -y, +y), then every
+    set's receive buffers, ``offsets[(leg, name)][part] = (byte offset,
+    shape)``.  Every rank's is the same (the blocks are equal), so a
+    neighbour's buffer sits at the same offset in its allocation."""
+
+    def __init__(self, legs: Sequence[Leg], params: GridParams, mesh_xy):
+        self.mode = params.mode
+        self.ys = mesh_xy[1] > 1
+        self.sets = exchange_sets(legs, params)
+        self.steps = exchange_steps(self.sets, mesh_xy)
+        if len(self.steps) > MAX_STEPS:
+            raise ValueError(f"{len(self.steps)} exchange steps, a chain "
+                             f"takes {MAX_STEPS}")
+        off = _align(8 * 4 * (1 + len(self.steps)))
+        self.offsets = {}
+        for x in self.sets:
+            parts = {}
+            for part, shape in _parts(x, self.ys).items():
+                parts[part] = (off, shape)
+                off += _align(4 * shape[0] * shape[1] * shape[2])
+            self.offsets[(x.leg, x.name)] = parts
+        self.nbytes = off
+
+    def views(self, mem: torch.Tensor):
+        """Each set's receive buffers as views of ``mem``, a rank's whole
+        allocation as a flat float32 tensor."""
+        return {key: {part: mem[o // 4:o // 4 + shape[0] * shape[1]
+                                * shape[2]].view(shape)
+                      for part, (o, shape) in parts.items()}
+                for key, parts in self.offsets.items()}
+
+    def _jobs(self, x: XSet, src: int, ax: int, base: int, peers):
+        """The row copies of set ``x`` (its tensor's data at ``src``) in a
+        step along ``ax`` from the rank whose allocation is at ``base`` to
+        its neighbours' (``peers[(ax, ±1)]``): ``(dst, src, rows, rpp,
+        sps, dps, bz)``, strides in floats."""
+        bx, by, bz = x.shape
+        g = x.g
+        own = self.offsets[(x.leg, x.name)]
+        out = []
+        for step in (-1, 1):
+            peer = peers.get((ax, step))
+            if peer is None:
+                continue
+            if ax == 1:
+                # The first (last) g rows of every plane into the lower
+                # (upper) neighbour's yhi (ylo).
+                row = 0 if step < 0 else by - g
+                dst = peer + own["yhi" if step < 0 else "ylo"][0]
+                out.append((dst, src + 4 * row * bz, bx * g, g, by * bz,
+                            g * bz, bz))
+                continue
+            # The first (last) g planes into the lower (upper) neighbour's
+            # xhi (xlo); under a y split with this rank's y slabs of those
+            # planes around them (the corners its y neighbours sent).
+            p0 = 0 if step < 0 else bx - g
+            dst = peer + own["xhi" if step < 0 else "xlo"][0]
+            if not self.ys:
+                out.append((dst, src + 4 * p0 * by * bz, g * by, g * by, 0,
+                            0, bz))
+                continue
+            rows = by + 2 * g
+            for part, y0, n, stride in ((own["ylo"][0] + base, 0, g, g * bz),
+                                        (src, g, by, by * bz),
+                                        (own["yhi"][0] + base, g + by, g,
+                                         g * bz)):
+                out.append((dst + 4 * y0 * bz, part + 4 * p0 * stride,
+                            g * n, n, stride, rows * bz, bz))
+        return out
+
+    def copies(self, legs: Sequence[Leg], base: int, peers):
+        """A launch's steps ``(leg, axis, first job, jobs, rows)`` and row
+        copies ``(dst, src, rows, rpp, sps, dps, bz, row0)`` for the legs'
+        current tensors."""
+        fields = {(i, name): t for i, leg in enumerate(legs)
+                  for name, t, _ in _leg_fields(leg, self.mode)}
+        steps, jobs = [], []
+        for phase, ax in self.steps:
+            job0, rows = len(jobs), 0
+            for x in self.sets:
+                if x.phase != phase:
+                    continue
+                t = fields[(x.leg, x.name)]
+                if tuple(t.shape) != x.shape or not t.is_contiguous():
+                    raise ValueError(f"leg {x.leg} {x.name}: "
+                                     f"{tuple(t.shape)}, the layout holds "
+                                     f"{x.shape} (contiguous)")
+                for j in self._jobs(x, t.data_ptr(), ax, base, peers):
+                    jobs.append((*j, rows))
+                    rows += j[2]
+            steps.append((phase, ax, job0, len(jobs) - job0, rows))
+        if len(jobs) > MAX_JOBS:
+            raise ValueError(f"{len(jobs)} exchange copies, a chain takes "
+                             f"{MAX_JOBS}")
+        return steps, jobs
+
+
+def _free_host(lib, host: List[int]) -> None:
+    while host:
+        lib.mg_host_free(host.pop())
+
+
+class ChainPeers(rdma.PeerSlabs):
+    """The peer registry of one chain on a multi-rank CUDA mesh: this
+    rank's allocation of the chain's ``ChainLayout``, opened by its ±x
+    (and, under a y split, ±y) neighbours (``rdma.PeerSlabs``); the launch
+    epoch, a device record of each wait's ns and a host-mapped status
+    word.  Built for the legs' shapes; each launch takes the legs' current
+    tensors.  ``ex`` is the rank's ``dist/spmd._Exchange``; released by
+    ``rdma.close(ex)``."""
+
+    def __init__(self, ex, legs: Sequence[Leg], params: GridParams,
+                 up: bool):
+        self.up, self.mode = up, params.mode
+        self.rank = ex.mesh.rank
+        self.layout = lay = ChainLayout(legs, params, ex.plan.mesh_shape[:2])
+        dev = legs[0].f.device
+        super().__init__(ex, lay.nbytes, dev,
+                         axes=(0, 1) if lay.ys else (0,),
+                         sig=(up, tuple(lay.sets), tuple(lay.steps)))
+        self.views = lay.views(rdma._as_tensor(
+            self.base, (self.nbytes // 4,), torch.float32))
+        self.waits = torch.zeros(1 + len(lay.steps), dtype=torch.int64,
+                                 device=dev)
+        host, devp = ctypes.c_void_p(), ctypes.c_void_p()
+        rdma._rc(self.lib.mg_host_alloc(4, ctypes.byref(host),
+                                        ctypes.byref(devp)),
+                 "cudaHostAlloc of the chain's status word")
+        self._host = [host.value]
+        self._status = (host.value, devp.value)
+        weakref.finalize(self, _free_host, self.lib, self._host)
+        self.epoch = 0
+
+    def free(self) -> None:
+        super().free()
+        _free_host(self.lib, self._host)
+
+    def slabs(self, i: int):
+        """Leg ``i``'s slabs as ``leg_block`` takes them: ``(slabs,
+        cslabs)``, views of this rank's receive buffers."""
+        slabs = {}
+        for (leg, name), v in self.views.items():
+            if leg == i:
+                slabs[name] = (v["xlo"], v["xhi"], v.get("ylo"),
+                               v.get("yhi"))
+        return slabs, slabs.pop("c", None)
+
+    def table(self, legs: Sequence[Leg]) -> List[int]:
+        """The launch's exchange table (csrc/pod.cu ``exch_args``) for the
+        legs' current tensors, with the next epoch."""
+        steps, jobs = self.layout.copies(legs, self.base, self.peers)
+        self.epoch += 1
+        peers = [self.peers.get(k) or 0
+                 for k in ((0, -1), (0, 1), (1, -1), (1, 1))]
+        out = [self.epoch, int(WAIT_LIMIT_S * 1e9), self.base, *peers,
+               self.waits.data_ptr(), self._status[1], len(steps),
+               len(jobs)]
+        for st in steps:
+            out += st
+        for j in jobs:
+            out += j
+        return out
+
+    def timed_out(self) -> int:
+        """The wait that passed its limit in the last launch (1: the start
+        barrier, 1 + k: step k), or 0."""
+        return ctypes.c_int.from_address(self._status[0]).value
+
+    def last_waits_ms(self) -> List[float]:
+        """The last launch's waits in ms: the start barrier, then each
+        step (synchronises)."""
+        return [w / 1e6 for w in self.waits.tolist()]
+
+
 # Each chain launch's grid: (blocks, resident blocks an SM, dynamic shared
 # memory bytes), by counter name, from the last launch.
 last_grid = {}
 
 
 def _chain_launch(legs: Sequence[Leg], params: GridParams, S: int, up: bool,
-                  exchange: Optional[Exchange]) -> Optional[torch.Tensor]:
-    name = kernels.variant("pod_up" if up else "pod_down", params.mode)
+                  exchange: Optional[Exchange],
+                  peers: Optional[ChainPeers]) -> Optional[torch.Tensor]:
+    base = "pod_up" if up else "pod_down"
     _check_chain(legs, params, S, up)
     if legs[0].f.device.type == "cpu":
         return _chain_plain(legs, params, S, exchange)
-    if exchange is not None:
-        raise ValueError(
-            f"{name} runs on the one-rank mesh: the exchange between the "
-            "legs of a chain on a larger mesh needs in-kernel peer "
-            "writes and waits (ROADMAP Queue 2, rows 12-14 across cards)"
-        )
+    name = kernels.variant(base + ("_ranks" if peers is not None else ""),
+                           params.mode)
+    if exchange is not None and peers is None:
+        raise ValueError(f"{name} on a multi-rank mesh takes the chain's "
+                         "peer registry (ChainPeers)")
+    if peers is not None and (peers.up != up or peers.mode != params.mode):
+        raise ValueError(f"{name}: the registry is of another chain")
     if len(legs) > MAX_LEGS:
         raise ValueError(f"{name}: {len(legs)} legs, one launch takes "
                          f"{MAX_LEGS}")
@@ -248,28 +505,46 @@ def _chain_launch(legs: Sequence[Leg], params: GridParams, S: int, up: bool,
     ints: List[int] = []
     fls: List[float] = []
     partials = None
-    for leg in legs:
+    for i, leg in enumerate(legs):
         if box_empty(leg.box):
             raise ValueError(f"{name}: a leg with an empty box")
-        p, i, f, part = sl._launch_args(
-            leg.v_out, leg.v, leg.f, None, leg.box, leg.glob, params,
-            leg.h, S, **leg.kwargs(),
+        slabs, cslabs = (None, None) if peers is None else peers.slabs(i)
+        p, iv, f, part = sl._launch_args(
+            leg.v_out, leg.v, leg.f, slabs, leg.box, leg.glob, params,
+            leg.h, S, **leg.kwargs(cslabs),
         )
         ptrs += p
-        ints += i
+        ints += iv
         fls += f
         if part is not None:
             partials = part
+    xv = None if peers is None else peers.table(legs)
     info = (ctypes.c_longlong * 3)()
+    dev = legs[0].f.device
     rc = kernels.lib().mg_pod_chain(
         int(up), len(legs), (ctypes.c_void_p * len(ptrs))(*ptrs),
         (ctypes.c_int * len(ints))(*ints),
         (ctypes.c_float * len(fls))(*fls), *sl._tap_args(params), info,
-        kernels._stream(legs[0].f.device),
+        None if xv is None else (ctypes.c_longlong * len(xv))(*xv),
+        0 if xv is None else len(xv), kernels._stream(dev),
     )
     kernels._check_rc(rc, name)
     kernels.launches[name] += 1
     last_grid[name] = tuple(info)
+    if peers is not None:
+        # A wait past its limit traps: the launch fails, and so does this
+        # rank's next synchronisation; name the chain, the rank and the
+        # wait here.
+        try:
+            torch.cuda.current_stream(dev).synchronize()
+        except RuntimeError as e:
+            k = peers.timed_out()
+            what = ("no wait passed its limit" if k == 0 else
+                    "the start barrier's wait passed its limit" if k == 1
+                    else f"exchange step {k - 2}'s wait passed its limit")
+            raise RuntimeError(
+                f"{name} on rank {peers.rank} failed ({what}, "
+                f"{WAIT_LIMIT_S:g} s): {e}") from e
     return partials
 
 
@@ -284,15 +559,19 @@ def _chain_launch(legs: Sequence[Leg], params: GridParams, S: int, up: bool,
 
 
 def pod_down(legs: Sequence[Leg], params: GridParams, S: int,
-             exchange: Optional[Exchange] = None) -> None:
+             exchange: Optional[Exchange] = None,
+             peers: Optional[ChainPeers] = None) -> None:
     """The down chain: S pre-sweeps, the residual and its restriction (FAS:
-    R(v) and the tau fold) per leg, in one launch."""
-    _chain_launch(legs, params, S, False, exchange)
+    R(v) and the tau fold) per leg, in one launch.  On a multi-rank mesh
+    ``exchange`` serves CPU tensors and ``peers`` (the chain's
+    ``ChainPeers``) CUDA tensors."""
+    _chain_launch(legs, params, S, False, exchange, peers)
 
 
 def pod_up(legs: Sequence[Leg], params: GridParams, T: int,
-           exchange: Optional[Exchange] = None) -> Optional[torch.Tensor]:
+           exchange: Optional[Exchange] = None,
+           peers: Optional[ChainPeers] = None) -> Optional[torch.Tensor]:
     """The up chain: the prolongation first, then T post-sweeps per leg,
     in one launch; returns the norm partials of the last leg when it has
-    the norm consumer."""
-    return _chain_launch(legs, params, T, True, exchange)
+    the norm consumer.  ``exchange`` and ``peers`` as ``pod_down``'s."""
+    return _chain_launch(legs, params, T, True, exchange, peers)

@@ -14,24 +14,22 @@ It carries x slabs only: under a y split the engine runs the two-stage
 exchange instead (``plan.rdma_active`` False), and this wrapper refuses.
 
 On the card (``rdma_exchange`` on CUDA tensors):
-  * **the registry** (``PeerSlabs``), built once per exchange object, block
-    shape, dtype, depth and field count: this rank's receive buffers (lo
-    and hi per field) as one device allocation of its own, so its CUDA IPC
-    handle needs no offset; the handles and host names swapped with
-    ``all_gather_object`` over the mesh's group; each x neighbour's handle
-    opened (``cudaIpcOpenMemHandle``, lazy peer access).  Neighbours on
-    different hosts raise ``ValueError``; a failure to allocate, open or
-    launch raises ``RuntimeError``.  Nothing falls back to the
-    point-to-point exchange;
+  * **the registry** (``RdmaSlabs``, a ``PeerSlabs``), built once per
+    exchange object, block shape, dtype, depth and field count: this
+    rank's receive buffers (lo and hi per field) as one device allocation
+    of its own, so its CUDA IPC handle needs no offset; the handles and
+    host names swapped with ``all_gather_object`` over the mesh's group;
+    each x neighbour's handle opened (``cudaIpcOpenMemHandle``, lazy peer
+    access).  Neighbours on different hosts raise ``ValueError``; a
+    failure to allocate, open or launch raises ``RuntimeError``.  Nothing
+    falls back to the point-to-point exchange.  ``PeerSlabs`` opens y
+    neighbours too, for the pod chains' registry (``ops/pod.py``);
   * **the barrier** is host-ordered, unlike the TPU kernel's in-kernel
     semaphores: before the launch a stream sync and a group barrier (no
     neighbour's leg still reads the buffers this launch writes), after it
-    the same (every write has landed before this rank's leg reads).  The
-    ranks of one card are separate processes whose contexts the card
-    time-slices, so a kernel spinning on a neighbour's flag would wait
-    whole time slices, or hang.  A one-rank mesh has no peer and no
-    barrier: the launch is the edge zero fill alone, as the reference's
-    kernel on a 1×1×1 mesh;
+    the same (every write has landed before this rank's leg reads).  A
+    one-rank mesh has no peer and no barrier: the launch is the edge zero
+    fill alone, as the reference's kernel on a 1×1×1 mesh;
   * ``kernels.launches["rdma_exchange"]`` counts the launch.
 
 On CPU tensors the wrapper runs ``rdma_exchange_plain``: the same slabs
@@ -137,68 +135,102 @@ def _release(lib, device: int, own: List[int], peers: List[int]) -> None:
 
 
 class PeerSlabs:
-    """One registry: the receive buffers of ``n`` fields' x slabs of one
-    block ``shape``, ``dtype`` and depth ``g`` on this rank (``recv``,
-    ``(2n, g, by, bz)``: lo and hi of each field), and the device pointers
-    of its lower and upper x neighbours' buffers (``peer_lo`` /
-    ``peer_hi``, None at a global edge)."""
+    """One registry of peer memory: one device allocation of its own on
+    this rank (``base``, ``nbytes``, zeroed before any neighbour can open
+    it), and the device pointers of the same allocation of this rank's
+    neighbours along the data axes ``axes`` (0: x, 1: y), opened over CUDA
+    IPC: ``peers[(ax, step)]``, step -1 the lower and +1 the upper
+    neighbour, absent at a global edge.  ``sig`` is the layout every rank
+    of the group must agree on (a mismatch raises).  The rdma exchange's
+    receive buffers are one (``RdmaSlabs``), the pod chains' exchange
+    another (``ops/pod.ChainPeers``)."""
 
-    def __init__(self, ex, shape, dtype: torch.dtype, g: int, n: int,
-                 device: torch.device):
+    def __init__(self, ex, nbytes: int, device: torch.device, axes=(0,),
+                 sig=None):
         self.lib = lib = kernels.lib()
         self.device = device
         self.index = device.index if device.index is not None \
             else torch.cuda.current_device()
-        self.shape, self.g, self.n = tuple(shape), g, n
-        _, by, bz = self.shape
-        self.elem = torch.empty((), dtype=dtype).element_size()
-        self.slab_bytes = g * by * bz * self.elem
+        self.nbytes = nbytes = -(-nbytes // 256) * 256
         ptr = ctypes.c_void_p()
-        _rc(lib.mg_ipc_alloc(self.index, 2 * n * self.slab_bytes,
-                             ctypes.byref(ptr)),
-            "cudaMalloc of the rdma receive buffers")
+        _rc(lib.mg_ipc_alloc(self.index, nbytes, ctypes.byref(ptr)),
+            "cudaMalloc of the peer buffers")
         self._own, self._peers = [ptr.value], []
         self._finalizer = weakref.finalize(self, _release, lib, self.index,
                                            self._own, self._peers)
         self.base = ptr.value
-        self.recv = _as_tensor(self.base, (2 * n, g, by, bz), dtype)
-        self.peer_lo = self.peer_hi = None
+        _as_tensor(self.base, (nbytes // 4,), torch.float32).zero_()
+        torch.cuda.synchronize(device)
+        self.peers = {}
         if ex.mesh.size > 1:
-            self._open_peers(ex)
+            self._open_peers(ex, axes, sig)
 
-    def _open_peers(self, ex) -> None:
-        """Swaps IPC handles with every rank of the group and opens the x
-        neighbours'."""
+    @property
+    def peer_lo(self):
+        return self.peers.get((0, -1))
+
+    @property
+    def peer_hi(self):
+        return self.peers.get((0, 1))
+
+    def _open_peers(self, ex, axes, sig) -> None:
+        """Swaps IPC handles with every rank of the group and opens the
+        neighbours' along ``axes``."""
         mesh, lib = ex.mesh, self.lib
         handle = (ctypes.c_char * lib.mg_ipc_handle_size())()
         _rc(lib.mg_ipc_handle(self.index, self.base, handle),
-            "cudaIpcGetMemHandle of the rdma receive buffers")
+            "cudaIpcGetMemHandle of the peer buffers")
         everyone = [None] * mesh.size
         dist.all_gather_object(everyone, (socket.gethostname(),
-                                          bytes(handle)), group=mesh.group)
-        mx = ex.plan.mesh_shape[0]
-        hosts = [everyone[mesh.rank_of((x, 0, 0))][0] for x in range(mx)]
-        for x in range(mx - 1):
-            if hosts[x] != hosts[x + 1]:
-                raise ValueError(
-                    f"halo='rdma': x neighbours {x} and {x + 1} run on hosts "
-                    f"{hosts[x]!r} and {hosts[x + 1]!r}; CUDA IPC maps memory "
-                    "between processes of one host only (run "
-                    "halo='ppermute')")
-        x = ex.dc[0]
-        for step in (-1, 1):
-            if not 0 <= x + step < mx:
-                continue
-            peer = everyone[mesh.rank_of((x + step, 0, 0))][1]
-            ptr = ctypes.c_void_p()
-            _rc(lib.mg_ipc_open(self.index, peer, ctypes.byref(ptr)),
-                f"cudaIpcOpenMemHandle of x neighbour {x + step}'s rdma "
-                "receive buffers")
-            self._peers.append(ptr.value)
-            if step < 0:
-                self.peer_lo = ptr.value
-            else:
-                self.peer_hi = ptr.value
+                                          bytes(handle), sig),
+                               group=mesh.group)
+        if any(e[2] != sig for e in everyone):
+            raise ValueError("the ranks' peer buffers differ in layout: "
+                             f"{sorted({str(e[2]) for e in everyone})}")
+        me = everyone[mesh.rank][0]
+        for ax in axes:
+            for step in (-1, 1):
+                nb = ex.neighbour(ax, step)
+                if nb is None:
+                    continue
+                host, peer, _ = everyone[nb]
+                name = "xy"[ax]
+                if host != me:
+                    raise ValueError(
+                        f"{name} neighbour rank {nb} runs on host {host!r}, "
+                        f"this rank on {me!r}; CUDA IPC maps memory between "
+                        "processes of one host only")
+                ptr = ctypes.c_void_p()
+                _rc(lib.mg_ipc_open(self.index, peer, ctypes.byref(ptr)),
+                    f"cudaIpcOpenMemHandle of {name} neighbour rank {nb}'s "
+                    "peer buffers")
+                self._peers.append(ptr.value)
+                self.peers[(ax, step)] = ptr.value
+
+    def close_peers(self) -> None:
+        while self._peers:
+            self.lib.mg_ipc_close(self.index, self._peers.pop())
+        self.peers = {}
+
+    def free(self) -> None:
+        self._finalizer()
+
+
+class RdmaSlabs(PeerSlabs):
+    """The rdma exchange's registry: the receive buffers of ``n`` fields'
+    x slabs of one block ``shape``, ``dtype`` and depth ``g`` on this rank
+    (``recv``, ``(2n, g, by, bz)``: lo and hi of each field) and its x
+    neighbours' (``peer_lo`` / ``peer_hi``, None at a global edge)."""
+
+    def __init__(self, ex, shape, dtype: torch.dtype, g: int, n: int,
+                 device: torch.device):
+        self.shape, self.g, self.n = tuple(shape), g, n
+        _, by, bz = self.shape
+        self.elem = torch.empty((), dtype=dtype).element_size()
+        self.slab_bytes = g * by * bz * self.elem
+        super().__init__(ex, 2 * n * self.slab_bytes, device,
+                         sig=(self.shape, str(dtype), g, n))
+        self.recv = _as_tensor(self.base, (2 * n, g, by, bz), dtype)
 
     def slabs(self) -> List[SlabSet]:
         """Per field ``(xlo, xhi, None, None)``: views of ``recv``."""
@@ -213,13 +245,14 @@ class PeerSlabs:
         sb = self.slab_bytes
         tail = (self.shape[0] - self.g) * self.shape[1] * self.shape[2] \
             * self.elem
+        lo_peer, hi_peer = self.peer_lo, self.peer_hi
         out = []
         for i, u in enumerate(fields):
             lo, hi = self.base + 2 * i * sb, self.base + (2 * i + 1) * sb
-            out.append((self.peer_lo + (2 * i + 1) * sb, u.data_ptr(), sb)
-                       if self.peer_lo is not None else (lo, None, sb))
-            out.append((self.peer_hi + 2 * i * sb, u.data_ptr() + tail, sb)
-                       if self.peer_hi is not None else (hi, None, sb))
+            out.append((lo_peer + (2 * i + 1) * sb, u.data_ptr(), sb)
+                       if lo_peer is not None else (lo, None, sb))
+            out.append((hi_peer + 2 * i * sb, u.data_ptr() + tail, sb)
+                       if hi_peer is not None else (hi, None, sb))
         return out
 
     def launch(self, fields: Sequence[torch.Tensor]) -> None:
@@ -234,16 +267,8 @@ class PeerSlabs:
         )
         kernels._check_rc(rc, "rdma_exchange")
 
-    def close_peers(self) -> None:
-        while self._peers:
-            self.lib.mg_ipc_close(self.index, self._peers.pop())
-        self.peer_lo = self.peer_hi = None
 
-    def free(self) -> None:
-        self._finalizer()
-
-
-def peer_slabs(ex, fields: Sequence[torch.Tensor], g: int) -> PeerSlabs:
+def peer_slabs(ex, fields: Sequence[torch.Tensor], g: int) -> RdmaSlabs:
     """The registry of ``ex`` for these fields' shape, dtype, depth and
     count, built on first use (collective on a multi-rank mesh: every
     rank reaches the same exchanges in the same order)."""
@@ -251,7 +276,7 @@ def peer_slabs(ex, fields: Sequence[torch.Tensor], g: int) -> PeerSlabs:
     key = (tuple(u.shape), u.dtype, g, len(fields))
     reg = ex.rdma.get(key)
     if reg is None:
-        reg = ex.rdma[key] = PeerSlabs(ex, u.shape, u.dtype, g, len(fields),
+        reg = ex.rdma[key] = RdmaSlabs(ex, u.shape, u.dtype, g, len(fields),
                                        u.device)
     return reg
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import gpusolve_tpu_torch as gt
+from gpusolve_tpu_torch import cli
 from gpusolve_tpu_torch.dist import pod as tpod
 from gpusolve_tpu_torch.dist import spmd as tsp
 from gpusolve_tpu_torch.dist.mesh import Mesh
@@ -352,8 +353,8 @@ def test_mesh_depths_and_refusals():
     """On (2, 1) and (1, 2) data meshes the split axis halves exactly; a
     corner-tap stencil has no pod depth and the engine refuses it (as
     tests/test_pod.py's JAX engine does); pre/post past the legs' caps
-    are refused; a fuse='pod' engine on a multi-rank CUDA mesh raises,
-    naming the ROADMAP item."""
+    are refused; a multi-rank CUDA mesh is no refusal (its chains
+    exchange in the launch): --fuse auto takes pod there."""
     p = _params(0, (31, 31, 31))
     for mesh_xy in ((2, 1), (1, 2)):
         plan = tpod.PodPlan(p, mesh_xy + (1,), 2)
@@ -376,13 +377,7 @@ def test_mesh_depths_and_refusals():
     assert not tpod.pod_supported(p, (1, 1), p.num_levels)
     assert not tpod.pod_supported(corner, (1, 1), 1)
     assert tpod.choose_npod(p.replace(pre_smoothing=6), (1, 1)) is None
-    cuda = Mesh((2, 1, 1), (0, 0, 0), 0, None, torch.device("cuda"))
-    with pytest.raises(ValueError,
-                       match="ROADMAP Queue 2, rows 12-14 across cards"):
-        tpod.PodEngine(p, cuda)
-    with pytest.raises(ValueError,
-                       match="ROADMAP Queue 2, rows 12-14 across cards"):
-        tsp.build_spmd_solver(p, cuda, fuse="pod")
+    assert cli._pod_refusal(p, (2, 1, 1), "ppermute") is None
 
 
 @pytest.mark.parametrize("cycle", ["V", "W", "F"])
